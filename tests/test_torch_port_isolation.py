@@ -1,0 +1,47 @@
+"""The PyTorch port never imports JAX or the JAX package.
+
+Walks the syntax tree of every module of ``radiodsp_sdr_rx_tpu_torch`` and of
+``chip_smoke.py`` (which must run on a machine without JAX) and fails on any
+import of ``jax``, ``jaxlib`` or ``radiodsp_sdr_rx_tpu``, at any depth.
+"""
+
+import ast
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parent.parent
+FILES = sorted((ROOT / "radiodsp_sdr_rx_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FORBIDDEN = {"jax", "jaxlib", "radiodsp_sdr_rx_tpu"}
+
+
+def _imported(tree: ast.AST):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module and not node.level:
+            yield node.module
+        elif (isinstance(node, ast.Call) and getattr(node.func, "attr", getattr(
+                node.func, "id", None)) in ("import_module", "__import__")
+              and node.args and isinstance(node.args[0], ast.Constant)):
+            yield str(node.args[0].value)
+
+
+def test_port_has_modules():
+    names = {p.relative_to(ROOT).as_posix() for p in FILES}
+    assert {"chip_smoke.py", "radiodsp_sdr_rx_tpu_torch/ops/sweep.py",
+            "radiodsp_sdr_rx_tpu_torch/models/fused.py"} <= names
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(ROOT).as_posix())
+def test_no_jax_import(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = [m for m in _imported(tree) if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_checker_sees_forbidden_imports():
+    src = "import jax.numpy\nfrom radiodsp_sdr_rx_tpu.ops import nco\n" \
+          "def f():\n    import importlib; importlib.import_module('jax')\n"
+    assert [m for m in _imported(ast.parse(src)) if m.split(".")[0] in FORBIDDEN] == \
+        ["jax.numpy", "radiodsp_sdr_rx_tpu.ops", "jax"]
