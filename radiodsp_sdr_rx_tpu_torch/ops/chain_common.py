@@ -1,0 +1,78 @@
+"""Plain PyTorch pieces shared by the sweep and staged chains.
+
+The DDS mix, the two overlap-save framings with their fp32 products, and the
+argument checks of the kernel wrappers. ``ops/sweep.py`` and ``ops/staged.py``
+build their plain versions from these, so both backends' references frame
+and mix the stream the same way; ``csrc/chain_common.cuh`` is the device
+side of the same pieces.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+BLOCK = 128
+_PHASE_SCALE = np.float32(2.0 * np.pi / 4294967296.0)
+
+
+def matmul_fp32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b in full fp32, as the kernels compute it: on the card TF32 is
+    switched off for this product and the setting restored after it."""
+    if not a.is_cuda:
+        return torch.matmul(a, b)
+    allow = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        return torch.matmul(a, b)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow
+
+
+def mix(xr, xi, phase0, inc, positions):
+    """Mix (already scaled) IQ down by the DDS phase phase0 + position*inc
+    (uint32 wrap), read as int32 before the float conversion, as the TPU
+    kernel does."""
+    phase = (phase0[:, None] + positions[None, :] * inc[:, None]) & 0xFFFFFFFF
+    phase = torch.where(phase >= 1 << 31, phase - (1 << 32), phase)
+    ang = phase.to(torch.int32).to(torch.float32) * float(_PHASE_SCALE)
+    c, s = torch.cos(ang), torch.sin(ang)
+    return xr * c + xi * s, xi * c - xr * s
+
+
+def demod_frames(br, bi, tr, ti, w_ssb):
+    """Mixed stream (C, n) and mixed tail (C, 128): frames
+    [prev_r | cur_r | prev_i | cur_i] @ w_ssb -> audio (C, rows, 128)."""
+    c, n = br.shape
+    br = br.view(c, n // BLOCK, BLOCK)
+    bi = bi.view(c, n // BLOCK, BLOCK)
+    prev_r = torch.cat([tr[:, None], br[:, :-1]], dim=1)
+    prev_i = torch.cat([ti[:, None], bi[:, :-1]], dim=1)
+    return matmul_fp32(torch.cat([prev_r, br, prev_i, bi], dim=-1), w_ssb)
+
+
+def pbt_frames(audio, tail, w_pbt):
+    """Audio (C, rows, 128) and its tail (C, 128): frames [prev | cur] @ w_pbt
+    -> [L|R] (C, rows, 256)."""
+    prev = torch.cat([tail[:, None], audio[:, :-1]], dim=1)
+    return matmul_fp32(torch.cat([prev, audio], dim=-1), w_pbt)
+
+
+def check_tensors(expect: dict, device) -> None:
+    """expect: name -> (tensor, shape, dtype); all on ``device``."""
+    for name, (t, shape, dtype) in expect.items():
+        if tuple(t.shape) != shape or t.dtype != dtype or t.device != device:
+            raise ValueError(f"{name}: expected {dtype} {shape} on {device}, "
+                             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def check_stream(xr) -> None:
+    if xr.dim() != 2 or xr.shape[1] == 0 or xr.shape[1] % BLOCK:
+        raise ValueError(f"xr must be (C, n) with n a positive multiple of "
+                         f"{BLOCK}, got {tuple(xr.shape)}")
+
+
+def check_launch(name: str, tensors) -> None:
+    for t in tensors:
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} takes contiguous tensors aligned to 16 bytes")

@@ -1,10 +1,11 @@
 """Build the port's CUDA sources with plain ``nvcc`` and load them with ctypes.
 
-Each ``csrc/<name>.cu`` exposes an ``extern "C"`` launcher and includes no
+Each ``csrc/<name>.cu`` exposes ``extern "C"`` launchers and includes no
 PyTorch header, so one ``nvcc`` call builds it in seconds. The shared library
 goes to ``_build/`` beside the package (listed in ``.gitignore``), named by a
-hash of the source and the flags: it is rebuilt only when either changes.
-Nothing is built at import; the first launch builds.
+hash of the source, of every ``csrc/`` header it includes (``#include
+"..."``, followed through headers) and of the flags: it is rebuilt when any
+of them changes. Nothing is built at import; the first launch builds.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -37,9 +39,25 @@ def _nvcc() -> str:
                        "toolkit is needed to build the port's kernels")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def sources(name: str) -> list[Path]:
+    """``csrc/<name>.cu`` and every header under ``csrc/`` it includes,
+    directly or through another header, in the order first met."""
+    found = [CSRC / f"{name}.cu"]
+    for path in found:
+        for inc in _INCLUDE.findall(path.read_bytes()):
+            header = (path.parent / inc.decode()).resolve()
+            if header not in found:
+                found.append(header)
+    return found
+
+
 def _artifact(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sources(name):
+        digest.update(path.read_bytes())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 

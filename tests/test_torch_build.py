@@ -1,0 +1,41 @@
+"""The kernel build's cache key: ``utils/build.py`` names a library by a hash
+of its ``.cu`` source, of every ``csrc/`` header it includes and of the nvcc
+flags, so that an edited shared header rebuilds every library that uses it.
+Nothing here runs nvcc."""
+
+import shutil
+
+import pytest
+
+from radiodsp_sdr_rx_tpu_torch.utils import build
+
+
+@pytest.mark.parametrize("name", ["sweep_chain", "staged"])
+def test_sources_follow_includes(name):
+    assert [p.name for p in build.sources(name)] == [f"{name}.cu", "chain_common.cuh"]
+
+
+@pytest.mark.parametrize("edited", ["staged.cu", "chain_common.cuh", "sweep_chain.cu"])
+def test_artifact_changes_with_each_source(tmp_path, monkeypatch, edited):
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, csrc)
+    monkeypatch.setattr(build, "CSRC", csrc)
+    before = {name: build._artifact(name).name for name in ("staged", "sweep_chain")}
+    (csrc / edited).write_text((csrc / edited).read_text() + "\n// edited\n")
+    after = {name: build._artifact(name).name for name in ("staged", "sweep_chain")}
+    for name in before:
+        uses = edited in [p.name for p in build.sources(name)]
+        assert (before[name] != after[name]) == uses, name
+
+
+def test_nested_headers_are_followed(tmp_path, monkeypatch):
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "k.cu").write_text('#include "a.cuh"\n#include <cuda_runtime.h>\n')
+    (csrc / "a.cuh").write_text('#pragma once\n#include "b.cuh"\n')
+    (csrc / "b.cuh").write_text('#pragma once\n#include "a.cuh"\n')
+    monkeypatch.setattr(build, "CSRC", csrc)
+    assert [p.name for p in build.sources("k")] == ["k.cu", "a.cuh", "b.cuh"]
+    before = build._artifact("k").name
+    (csrc / "b.cuh").write_text('#pragma once\n#include "a.cuh"\n// edited\n')
+    assert build._artifact("k").name != before

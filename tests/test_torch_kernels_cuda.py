@@ -1,4 +1,4 @@
-"""The port's CUDA kernel against its plain PyTorch version, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
 
 Every test here needs an NVIDIA card and nvcc; without them each skips (the
 ``cuda_device`` fixture decides at run time). On the card:
@@ -13,7 +13,7 @@ import torch
 
 from radiodsp_sdr_rx_tpu_torch.models.config import AGCMode, DemodMode, ReceiverConfig
 from radiodsp_sdr_rx_tpu_torch.models.fused import FusedSSBBank
-from radiodsp_sdr_rx_tpu_torch.ops import sweep
+from radiodsp_sdr_rx_tpu_torch.ops import agc, staged, sweep
 
 pytestmark = pytest.mark.cuda
 ATOL = 1e-4
@@ -27,18 +27,28 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _bank(agc, channels, device=None):
+def _bank(agc_mode, channels, device=None, backend="sweep", noise_blanker=False):
     cfg = ReceiverConfig(mode=DemodMode.USB, vfo_freq=7_200_000.0,
-                         capture_center_freq=7_190_000.0, agc=agc)
+                         capture_center_freq=7_190_000.0, agc=agc_mode,
+                         noise_blanker=noise_blanker)
     return FusedSSBBank(cfg, [7_190_000.0 + 1_000.0 * k for k in range(channels)],
-                        device=device)
+                        backend=backend, device=device)
 
 
-@pytest.mark.parametrize("channels, n, agc", [
+def _close(got, ref):
+    for g, r in zip(got, ref):
+        assert bool(torch.isfinite(g).all())
+        np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(), atol=ATOL, rtol=0)
+
+
+SHAPES = [
     (8, 8192, AGCMode.MEDIUM),   # one whole 64-row chunk
     (3, 8576, AGCMode.FAST),     # a partial last chunk (67 rows)
     (4, 256, AGCMode.OFF),       # two rows, AGC off
-])
+]
+
+
+@pytest.mark.parametrize("channels, n, agc", SHAPES)
 def test_kernel_matches_plain_over_two_segments(cuda_device, channels, n, agc):
     bank = _bank(agc, channels, cuda_device)
     gen = torch.Generator(device=cuda_device).manual_seed(n)
@@ -67,6 +77,19 @@ def test_default_device_launches_once_per_segment(cuda_device):
     assert sweep.LAUNCHES == before + 3
 
 
+def test_plain_versions_restore_tf32_setting(cuda_device):
+    """The plain versions switch TF32 off for their products only."""
+    bank = _bank(AGCMode.MEDIUM, 2, cuda_device)
+    x = torch.zeros((2, 256), device=cuda_device)
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        sweep.sweep_full_chain_plain(*bank.chain_args(x, x, bank.init_state()))
+        staged.pbt_filter_plain(x, bank.params.w_pbt, torch.zeros((2, 128), device=cuda_device))
+        assert torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
 def test_kernel_rejects_strided_input(cuda_device):
     bank = _bank(AGCMode.MEDIUM, 4, cuda_device)
     x = torch.zeros((4, 512), device=cuda_device)
@@ -74,3 +97,56 @@ def test_kernel_rejects_strided_input(cuda_device):
     args[0] = torch.zeros((4, 1024), device=cuda_device)[:, ::2]
     with pytest.raises(ValueError, match="contiguous"):
         sweep.sweep_full_chain(*args)
+
+
+@pytest.mark.parametrize("channels, n, agc_mode", SHAPES)
+def test_staged_kernels_match_plain_over_two_segments(cuda_device, channels, n, agc_mode):
+    """mix_demod and pbt each against its plain version on the same inputs, and
+    the staged bank (2 launches per segment) against the plain chain."""
+    bank = _bank(agc_mode, channels, cuda_device, backend="staged")
+    gen = torch.Generator(device=cuda_device).manual_seed(n + 1)
+    state = bank.init_state()
+    for _ in range(2):
+        xr = torch.randn((channels, n), generator=gen, device=cuda_device) * 0.1
+        xi = torch.randn((channels, n), generator=gen, device=cuda_device) * 0.1
+        xr[:, n // 3:n // 3 + 100] *= 30.0
+        args = bank.mix_demod_args(xr, xi, state)
+        audio = staged.fused_mix_filter_demod_plain(*args)
+        _close([staged.fused_mix_filter_demod(*args)], [audio])
+        audio_g, env = agc.agc_run(audio, bank.agc_params, state.agc_env)
+        ref = staged.pbt_filter_plain(*bank.pbt_args(audio_g, state))
+        _close(staged.pbt_filter(*bank.pbt_args(audio_g, state)), ref)
+        before = (staged.LAUNCHES_MIX_DEMOD, staged.LAUNCHES_PBT)
+        out, state = bank.process_planar(xr, xi, state)
+        torch.cuda.synchronize()
+        assert (staged.LAUNCHES_MIX_DEMOD, staged.LAUNCHES_PBT) == (before[0] + 1, before[1] + 1)
+        _close((out["audio_l"], out["audio_r"], state.audio_tail, state.agc_env),
+               ref + (audio_g[:, -128:], env))
+
+
+@pytest.mark.parametrize("channels, n, agc_mode", SHAPES)
+def test_nb_kernel_matches_plain_over_two_segments(cuda_device, channels, n, agc_mode):
+    """The blanker on the decisive scene (clipped noise, impulses far above the
+    threshold, the average warm-started), with an impulse on each segment's
+    last sample so that its keep mask carries into the next segment."""
+    bank = _bank(agc_mode, channels, cuda_device, noise_blanker=True)
+    gen = torch.Generator(device=cuda_device).manual_seed(n + 2)
+    xr = torch.randn((channels, n), generator=gen, device=cuda_device) * 0.05
+    xi = torch.randn((channels, n), generator=gen, device=cuda_device) * 0.05
+    mag = torch.hypot(xr, xi)
+    f = (2.2 * mag.mean() / mag.clamp(min=1e-12)).clamp(max=1.0)
+    xr, xi = xr * f, xi * f
+    for pos in sorted({n // 5, n // 2 + 3, n - 1}):
+        xr[:, pos] = 8.0
+        xi[:, pos] = 8.0
+    state = bank.init_state()._replace(
+        nb_avg=torch.full((channels,), float(torch.hypot(xr, xi).mean()), device=cuda_device))
+    for _ in range(2):
+        ref = sweep.sweep_full_chain_plain(*bank.chain_args(xr, xi, state))
+        before = sweep.LAUNCHES_NB
+        out, state = bank.process_planar(xr, xi, state)
+        torch.cuda.synchronize()
+        assert sweep.LAUNCHES_NB == before + 1
+        _close((out["audio_l"], out["audio_r"], state.audio_tail, state.agc_env,
+                state.nb_avg, state.nb_mask), ref)
+        assert float(state.nb_mask[:, -1].max()) == 0.0

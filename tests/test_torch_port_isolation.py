@@ -30,6 +30,9 @@ def _imported(tree: ast.AST):
 def test_port_has_modules():
     names = {p.relative_to(ROOT).as_posix() for p in FILES}
     assert {"chip_smoke.py", "radiodsp_sdr_rx_tpu_torch/ops/sweep.py",
+            "radiodsp_sdr_rx_tpu_torch/ops/staged.py",
+            "radiodsp_sdr_rx_tpu_torch/ops/chain_common.py",
+            "radiodsp_sdr_rx_tpu_torch/ops/agc.py",
             "radiodsp_sdr_rx_tpu_torch/models/fused.py"} <= names
 
 

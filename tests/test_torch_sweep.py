@@ -4,7 +4,11 @@
 Tolerance 1e-4: both are fp32, but the products and the AGC's doubling
 scans sum in another order (the port scans a whole segment, the TPU kernel
 one 2048-sample chunk at a time), and the AGC gain of up to 316 amplifies
-that rounding. The measured max is 2.4e-6.
+that rounding. The measured max is 2.4e-6. The noise-blanker cases run on
+the decisive impulse scene of tests/test_fused_bank.py:484-545 (clipped
+noise, impulses far above the threshold, the average warm-started), where
+no sample lies within rounding of the threshold; their measured max is
+3.9e-7, and the keep masks agree exactly.
 """
 
 import numpy as np
@@ -73,6 +77,60 @@ def test_plain_matches_jax_with_gains():
                      in_gain=0.7, balance=0.97) < ATOL
 
 
+def _clip_for_nb(iq, cap_ratio=2.2):
+    """Clip the noise magnitude to cap_ratio x its mean, so that no sample lies
+    within rounding of the blanking threshold (tests/test_fused_bank.py:484)."""
+    mag = np.abs(iq)
+    cap = cap_ratio * float(mag.mean())
+    return (iq * np.minimum(1.0, cap / np.maximum(mag, 1e-12))).astype(np.complex64)
+
+
+@pytest.mark.parametrize("n, chunk_t, tau, agc", [
+    (4096, 1024, 256.0, AGCMode.MEDIUM),   # the JAX bank test's blanker
+    (6144, 2048, 512.0, AGCMode.OFF),      # the config default tau, 3 chunks
+])
+def test_plain_nb_matches_jax_interpret(n, chunk_t, tau, agc):
+    p = build_params(ReceiverConfig(mode=DemodMode.USB, vfo_freq=7_200_000.0,
+                                    capture_center_freq=7_190_000.0, agc=agc))
+    c = 8
+    rng = np.random.default_rng(n)
+    iq = _clip_for_nb((rng.standard_normal((c, 2 * n))
+                       + 1j * rng.standard_normal((c, 2 * n))) * 0.05)
+    for pos in (500, 1733, n - 3, n - 1, n + 901):   # one on the segment's last sample
+        iq[:, pos] = 8.0 * (1 + 1j)
+    inc = rng.integers(0, 2**32, c, dtype=np.uint64).astype(np.uint32)
+    phase = rng.integers(0, 2**32, c, dtype=np.uint64).astype(np.uint32)
+    kw = dict(agc_release=float(p.agc_release), agc_target=float(p.agc_target),
+              agc_max_gain=float(p.agc_max_gain), agc_enabled=bool(p.agc_enabled),
+              out_gain=0.5, in_gain=1.0, iq_balance=1.02, nb=True,
+              nb_thresh_db=10.0, nb_tau=tau)
+    tails = np.zeros((c, 256), np.float32)
+    atail = np.zeros((c, 128), np.float32)
+    env = np.full(c, 1e-6, np.float32)
+    nb_avg = np.full(c, float(np.abs(iq).mean()), np.float32)   # warm start
+    nb_mask = np.ones((c, 128), np.float32)
+    for seg in range(2):
+        xr = np.ascontiguousarray(iq.real[:, seg * n:(seg + 1) * n], np.float32)
+        xi = np.ascontiguousarray(iq.imag[:, seg * n:(seg + 1) * n], np.float32)
+        want = jax_sweep(xr, xi, inc, phase, p.w_ssb, p.w_pbt, tails[:, :128],
+                         tails[:, 128:], atail, env, chunk_t=chunk_t, interpret=True,
+                         nb_avg0=nb_avg, nb_mask0=nb_mask, **kw)
+        got = sweep.sweep_full_chain(
+            _t(xr), _t(xi), _t(inc, torch.int64), _t(phase, torch.int64),
+            _t(p.w_ssb), _t(p.w_pbt), _t(tails[:, :128]), _t(tails[:, 128:]),
+            _t(atail), _t(env), nb_avg0=_t(nb_avg), nb_mask0=_t(nb_mask), **kw)
+        assert len(got) == 6
+        for g, w in zip(got, want):
+            assert g.shape == tuple(np.shape(w))
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=ATOL, rtol=0)
+        assert np.array_equal(got[5].numpy(), np.asarray(want[5]))
+        if seg == 0:   # the last sample was blanked, and its mask carries
+            assert got[5].numpy()[:, -1].max() == 0.0
+        atail, env, nb_avg, nb_mask = (np.asarray(w) for w in want[2:])
+        tails = np.concatenate([xr[:, -128:], xi[:, -128:]], axis=1)
+        phase = (phase.astype(np.uint64) + n * inc.astype(np.uint64)).astype(np.uint32)
+
+
 def test_advance_phase_wraps_like_uint32():
     rng = np.random.default_rng(3)
     phase = rng.integers(0, 2**32, 64, dtype=np.uint64).astype(np.uint32)
@@ -83,11 +141,14 @@ def test_advance_phase_wraps_like_uint32():
         assert np.array_equal(got.numpy(), want.astype(np.int64))
 
 
-def _args(c=2, n=256):
+def _args(c=2, n=256, nb=False):
     f = torch.zeros
-    return [f(c, n), f(c, n), f(c, dtype=torch.int64), f(c, dtype=torch.int64),
+    args = [f(c, n), f(c, n), f(c, dtype=torch.int64), f(c, dtype=torch.int64),
             f(512, 128), f(256, 256), f(c, 128), f(c, 128), f(c, 128),
             torch.full((c,), 1e-6), 0.9999, 0.5, 316.0]
+    if nb:   # agc_enabled, the gains, then the blanker's
+        args += [True, 1.0, 1.0, 1.0, True, 10.0, 512.0, f(c), torch.ones(c, 128)]
+    return args
 
 
 @pytest.mark.parametrize("index, bad", [
@@ -97,9 +158,13 @@ def _args(c=2, n=256):
     (4, torch.zeros(256, 128)),                 # w_ssb shape
     (9, torch.zeros(3)),                        # env0 shape
     (10, 1.5),                                  # release outside (0, 1]
+    (20, torch.zeros(3)),                       # nb_avg0 shape, nb=True
+    (21, torch.ones(2, 64)),                    # nb_mask0 shape, nb=True
+    (20, None),                                 # nb=True needs the carries
+    (19, 0.0),                                  # nb_tau not positive
 ])
 def test_wrapper_rejects_bad_arguments(index, bad):
-    args = _args()
+    args = _args(nb=index >= 17)
     args[index] = bad
     with pytest.raises(ValueError):
         sweep.sweep_full_chain(*args)
@@ -112,6 +177,7 @@ def test_wrapper_rejects_other_devices():
 
 
 def test_cpu_tensors_never_launch():
-    before = sweep.LAUNCHES
+    before = (sweep.LAUNCHES, sweep.LAUNCHES_NB)
     sweep.sweep_full_chain(*_args())
-    assert sweep.LAUNCHES == before
+    sweep.sweep_full_chain(*_args(nb=True))
+    assert (sweep.LAUNCHES, sweep.LAUNCHES_NB) == before
