@@ -5,15 +5,25 @@
 
 Builds the port's kernels from ``radiodsp_sdr_rx_tpu_torch/csrc`` with nvcc
 (one nvcc per source, all started together), holds each kernel against its
-plain PyTorch version, drives three paths of the 128-channel USB
-``FusedSSBBank`` of bench.py at full width (2^19-sample segments, state
-threaded between them) through the kernels, and times them:
+plain PyTorch version, drives every ported path at full width (2^19-sample
+segments, state threaded between them) through the kernels, holds the fused
+banks against the port's reference chain, and times them:
 
-  - the main path, backend="sweep": kernel sweep_chain_ssb, 1 launch/segment;
+  - the main path, the 128-channel USB ``FusedSSBBank`` of bench.py,
+    backend="sweep": kernel sweep_chain_ssb, 1 launch/segment;
   - the staged path, backend="staged": kernels mix_demod and pbt with the AGC
     between them in PyTorch, 2 launches/segment;
   - the noise-blanker path, noise_blanker=True: kernel sweep_chain_ssb_nb,
-    1 launch/segment.
+    1 launch/segment;
+  - the AM path, ``FusedAMBank`` at bench_full.py's config1 (64 channels, AGC
+    off): kernel sweep_chain_am, 1 launch/segment, and with the blanker
+    sweep_chain_am_nb;
+  - the reference chain, ``ReceiverBank(backend="batched")`` at bench_full.py's
+    config3 (CW_NARROW, NR notch) and config7 (USB, DNR2), 128 channels: its
+    LMS stage on kernel lms_nr, 1 launch/segment, the other stages plain
+    PyTorch;
+  - cross-path parity: the fused SSB and AM banks against ``ReceiverBank`` on
+    the same input, at the docs/CHIP_PARITY.md bound.
 
 Every phase prints one flushed line with the seconds elapsed. Any failure
 raises and exits non-zero; without a CUDA card it exits non-zero at once.
@@ -32,14 +42,20 @@ from concurrent.futures import ThreadPoolExecutor
 T0 = time.perf_counter()
 TOL = 1e-4           # kernel vs plain, both fp32: sums taken in another order
 TOL_BACKENDS = 2e-4  # staged vs sweep backend (tests/test_fused_bank.py:66-88)
+TOL_LMS = 2e-4       # the LMS twin bound (tests/test_pallas_lms.py:35)
+TOL_PARITY = 2e-3    # fused bank vs ReceiverBank (docs/CHIP_PARITY.md)
 N_CHANNELS = 128     # bench.py:38
+N_AM = 64            # bench_full.py config1_am_64ch
 SEG_LEN = 1 << 19    # bench.py:39
 SEGMENTS = 3         # threaded segments of each full-width run
 REPS = 10            # timed segments
+LMS_PREFIX = 16384   # samples of the per-sample plain LMS held to the kernel
 PEAK_BYTES_S = 3.35e12   # H100 SXM device memory
 PEAK_FP32_S = 67e12      # H100 SXM fp32 outside the tensor cores
 NB_FLOPS_PER_SAMPLE = 10  # |x|, the one-pole average, the threshold test
-LIBRARIES = ("sweep_chain", "staged")
+AM_FLOPS_PER_SAMPLE = 6   # the envelope and the DC blocker
+LMS_FLOPS_PER_SAMPLE = 6 * 96   # the 96-tap dot, the energy and the update
+LIBRARIES = ("sweep_chain", "staged", "lms")
 
 
 def say(msg: str) -> None:
@@ -55,10 +71,11 @@ def max_diff(got, ref) -> float:
     return max(float((g - r).abs().max()) for g, r in zip(got, ref))
 
 
-def time_ms(fn, reps: int) -> float:
+def time_ms(fn, reps: int, warmup: bool = True) -> float:
     import torch
 
-    fn()
+    if warmup:
+        fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(reps):
@@ -94,6 +111,34 @@ def nb_scene(c, n, gen):
     return xr, xi, float(torch.hypot(xr, xi).mean())
 
 
+def tone_scene(c, n, gen):
+    """A tone per channel (predictable across the LMS's 128-sample delay) in
+    noise: what the LMS stages adapt to."""
+    import torch
+
+    t = torch.arange(n, device="cuda", dtype=torch.float32)
+    f = torch.rand((c, 1), generator=gen, device="cuda") * 0.2 + 0.01
+    return 0.3 * torch.sin(2 * torch.pi * f * t) + noise((c, n), gen)
+
+
+def ptxas_summary(log: str):
+    """(kernel, registers, stack and spills) per entry function of a build
+    log, the sweep kernel's instantiations (demod x blanker) by entry point."""
+    out = []
+    for block in log.split("Compiling entry function")[1:]:
+        mangled = block.split("'")[1]
+        if "sweep_chain_kernel" in mangled:
+            kname = ("sweep_chain_am" if "DemodE1" in mangled else "sweep_chain_ssb") + (
+                "_nb" if "ELb1E" in mangled else "")
+        else:
+            kname = next(k for fn, k in (("mix_demod_kernel", "mix_demod"), ("pbt_kernel", "pbt"),
+                                         ("lms_kernel", "lms_nr")) if fn in mangled)
+        lines = block.splitlines()
+        out.append((kname, next(ln for ln in lines if "registers" in ln).split(": ")[-1],
+                    next(ln for ln in lines if "spill" in ln).strip()))
+    return out
+
+
 def bound(flops: float, nbytes: float) -> tuple[float, str]:
     t_ops, t_bytes = flops / PEAK_FP32_S, nbytes / PEAK_BYTES_S
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops > t_bytes else "bytes"
@@ -114,21 +159,30 @@ def main() -> None:
         f"{torch.cuda.device_count()} card(s))")
     print(smi, flush=True)
 
-    from radiodsp_sdr_rx_tpu_torch.models.config import AGCMode, DemodMode, ReceiverConfig
-    from radiodsp_sdr_rx_tpu_torch.models.fused import FusedSSBBank
-    from radiodsp_sdr_rx_tpu_torch.ops import agc, staged, sweep
+    from radiodsp_sdr_rx_tpu_torch.models.config import (
+        AGCMode, DemodMode, NRMode, ReceiverConfig)
+    from radiodsp_sdr_rx_tpu_torch.models.fused import FusedAMBank, FusedSSBBank
+    from radiodsp_sdr_rx_tpu_torch.models.receiver import ReceiverBank
+    from radiodsp_sdr_rx_tpu_torch.ops import agc, lms, lms_bank, staged, sweep
     from radiodsp_sdr_rx_tpu_torch.utils import build
 
     torch.backends.cuda.matmul.allow_tf32 = False   # the plain versions in full fp32
     torch.backends.cudnn.allow_tf32 = False
 
     def reset_counts() -> None:
-        sweep.LAUNCHES = sweep.LAUNCHES_NB = 0
+        sweep.LAUNCHES = sweep.LAUNCHES_NB = sweep.LAUNCHES_AM = sweep.LAUNCHES_AM_NB = 0
         staged.LAUNCHES_MIX_DEMOD = staged.LAUNCHES_PBT = 0
+        lms_bank.LAUNCHES = 0
 
     def counts() -> dict:
         return {"sweep_chain_ssb": sweep.LAUNCHES, "sweep_chain_ssb_nb": sweep.LAUNCHES_NB,
-                "mix_demod": staged.LAUNCHES_MIX_DEMOD, "pbt": staged.LAUNCHES_PBT}
+                "mix_demod": staged.LAUNCHES_MIX_DEMOD, "pbt": staged.LAUNCHES_PBT,
+                "sweep_chain_am": sweep.LAUNCHES_AM, "sweep_chain_am_nb": sweep.LAUNCHES_AM_NB,
+                "lms_nr": lms_bank.LAUNCHES}
+
+    def only(**launched) -> dict:
+        """The counts of a path that launched these kernels and no other."""
+        return {k: launched.get(k, 0) for k in counts()}
 
     # 2. the kernel builds, one nvcc per source, all at once
     t = time.perf_counter()
@@ -137,16 +191,16 @@ def main() -> None:
     say(f"build: csrc/{{{','.join(LIBRARIES)}}}.cu with nvcc for sm_90a in "
         f"{time.perf_counter() - t:.2f} s")
     for lib in LIBRARIES:
-        for line in build.build_log(lib).splitlines():
-            if "entry function" in line or "registers" in line or "spill" in line:
-                say(f"ptxas {lib}: {line.strip()}")
+        for kname, regs, spills in ptxas_summary(build.build_log(lib)):
+            say(f"ptxas {lib}.cu {kname}: {regs}; {spills}")
 
     cfg = ReceiverConfig(mode=DemodMode.USB, vfo_freq=7_200_000.0,
                          capture_center_freq=7_190_000.0, agc=AGCMode.MEDIUM)
     cfg_nb = cfg.with_(noise_blanker=True)
     freqs = [7_190_000.0 + 1_000.0 * k for k in range(N_CHANNELS)]
     gen = torch.Generator(device="cuda").manual_seed(0)
-    err = dict.fromkeys(("sweep_chain_ssb", "sweep_chain_ssb_nb", "mix_demod", "pbt"), 0.0)
+    err = dict.fromkeys(("sweep_chain_ssb", "sweep_chain_ssb_nb", "mix_demod", "pbt",
+                         "sweep_chain_am", "sweep_chain_am_nb", "lms_nr"), 0.0)
 
     # 3. each kernel vs its plain version, 8 channels x 8192, two threaded segments
     small = FusedSSBBank(cfg, freqs[:8])
@@ -202,9 +256,57 @@ def main() -> None:
               f"{max(d_a, d_b, d):.3e} > {TOL:g}")
         err["mix_demod"] = max(err["mix_demod"], d_a, d)
         err["pbt"] = max(err["pbt"], d_b, d)
-    del small, small_nb, small_st
+    cfg_am = ReceiverConfig(mode=DemodMode.AM, vfo_freq=7_060_000.0,
+                            capture_center_freq=7_050_000.0, agc=AGCMode.OFF)
+    freqs_am = [7_050_000.0 + 1_000.0 * k for k in range(N_AM)]
+    for agc_mode in (AGCMode.MEDIUM, AGCMode.OFF):
+        for nb in (False, True):
+            kname = "sweep_chain_am_nb" if nb else "sweep_chain_am"
+            small_am = FusedAMBank(cfg_am.with_(agc=agc_mode, noise_blanker=nb), freqs_am[:8])
+            state = small_am.init_state()
+            if nb:
+                xr, xi, mean_mag = nb_scene(8, 8192, gen)
+                state = state._replace(nb_avg=torch.full((8,), mean_mag, device="cuda"))
+            for seg in range(2):
+                if not nb:
+                    xr, xi = noise((8, 8192), gen) + 0.2, noise((8, 8192), gen)
+                    xr[:, 3000:3400] *= 30.0
+                ref = sweep.sweep_am_chain_plain(*small_am.chain_args(xr, xi, state))
+                out, state = small_am.process_planar(xr, xi, state)
+                torch.cuda.synchronize()
+                got = (out["audio_l"], out["audio_r"], state.audio_tail, state.agc_env,
+                       state.am_dc) + ((state.nb_avg, state.nb_mask) if nb else ())
+                d = max_diff(got, ref)
+                say(f"check {kname} 8 ch x 8192 (AGC {agc_mode.value}"
+                    f"{', impulse scene' if nb else ''}), segment {seg}: max |kernel - plain| "
+                    f"over L, R, audio_tail, env, am_dc{', nb_avg, nb_mask' if nb else ''} = "
+                    f"{d:.3e} (tolerance {TOL:g})")
+                check(d <= TOL, f"{kname} disagrees with the plain version: {d:.3e} > {TOL:g}")
+                if nb:
+                    check(float(state.nb_mask.mean()) < 1.0,
+                          "the impulse on the segment's last sample was not blanked")
+                err[kname] = max(err[kname], d)
 
-    def drive(bank, xr, xi, state, label):
+    mu = lms.lms_mu_from_strength(30)
+    for mode in ("notch", "denoise"):
+        state = lms.lms_nr_init(8, device="cuda")
+        x_all = tone_scene(8, 2 * 8192, gen)
+        for seg in range(2):   # first=True into segment 0: the quirk
+            x = x_all[:, seg * 8192:(seg + 1) * 8192].contiguous()
+            args = (x, state.weights, state.window, state.delay, state.first, mu, mode)
+            ref = lms_bank.lms_nr_run_bank_plain(*args)
+            got = lms_bank.lms_nr_run_bank(*args)
+            torch.cuda.synchronize()
+            d = max_diff(got, ref)
+            say(f"check lms_nr ({mode}) 8 ch x 8192, segment {seg} (first="
+                f"{bool(state.first.all())}): max |kernel - plain| over out, weights, "
+                f"window, delay = {d:.3e} (tolerance {TOL_LMS:g})")
+            check(d <= TOL_LMS, f"lms_nr disagrees with the plain version: {d:.3e} > {TOL_LMS:g}")
+            err["lms_nr"] = max(err["lms_nr"], d)
+            state = lms.LMSState(*got[1:], first=torch.zeros_like(state.first))
+    del small, small_nb, small_st, small_am
+
+    def drive(bank, xr, xi, state, label, channels=N_CHANNELS):
         """SEGMENTS threaded segments with the launch counts set to 0 before and
         read after; returns (launches, state into segment 1, its output, the
         state out of it, the final state and output)."""
@@ -219,10 +321,10 @@ def main() -> None:
                 out_1, state_2 = out, state
         torch.cuda.synchronize()
         launched = counts()
-        say(f"{label}: {N_CHANNELS} ch x {SEG_LEN} samples, {SEGMENTS} threaded segments "
+        say(f"{label}: {channels} ch x {SEG_LEN} samples, {SEGMENTS} threaded segments "
             f"in {time.perf_counter() - t:.3f} s, kernel launches {launched}")
         for key in ("audio_l", "audio_r"):
-            check(tuple(out[key].shape) == (N_CHANNELS, SEG_LEN), f"{key} shape {tuple(out[key].shape)}")
+            check(tuple(out[key].shape) == (channels, SEG_LEN), f"{key} shape {tuple(out[key].shape)}")
             check(bool(torch.isfinite(out[key]).all()), f"{key} has non-finite values")
         return launched, state_1, out_1, state_2, state
 
@@ -230,8 +332,7 @@ def main() -> None:
     bank = FusedSSBBank(cfg, freqs)
     xr, xi = noise((N_CHANNELS, SEG_LEN), gen), noise((N_CHANNELS, SEG_LEN), gen)
     launched, state_1, out_1, state_2, state = drive(bank, xr, xi, bank.init_state(), "main path")
-    check(launched == {"sweep_chain_ssb": SEGMENTS, "sweep_chain_ssb_nb": 0, "mix_demod": 0,
-                       "pbt": 0}, f"expected {SEGMENTS} sweep_chain_ssb launches and no "
+    check(launched == only(sweep_chain_ssb=SEGMENTS), f"expected {SEGMENTS} sweep_chain_ssb launches and no "
           f"other, counted {launched}")
     launches = {"sweep_chain_ssb": launched["sweep_chain_ssb"]}
     ref = sweep.sweep_full_chain_plain(*bank.chain_args(xr, xi, state_1))
@@ -248,8 +349,7 @@ def main() -> None:
     bank_st = FusedSSBBank(cfg, freqs, backend="staged")
     launched, st_1, out_1, st_2, state_st = drive(bank_st, xr, xi, bank_st.init_state(),
                                                   "staged path")
-    check(launched == {"sweep_chain_ssb": 0, "sweep_chain_ssb_nb": 0, "mix_demod": SEGMENTS,
-                       "pbt": SEGMENTS}, f"expected {SEGMENTS} launches each of mix_demod "
+    check(launched == only(mix_demod=SEGMENTS, pbt=SEGMENTS), f"expected {SEGMENTS} launches each of mix_demod "
           f"and pbt (2 per segment) and no other, counted {launched}")
     launches.update(mix_demod=launched["mix_demod"], pbt=launched["pbt"])
     args = bank_st.mix_demod_args(xr, xi, st_1)
@@ -281,8 +381,7 @@ def main() -> None:
         nb_avg=torch.full((N_CHANNELS,), mean_mag, device="cuda"))
     launched, nb_1, out_1, nb_2, state_nb = drive(bank_nb, xr_nb, xi_nb, state_nb,
                                                   "noise-blanker path")
-    check(launched == {"sweep_chain_ssb": 0, "sweep_chain_ssb_nb": SEGMENTS, "mix_demod": 0,
-                       "pbt": 0}, f"expected {SEGMENTS} sweep_chain_ssb_nb launches and "
+    check(launched == only(sweep_chain_ssb_nb=SEGMENTS), f"expected {SEGMENTS} sweep_chain_ssb_nb launches and "
           f"no other, counted {launched}")
     launches["sweep_chain_ssb_nb"] = launched["sweep_chain_ssb_nb"]
     ref = sweep.sweep_full_chain_plain(*bank_nb.chain_args(xr_nb, xi_nb, nb_1))
@@ -296,6 +395,101 @@ def main() -> None:
     check(kept < 1.0, "the impulse on the segment's last sample was not blanked")
     err["sweep_chain_ssb_nb"] = max(err["sweep_chain_ssb_nb"], d)
     del ref, out_1
+
+    # 4d. the AM path at full width: bench_full.py config1 (64 ch at 1 kHz, AGC
+    # off), without and with the blanker (on the impulse scene)
+    bank_am = FusedAMBank(cfg_am, freqs_am)
+    xr_am, xi_am = noise((N_AM, SEG_LEN), gen), noise((N_AM, SEG_LEN), gen)
+    bank_am_nb = FusedAMBank(cfg_am.with_(noise_blanker=True), freqs_am)
+    xr_amnb, xi_amnb, mean_mag = nb_scene(N_AM, SEG_LEN, gen)
+    ends = {}   # path -> (bank, input, the state after its run)
+    for kname, b, x_r, x_i, st0 in (
+            ("sweep_chain_am", bank_am, xr_am, xi_am, bank_am.init_state()),
+            ("sweep_chain_am_nb", bank_am_nb, xr_amnb, xi_amnb, bank_am_nb.init_state()._replace(
+                nb_avg=torch.full((N_AM,), mean_mag, device="cuda")))):
+        launched, s_1, out_1, s_2, s_end = drive(b, x_r, x_i, st0, f"AM path ({kname})",
+                                                 channels=N_AM)
+        check(launched == only(**{kname: SEGMENTS}), f"expected {SEGMENTS} {kname} launches "
+              f"and no other, counted {launched}")
+        launches[kname] = launched[kname]
+        ref = sweep.sweep_am_chain_plain(*b.chain_args(x_r, x_i, s_1))
+        got = (out_1["audio_l"], out_1["audio_r"], s_2.audio_tail, s_2.agc_env, s_2.am_dc)
+        nb = kname.endswith("_nb")
+        d = max_diff(got + ((s_2.nb_avg, s_2.nb_mask) if nb else ()), ref)
+        say(f"check {kname} full width, segment 1: max |kernel - plain| over L, R, audio_tail, "
+            f"env, am_dc{', nb_avg, nb_mask' if nb else ''} = {d:.3e} (tolerance {TOL:g}); "
+            f"rms(L) = {float(out_1['audio_l'].square().mean().sqrt()):.4e}")
+        check(d <= TOL, f"{kname} disagrees at full width: {d:.3e} > {TOL:g}")
+        if nb:
+            check(float(s_2.nb_mask.mean()) < 1.0,
+                  "the impulse on the segment's last sample was not blanked")
+        err[kname] = max(err[kname], d)
+        ends[kname] = (b, x_r, x_i, s_end)
+        del ref, out_1, got
+
+    # 4e. the reference chain at full width: bench_full.py config3 (CW_NARROW,
+    # NR notch, AGC fast) and config7 (USB, DNR2), 128 ch, backend="batched";
+    # the LMS stage's arguments in segment 1 are recorded, and the per-sample
+    # plain LMS runs on their first LMS_PREFIX samples (LMS is causal)
+    cfg3 = ReceiverConfig(mode=DemodMode.CW_NARROW, vfo_freq=14_050_000.0,
+                          capture_center_freq=14_049_000.0, agc=AGCMode.FAST,
+                          nr=NRMode.NOTCH)
+    cfg7 = cfg.with_(nr=NRMode.DNR2)
+    lms_args = {}
+    launches["lms_nr"] = 0
+    recorded = []
+    run_lms = lms_bank.lms_nr_run_bank
+
+    def record(*args):
+        out = run_lms(*args)
+        recorded.append((args, out))
+        return out
+
+    for label, c_rb in (("config3 notch", cfg3), ("config7 DNR2", cfg7)):
+        rb = ReceiverBank(c_rb, [c_rb.capture_center_freq + 1_000.0 * k
+                                 for k in range(N_CHANNELS)], backend="batched")
+        recorded.clear()
+        lms_bank.lms_nr_run_bank = record
+        try:
+            launched, _, out_1, _, state_rb = drive(rb, xr, xi, rb.init_state(),
+                                                    f"reference chain ({label})")
+        finally:
+            lms_bank.lms_nr_run_bank = run_lms
+        check(launched == only(lms_nr=SEGMENTS), f"expected {SEGMENTS} lms_nr launches (1 "
+              f"per segment) and no other, counted {launched}")
+        launches["lms_nr"] += launched["lms_nr"]
+        (x, w, win, dl, first, mu_rb, mode), got = recorded[1]
+        lms_args[label] = (x, w, win, dl, first, mu_rb, mode)
+        ref = lms_bank.lms_nr_run_bank_plain(x[:, :LMS_PREFIX].contiguous(), w, win, dl,
+                                             first, mu_rb, mode)
+        d = max_diff([got[0][:, :LMS_PREFIX]], ref[:1])
+        say(f"check lms_nr ({mode}) full width, segment 1: max |kernel - plain| over the "
+            f"first {LMS_PREFIX} outputs = {d:.3e} (tolerance {TOL_LMS:g}); "
+            f"rms(L) = {float(out_1['audio_l'].square().mean().sqrt()):.4e}")
+        check(d <= TOL_LMS, f"lms_nr disagrees at full width: {d:.3e} > {TOL_LMS:g}")
+        err["lms_nr"] = max(err["lms_nr"], d)
+        ends[label] = (rb, xr, xi, state_rb)
+        del out_1, ref, got, recorded[:]
+
+    # 4f. cross-path parity: each fused bank against the port's ReceiverBank
+    # on the same input, two threaded segments (docs/CHIP_PARITY.md)
+    parity = {}
+    for label, fused_bank, ref_bank, x_r, x_i in (
+            ("FusedSSBBank vs ReceiverBank(USB)", bank,
+             ReceiverBank(cfg, freqs), xr, xi),
+            ("FusedAMBank vs ReceiverBank(AM)", bank_am,
+             ReceiverBank(cfg_am, freqs_am), xr_am, xi_am)):
+        st_f, st_r, worst = fused_bank.init_state(), ref_bank.init_state(), 0.0
+        for _ in range(2):
+            out_f, st_f = fused_bank.process_planar(x_r, x_i, st_f)
+            out_r, st_r = ref_bank.process_planar(x_r, x_i, st_r)
+            worst = max(worst, max_diff((out_f["audio_l"], out_f["audio_r"]),
+                                        (out_r["audio_l"], out_r["audio_r"])))
+        parity[label] = worst
+        say(f"parity {label}, {x_r.shape[0]} ch x {SEG_LEN}, 2 threaded segments: max abs "
+            f"diff over L, R = {worst:.3e} (bound {TOL_PARITY:g})")
+        check(worst <= TOL_PARITY, f"{label}: {worst:.3e} > {TOL_PARITY:g}")
+        del out_f, out_r
 
     # 5. timing (CUDA events, after warm-up)
     samples = N_CHANNELS * SEG_LEN
@@ -317,7 +511,8 @@ def main() -> None:
     timing["sweep_chain_ssb"] = dict(
         ms=time_ms(lambda: sweep.sweep_full_chain(*args), REPS),
         plain_ms=time_ms(lambda: sweep.sweep_full_chain_plain(*args), 3),
-        bound_ms=b_ms, bound_by=b_by, library_ms=library_ms, flops=ops1 + ops2)
+        bound_ms=b_ms, bound_by=b_by, library_ms=library_ms, flops=ops1 + ops2,
+        samples=samples)
     seg_ms = time_ms(lambda: bank.process_planar(xr, xi, state), REPS)
 
     args = bank_nb.chain_args(xr_nb, xi_nb, state_nb)
@@ -327,7 +522,7 @@ def main() -> None:
     timing["sweep_chain_ssb_nb"] = dict(
         ms=time_ms(lambda: sweep.sweep_full_chain(*args), REPS),
         plain_ms=time_ms(lambda: sweep.sweep_full_chain_plain(*args), 3),
-        bound_ms=b_ms, bound_by=b_by, library_ms=library_ms, flops=flops)
+        bound_ms=b_ms, bound_by=b_by, library_ms=library_ms, flops=flops, samples=samples)
     seg_nb_ms = time_ms(lambda: bank_nb.process_planar(xr_nb, xi_nb, state_nb), REPS)
     del xr_nb, xi_nb
 
@@ -336,7 +531,7 @@ def main() -> None:
     timing["mix_demod"] = dict(
         ms=time_ms(lambda: staged.fused_mix_filter_demod(*args), REPS),
         plain_ms=time_ms(lambda: staged.fused_mix_filter_demod_plain(*args), 3),
-        bound_ms=b_ms, bound_by=b_by, library_ms=lib1_ms, flops=ops1)
+        bound_ms=b_ms, bound_by=b_by, library_ms=lib1_ms, flops=ops1, samples=samples)
     audio = staged.fused_mix_filter_demod(*args)
     agc_ms = time_ms(lambda: agc.agc_run(audio, bank_st.agc_params, state_st.agc_env), REPS)
     args = bank_st.pbt_args(audio, state_st)
@@ -344,18 +539,68 @@ def main() -> None:
     timing["pbt"] = dict(
         ms=time_ms(lambda: staged.pbt_filter(*args), REPS),
         plain_ms=time_ms(lambda: staged.pbt_filter_plain(*args), 3),
-        bound_ms=b_ms, bound_by=b_by, library_ms=lib2_ms, flops=ops2)
+        bound_ms=b_ms, bound_by=b_by, library_ms=lib2_ms, flops=ops2, samples=samples)
     del audio, args
     seg_st_ms = time_ms(lambda: bank_st.process_planar(xr, xi, state_st), REPS)
 
+    # the AM kernels at config1's shape; the library yardstick is the same two
+    # products as fp32 torch.matmul
+    samples_am = N_AM * SEG_LEN
+    rows_am = samples_am // 128
+    w_sb = bank_am.params.w_sideband
+    f1 = torch.randn((rows_am, 512), generator=gen, device="cuda")
+    f2 = torch.randn((rows_am, 256), generator=gen, device="cuda")
+    lib_am_ms = time_ms(lambda: (torch.matmul(f1, w_sb), torch.matmul(f2, w_pbt)), REPS)
+    del f1, f2
+    ops_am = rows_am * 2 * 512 * 256 + rows_am * 2 * 256 * 256 + AM_FLOPS_PER_SAMPLE * samples_am
+    bytes_am = (4 * samples_am * 4 + 4 * (512 * 256 + 256 * 256)
+                + N_AM * (2 * 8 + 4 * 128 * 4 + 2 * 4 + 2 * 2 * 4))
+    path_ms = {}
+    for kname in ("sweep_chain_am", "sweep_chain_am_nb"):
+        b, x_r, x_i, st = ends[kname]
+        nb = kname.endswith("_nb")
+        args = b.chain_args(x_r, x_i, st)
+        flops = ops_am + (NB_FLOPS_PER_SAMPLE * samples_am if nb else 0)
+        b_ms, b_by = bound(flops, bytes_am + (N_AM * (2 * 4 + 2 * 128 * 4) if nb else 0))
+        timing[kname] = dict(
+            ms=time_ms(lambda: sweep.sweep_am_chain(*args), REPS),
+            plain_ms=time_ms(lambda: sweep.sweep_am_chain_plain(*args), 3),
+            bound_ms=b_ms, bound_by=b_by, library_ms=lib_am_ms, flops=flops,
+            samples=samples_am)
+        path_ms[f"AM{' + blanker' if nb else ''}"] = time_ms(
+            lambda: b.process_planar(x_r, x_i, st), REPS)
+    del xr_am, xi_am, xr_amnb, xi_amnb, args
+
+    # the LMS kernel on config3's notch input of segment 1 (128 ch x 2^19); no
+    # single PyTorch call computes it; its plain version runs once, at full
+    # length (2^19 steps of the per-sample recurrence)
+    args = lms_args["config3 notch"]
+    b_ms, b_by = bound(LMS_FLOPS_PER_SAMPLE * samples,
+                       8 * samples + N_CHANNELS * 4 * (4 * 96 + 2 * 128))
+    timing["lms_nr"] = dict(
+        ms=time_ms(lambda: lms_bank.lms_nr_run_bank(*args), REPS),
+        plain_ms=time_ms(lambda: lms_bank.lms_nr_run_bank_plain(*args), 1, warmup=False),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, flops=LMS_FLOPS_PER_SAMPLE * samples,
+        samples=samples)
+    del args, lms_args
+    for label in ("config3 notch", "config7 DNR2"):
+        rb, x_r, x_i, st = ends[label]
+        path_ms[f"ReceiverBank {label}"] = time_ms(
+            lambda: rb.process_planar(x_r, x_i, st), REPS)
+
     for kname, tm in timing.items():
-        say(f"timing {kname}: kernel {tm['ms']:.3f} ms/segment ({samples / tm['ms'] / 1e3:.1f} "
+        library = "none (no single PyTorch call)" if tm["library_ms"] is None else \
+            f"{tm['library_ms']:.3f} ms"
+        say(f"timing {kname}: kernel {tm['ms']:.3f} ms/segment "
+            f"({tm['samples'] / tm['ms'] / 1e3:.1f} "
             f"Msamples/s, {tm['flops'] / tm['ms'] / 1e9:.1f} TFLOP/s fp32), plain "
-            f"{tm['plain_ms']:.3f} ms, library {tm['library_ms']:.3f} ms, bound "
+            f"{tm['plain_ms']:.3f} ms, library {library}, bound "
             f"{tm['bound_ms']:.3f} ms ({tm['bound_by']})")
     say(f"timing paths: FusedSSBBank.process_planar per segment: sweep {seg_ms:.3f} ms, "
         f"staged {seg_st_ms:.3f} ms (of which agc_run {agc_ms:.3f} ms), noise blanker "
-        f"{seg_nb_ms:.3f} ms; library: "
+        f"{seg_nb_ms:.3f} ms; "
+        + "; ".join(f"{k} {v:.3f} ms" for k, v in path_ms.items())
+        + f" (AM {N_AM} ch, the rest {N_CHANNELS} ch); library: "
         f"torch.matmul (rows,512)@(512,128) {lib1_ms:.3f} ms, (rows,256)@(256,256) "
         f"{lib2_ms:.3f} ms, both {library_ms:.3f} ms; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {smi}")
@@ -364,7 +609,10 @@ def main() -> None:
     sources = {"sweep_chain_ssb": ("sweep_chain.cu", "pallas_sweep.py:261"),
                "sweep_chain_ssb_nb": ("sweep_chain.cu", "pallas_sweep.py:261"),
                "mix_demod": ("staged.cu", "pallas_kernels.py:83"),
-               "pbt": ("staged.cu", "pallas_kernels.py:177")}
+               "pbt": ("staged.cu", "pallas_kernels.py:177"),
+               "sweep_chain_am": ("sweep_chain.cu", "pallas_sweep.py:261"),
+               "sweep_chain_am_nb": ("sweep_chain.cu", "pallas_sweep.py:261"),
+               "lms_nr": ("lms.cu", "pallas_lms.py:36")}
     print(json.dumps({"kernels": [{
         "name": kname, "route": "cuda",
         "source": f"radiodsp_sdr_rx_tpu_torch/csrc/{src}",

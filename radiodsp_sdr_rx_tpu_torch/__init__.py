@@ -8,12 +8,18 @@ beside a plain PyTorch version of the same function that runs on the CPU.
 
 Layers, from the entry point down:
   models/fused.py  FusedSSBBank: state threading; sweep backend one launch
-                   per segment (noise blanker included), staged backend two
-  ops/sweep.py     sweep_full_chain: kernel wrapper, plain version, launch counts
+                   per segment (noise blanker included), staged backend two;
+                   FusedAMBank: one launch per segment (blanker included)
+  models/receiver.py  ReceiverBank: the reference bank chain, plain PyTorch
+                   stages (ops/planar.py, ops/iir.py, ops/agc.py,
+                   ops/qformat.py) and the LMS stages on a kernel
+  ops/sweep.py     sweep_full_chain, sweep_am_chain: kernel wrappers, plain
+                   versions, launch counts
   ops/staged.py    fused_mix_filter_demod, pbt_filter: the staged kernels
-  ops/agc.py       agc_run: the staged backend's AGC, plain PyTorch
-  ops/chain_common.py  the mix, framings and argument checks both
-                   backends' plain versions and wrappers share
+  ops/lms_bank.py  lms_nr_run_bank: the LMS kernel (ops/lms.py: its state)
+  ops/agc.py       agc_run: the staged backend's and ReceiverBank's AGC
+  ops/chain_common.py  the mix, framings and argument checks the plain
+                   versions, wrappers and the reference chain share
   csrc/*.cu        the kernels (shared device code in csrc/chain_common.cuh)
   models/config.py, models/receiver.py, ops/{fir_design,operators,agc,nco}.py
                    host-side design, bit-equal to the JAX package's
@@ -22,8 +28,16 @@ Layers, from the entry point down:
 from radiodsp_sdr_rx_tpu_torch.models.config import (
     AGCMode,
     DemodMode,
+    NRMode,
     ReceiverConfig,
 )
-from radiodsp_sdr_rx_tpu_torch.models.fused import FusedBankState, FusedSSBBank
+from radiodsp_sdr_rx_tpu_torch.models.fused import (
+    FusedAMBank,
+    FusedAMBankState,
+    FusedBankState,
+    FusedSSBBank,
+)
+from radiodsp_sdr_rx_tpu_torch.models.receiver import ReceiverBank, ReceiverState
 
-__all__ = ["AGCMode", "DemodMode", "FusedBankState", "FusedSSBBank", "ReceiverConfig"]
+__all__ = ["AGCMode", "DemodMode", "FusedAMBank", "FusedAMBankState", "FusedBankState",
+           "FusedSSBBank", "NRMode", "ReceiverBank", "ReceiverConfig", "ReceiverState"]

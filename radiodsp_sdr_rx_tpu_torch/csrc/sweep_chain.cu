@@ -1,43 +1,57 @@
-// sweep_chain.cu: the whole SSB receive chain of one channel per thread block.
+// sweep_chain.cu: the whole receive chain of one channel per thread block.
 //
-// Replaces _chain_kernel with demod="ssb" (radiodsp_sdr_rx_tpu/ops/
-// pallas_sweep.py:261, wrapper sweep_full_chain :628), in two instantiations:
-// nb=false (entry point sweep_chain_ssb) and nb=true (sweep_chain_ssb_nb,
-// pallas_sweep.py:327-331, 361-363, 386-403).
+// Replaces _chain_kernel (radiodsp_sdr_rx_tpu/ops/pallas_sweep.py:261) in four
+// instantiations of one template, demod x noise blanker:
+//   sweep_chain_ssb     demod="ssb"            (wrapper sweep_full_chain :628)
+//   sweep_chain_ssb_nb  demod="ssb", nb=true   (:327-331, 361-363, 386-403)
+//   sweep_chain_am      demod="am"             (wrapper sweep_am_chain :695;
+//                                               :339-341, 357-360, 418-447)
+//   sweep_chain_am_nb   demod="am", nb=true
 // Per sample: input gain / IQ balance, [nb: the noise blanker,] DDS NCO mix,
-// overlap-save band-pass + SSB demod as frames(rows,512) @ w_ssb(512,128),
-// AGC env[k] = max(|a[k]|, env[k-1]*release), gain =
-// min(target/max(env,1e-12), max_gain), PBT frames(rows,256) @
-// w_pbt(256,256) -> [L|R], output gain.
+// then
+//   ssb: overlap-save band-pass + SSB demod as frames(rows,512) @ w_ssb(512,128);
+//   am:  the complex band-pass frames(rows,512) @ w_sb(512,256) -> (zr | zi),
+//        envelope sqrt(zr^2 + zi^2), DC blocker
+//        y[n] = env[n] - env[n-1] + pole*y[n-1] (pole 0.995);
+// then AGC env[k] = max(|a[k]|, env[k-1]*release), gain =
+// min(target/max(env,1e-12), max_gain) (not applied with AGC off), PBT
+// frames(rows,256) @ w_pbt(256,256) -> [L|R], output gain.
 //
 // The noise blanker works on the scaled input before the mix: mag = |x|,
 // avg[t] = a*avg[t-1] + (1-a)*mag[t] on the unblanked magnitude, and a sample
 // is zeroed unless mag <= avg*thresh + 1e-12. The carried framing tail is
 // re-mixed and multiplied by the previous segment's last keep mask; the
-// average at the last sample and the last row's keep mask carry out.
+// average at the last sample and the last row's keep mask carry out. The AM
+// DC blocker carries [last envelope, last output] (C, 2).
 //
 // What bounds it on an H100: per IQ sample it reads 8 B and writes 8 B, and
-// does 2,048 flops (1,024 for each of the two products per 128 samples). One
-// 128-channel x 2^19-sample segment is 1.07 GB (0.32 ms at 3.35 TB/s) and
+// does 2,048 flops for ssb (1,024 for each of the two products per 128
+// samples) or 3,072 for am (2,048 for the twice-as-wide band-pass). One
+// 128-channel x 2^19-sample ssb segment is 1.07 GB (0.32 ms at 3.35 TB/s) and
 // 137 GFLOP (2.0 ms at the 67 TFLOP/s fp32 rate outside the tensor cores):
 // in fp32 SIMT it is bound by arithmetic. The blanker adds about 10 flops
-// and a square root per sample.
+// and a square root per sample, the AM envelope and DC blocker about 6 and
+// a square root.
 //
 // What the design does about it: every intermediate stays on chip, so device
 // memory sees only the 16 B/sample; the time goes to the two products, run
 // as register-blocked fp32 FMA (8 rows x 4 or 8 columns per thread, the
 // frame operand broadcast from shared memory, chain_common.cuh). One block of
-// 256 threads owns one channel (128 blocks for 132 SMs) and walks time in
-// chunks of 64 rows of 128 samples, which is what the TPU grid did with its
-// sequential axis. The framing tail, the PBT tail, the AGC envelope and the
-// blanker's average stay in shared memory from chunk to chunk. The AGC and
-// the blanker's average are scans over the chunk, run as 256 segments of 32
-// samples: each thread scans its segment from zero, warp 0 scans the segment
-// ends (a decaying max for the AGC, a decaying sum for the average) and each
-// thread re-runs its segment from the true carry, so every sample follows
-// the sequential recurrence. Segments past the end of a partial last chunk
-// come after every valid one and never reach a carry. A TF32/3xTF32
-// tensor-core design of the two products is later work.
+// 256 threads owns one channel (128 blocks for 132 SMs; a 64-channel bank
+// keeps only 64 SMs busy) and walks time in chunks of 64 rows of 128
+// samples, which is what the TPU grid did with its sequential axis. The
+// framing tail, the PBT tail, the AGC envelope, the blanker's average and the
+// DC blocker's carries stay in shared memory from chunk to chunk. In the AM
+// band-pass each thread's 8 columns are j and j+128 for four j, so the same
+// thread holds zr and zi of a sample and writes its envelope straight into
+// the audio rows. The AGC, the blanker's average and the DC blocker are
+// scans over the chunk, run as 256 segments of 32 samples: each thread scans
+// its segment from zero, warp 0 scans the segment ends (a decaying max for
+// the AGC, a decaying sum for the other two) and each thread re-runs its
+// segment from the true carry, so every sample follows the sequential
+// recurrence. Segments past the end of a partial last chunk come after every
+// valid one and never reach a carry. A TF32/3xTF32 tensor-core design of the
+// two products is later work.
 
 #include "chain_common.cuh"
 
@@ -46,7 +60,7 @@ namespace {
 constexpr int kSegLen = kRows * kBlk / kThreads;      // scan segment: 32 samples
 constexpr int kSegsPerRow = kBlk / kSegLen;           // 4
 constexpr int kSegsPerLane = kThreads / 32;           // 8 segments per lane of warp 0
-// both instantiations: As, Bs, three row buffers, segment ends, carries;
+// every instantiation: As, Bs, three row buffers, segment ends, carries;
 // nb adds the keep mask of the last row
 constexpr int kSmemFloats = kAsFloats + kBsFloats + 3 * kRowBuf + kThreads + 4;
 
@@ -89,11 +103,13 @@ __device__ __forceinline__ float seg_factors(double p, float (&lanes)[5]) {
   return (float)pow(p, (double)kSegLen);
 }
 
-template <bool kNB>
-__global__ void __launch_bounds__(kThreads, 1) sweep_chain_ssb_kernel(
+enum class Demod { kSSB, kAM };
+
+template <Demod kDemod, bool kNB>
+__global__ void __launch_bounds__(kThreads, 1) sweep_chain_kernel(
     const float* __restrict__ xr, const float* __restrict__ xi,
     const long long* __restrict__ inc, const long long* __restrict__ phase0,
-    const float* __restrict__ w_ssb, const float* __restrict__ w_pbt,
+    const float* __restrict__ w_band, const float* __restrict__ w_pbt,
     const float* __restrict__ tail_r, const float* __restrict__ tail_i,
     const float* __restrict__ atail_in, const float* __restrict__ env0,
     float* __restrict__ out_l, float* __restrict__ out_r,
@@ -102,7 +118,9 @@ __global__ void __launch_bounds__(kThreads, 1) sweep_chain_ssb_kernel(
     float out_gain, float g_i, float g_q,
     const float* __restrict__ nb_avg0, const float* __restrict__ nb_mask0,
     float* __restrict__ nb_avg_out, float* __restrict__ nb_mask_out,
-    double nb_a, float nb_thresh) {
+    double nb_a, float nb_thresh, const float* __restrict__ dc0,
+    float* __restrict__ dc_out, double dc_pole) {
+  constexpr bool kAM = kDemod == Demod::kAM;
   extern __shared__ __align__(16) float smem[];
   float* As = smem;
   float* Bs = As + kAsFloats;
@@ -110,7 +128,8 @@ __global__ void __launch_bounds__(kThreads, 1) sweep_chain_ssb_kernel(
   float* Mi = Mr + kRowBuf;    // mixed Q rows
   float* Ab = Mi + kRowBuf;    // demodulated audio rows, AGC applied in place
   float* seg = Ab + kRowBuf;   // scan segment ends, then carries into segments
-  float* env_c = seg + kThreads;  // [0] AGC envelope, [1] blanker average
+  float* env_c = seg + kThreads;  // [0] AGC envelope, [1] blanker average,
+                                  // [2] [3] DC blocker: last envelope, last output
   float* keep_row = env_c + 4;    // nb: keep mask of the last row so far
 
   const int c = blockIdx.x, tid = threadIdx.x, warp = tid >> 5;
@@ -125,6 +144,11 @@ __global__ void __launch_bounds__(kThreads, 1) sweep_chain_ssb_kernel(
     nb_af = (float)nb_a;
     nb_om = (float)(1.0 - nb_a);
     nb_seg = seg_factors(nb_a, nb_lanes);
+  }
+  float dc_pf = 0.f, dc_seg = 0.f, dc_lanes[5];
+  if constexpr (kAM) {
+    dc_pf = (float)dc_pole;
+    dc_seg = seg_factors(dc_pole, dc_lanes);
   }
 
   // the carried raw tail, re-scaled and re-mixed at positions -128..-1
@@ -141,6 +165,10 @@ __global__ void __launch_bounds__(kThreads, 1) sweep_chain_ssb_kernel(
   if (tid == 0) {
     env_c[0] = env0[c];
     if constexpr (kNB) env_c[1] = nb_avg0[c];
+    if constexpr (kAM) {
+      env_c[2] = dc0[2 * c];
+      env_c[3] = dc0[2 * c + 1];
+    }
   }
 
   const int nrows = n / kBlk;
@@ -215,17 +243,63 @@ __global__ void __launch_bounds__(kThreads, 1) sweep_chain_ssb_kernel(
     }
     __syncthreads();
 
-    // 2. band-pass + SSB demod: Ab rows 1..kRows
+    // 2. band-pass + SSB demod (ssb), or band-pass + envelope (am): Ab rows
+    // 1..kRows. In the am product acc[i][j] and acc[i][4+j] are columns
+    // 4*lane+j and 128+4*lane+j: zr and zi of one sample.
     {
       const int lane = tid & 31;
-      float acc[8][4];
-      chunk_gemm<128>(Mr, Mi, w_ssb, 512, As, Bs, acc);
+      if constexpr (kAM) {
+        float acc[8][8];
+        chunk_gemm<256>(Mr, Mi, w_band, 512, As, Bs, acc);
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
+        for (int i = 0; i < 8; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) Ab[(warp * 8 + i + 1) * kLd + lane * 4 + j] = acc[i][j];
+          for (int j = 0; j < 4; ++j)
+            Ab[(warp * 8 + i + 1) * kLd + lane * 4 + j] =
+                sqrtf(acc[i][j] * acc[i][j] + acc[i][4 + j] * acc[i][4 + j]);
+      } else {
+        float acc[8][4];
+        chunk_gemm<128>(Mr, Mi, w_band, 512, As, Bs, acc);
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) Ab[(warp * 8 + i + 1) * kLd + lane * 4 + j] = acc[i][j];
+      }
     }
     __syncthreads();
+
+    // 2b. am: DC blocker in place, y = (env - env_prev) + pole*y, the
+    // blanker's segmented decaying-sum scan. Each thread reads the envelope
+    // just before its segment before any thread overwrites one.
+    if constexpr (kAM) {
+      const int r = tid % kRows, quarter = tid / kRows;
+      const int s = r * kSegsPerRow + quarter;
+      float* a = Ab + (r + 1) * kLd + quarter * kSegLen;
+      const float prev = quarter ? a[-1] : (r ? Ab[r * kLd + kBlk - 1] : env_c[2]);
+      float y = 0.f, p = prev;
+      for (int k = 0; k < kSegLen; ++k) {
+        const float v = a[k];
+        y = (v - p) + dc_pf * y;
+        p = v;
+      }
+      seg[s] = y;
+      __syncthreads();
+      if (warp == 0) scan_segment_carries<true>(seg, env_c[3], dc_seg, dc_lanes);
+      __syncthreads();
+      y = seg[s];
+      p = prev;
+      for (int k = 0; k < kSegLen; ++k) {
+        const float v = a[k];
+        y = (v - p) + dc_pf * y;
+        p = v;
+        a[k] = y;
+      }
+      if (s == rows * kSegsPerRow - 1) {
+        env_c[2] = p;
+        env_c[3] = y;
+      }
+      __syncthreads();
+    }
 
     // 3. AGC. Segment s = 4*row + quarter; segments past the end come after
     // every valid one, so they never reach a valid carry.
@@ -270,29 +344,35 @@ __global__ void __launch_bounds__(kThreads, 1) sweep_chain_ssb_kernel(
     if (tid < kBlk) nb_mask_out[(size_t)c * kBlk + tid] = keep_row[tid];
     if (tid == 0) nb_avg_out[c] = env_c[1];
   }
+  if constexpr (kAM) {
+    if (tid == 0) {
+      dc_out[2 * c] = env_c[2];
+      dc_out[2 * c + 1] = env_c[3];
+    }
+  }
 }
 
-template <bool kNB>
+template <Demod kDemod, bool kNB>
 int launch(const float* xr, const float* xi, const long long* inc,
-           const long long* phase0, const float* w_ssb, const float* w_pbt,
+           const long long* phase0, const float* w_band, const float* w_pbt,
            const float* tail_r, const float* tail_i, const float* atail_in,
            const float* env0, float* out_l, float* out_r, float* atail_out,
            float* env_out, int channels, int n, int device, double release,
            float target, float max_gain, int agc_enabled, float out_gain,
            float g_i, float g_q, const float* nb_avg0, const float* nb_mask0,
            float* nb_avg_out, float* nb_mask_out, double nb_a, float nb_thresh,
-           void* stream) {
+           const float* dc0, float* dc_out, double dc_pole, void* stream) {
   const int smem = (kSmemFloats + (kNB ? kBlk : 0)) * (int)sizeof(float);
   cudaError_t err = cudaSetDevice(device);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(sweep_chain_ssb_kernel<kNB>,
+    err = cudaFuncSetAttribute(sweep_chain_kernel<kDemod, kNB>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  sweep_chain_ssb_kernel<kNB><<<channels, kThreads, smem, (cudaStream_t)stream>>>(
-      xr, xi, inc, phase0, w_ssb, w_pbt, tail_r, tail_i, atail_in, env0, out_l,
+  sweep_chain_kernel<kDemod, kNB><<<channels, kThreads, smem, (cudaStream_t)stream>>>(
+      xr, xi, inc, phase0, w_band, w_pbt, tail_r, tail_i, atail_in, env0, out_l,
       out_r, atail_out, env_out, n, release, target, max_gain, agc_enabled,
       out_gain, g_i, g_q, nb_avg0, nb_mask0, nb_avg_out, nb_mask_out, nb_a,
-      nb_thresh);
+      nb_thresh, dc0, dc_out, dc_pole);
   return (int)cudaGetLastError();
 }
 
@@ -308,11 +388,11 @@ extern "C" int sweep_chain_ssb(
     float* env_out, int channels, int n, int device, double release,
     float target, float max_gain, int agc_enabled, float out_gain, float g_i,
     float g_q, void* stream) {
-  return launch<false>(xr, xi, inc, phase0, w_ssb, w_pbt, tail_r, tail_i,
-                       atail_in, env0, out_l, out_r, atail_out, env_out,
-                       channels, n, device, release, target, max_gain,
-                       agc_enabled, out_gain, g_i, g_q, nullptr, nullptr,
-                       nullptr, nullptr, 0.0, 0.f, stream);
+  return launch<Demod::kSSB, false>(
+      xr, xi, inc, phase0, w_ssb, w_pbt, tail_r, tail_i, atail_in, env0, out_l,
+      out_r, atail_out, env_out, channels, n, device, release, target, max_gain,
+      agc_enabled, out_gain, g_i, g_q, nullptr, nullptr, nullptr, nullptr, 0.0,
+      0.f, nullptr, nullptr, 1.0, stream);
 }
 
 // The same with the noise blanker: nb_avg0 (C,) and nb_mask0 (C,128) in,
@@ -328,9 +408,44 @@ extern "C" int sweep_chain_ssb_nb(
     double release, float target, float max_gain, int agc_enabled,
     float out_gain, float g_i, float g_q, double nb_a, float nb_thresh,
     void* stream) {
-  return launch<true>(xr, xi, inc, phase0, w_ssb, w_pbt, tail_r, tail_i,
-                      atail_in, env0, out_l, out_r, atail_out, env_out,
-                      channels, n, device, release, target, max_gain,
-                      agc_enabled, out_gain, g_i, g_q, nb_avg0, nb_mask0,
-                      nb_avg_out, nb_mask_out, nb_a, nb_thresh, stream);
+  return launch<Demod::kSSB, true>(
+      xr, xi, inc, phase0, w_ssb, w_pbt, tail_r, tail_i, atail_in, env0, out_l,
+      out_r, atail_out, env_out, channels, n, device, release, target, max_gain,
+      agc_enabled, out_gain, g_i, g_q, nb_avg0, nb_mask0, nb_avg_out,
+      nb_mask_out, nb_a, nb_thresh, nullptr, nullptr, 1.0, stream);
+}
+
+// The AM chain: w_sb (512,256) is the complex band-pass; dc0 (C,2) in and
+// dc_out (C,2) out are the DC blocker's [last envelope, last output].
+extern "C" int sweep_chain_am(
+    const float* xr, const float* xi, const long long* inc,
+    const long long* phase0, const float* w_sb, const float* w_pbt,
+    const float* tail_r, const float* tail_i, const float* atail_in,
+    const float* env0, const float* dc0, float* out_l, float* out_r,
+    float* atail_out, float* env_out, float* dc_out, int channels, int n,
+    int device, double release, float target, float max_gain, int agc_enabled,
+    float out_gain, float g_i, float g_q, double dc_pole, void* stream) {
+  return launch<Demod::kAM, false>(
+      xr, xi, inc, phase0, w_sb, w_pbt, tail_r, tail_i, atail_in, env0, out_l,
+      out_r, atail_out, env_out, channels, n, device, release, target, max_gain,
+      agc_enabled, out_gain, g_i, g_q, nullptr, nullptr, nullptr, nullptr, 0.0,
+      0.f, dc0, dc_out, dc_pole, stream);
+}
+
+// The AM chain with the noise blanker (its carries as in sweep_chain_ssb_nb).
+extern "C" int sweep_chain_am_nb(
+    const float* xr, const float* xi, const long long* inc,
+    const long long* phase0, const float* w_sb, const float* w_pbt,
+    const float* tail_r, const float* tail_i, const float* atail_in,
+    const float* env0, const float* dc0, float* out_l, float* out_r,
+    float* atail_out, float* env_out, float* dc_out, const float* nb_avg0,
+    const float* nb_mask0, float* nb_avg_out, float* nb_mask_out, int channels,
+    int n, int device, double release, float target, float max_gain,
+    int agc_enabled, float out_gain, float g_i, float g_q, double dc_pole,
+    double nb_a, float nb_thresh, void* stream) {
+  return launch<Demod::kAM, true>(
+      xr, xi, inc, phase0, w_sb, w_pbt, tail_r, tail_i, atail_in, env0, out_l,
+      out_r, atail_out, env_out, channels, n, device, release, target, max_gain,
+      agc_enabled, out_gain, g_i, g_q, nb_avg0, nb_mask0, nb_avg_out,
+      nb_mask_out, nb_a, nb_thresh, dc0, dc_out, dc_pole, stream);
 }

@@ -23,6 +23,15 @@ def freq_to_phase_inc(freq_hz, sample_rate: float) -> np.uint32:
     return (np.round(frac * _TWO_POW_32).astype(np.int64) % (1 << 32)).astype(np.uint32)
 
 
+def bank_phase_incs(config, freqs_hz) -> np.ndarray:
+    """(C,) uint32 DDS increments that tune each channel of a bank, at RF
+    frequencies ``freqs_hz``, to baseband (less the mode's tuning offset)."""
+    return np.stack([
+        freq_to_phase_inc(f - config.tuning_offset - config.capture_center_freq,
+                          config.sample_rate)
+        for f in np.asarray(freqs_hz, np.float64)])
+
+
 def advance_phase(phase: torch.Tensor, n: int, inc: torch.Tensor) -> torch.Tensor:
     """Phase words after ``n`` samples: (phase + n*inc) mod 2^32, in int64."""
     return (phase + (n % (1 << 32)) * inc) & PHASE_MASK

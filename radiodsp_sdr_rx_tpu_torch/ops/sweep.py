@@ -1,29 +1,34 @@
-"""The whole SSB receive chain in one kernel launch.
+"""The whole receive chain in one kernel launch: SSB and AM.
 
 Counterpart of ``radiodsp_sdr_rx_tpu/ops/pallas_sweep.py``: ``sweep_full_chain``
-(:628) and the ``demod="ssb"`` variant of its kernel ``_chain_kernel`` (:261).
-Per channel, in this order:
+(:628) and ``sweep_am_chain`` (:695), the ``demod="ssb"`` and ``demod="am"``
+variants of its kernel ``_chain_kernel`` (:261). Per channel, in this order:
 
   input gain / IQ balance -> [nb=True: noise blanker] -> DDS NCO mix ->
-  overlap-save band-pass + SSB demod as (rows,512)@(512,128) -> AGC
-  env[k] = max(|a[k]|, env[k-1]*release),
+  ssb: overlap-save band-pass + SSB demod as (rows,512)@(512,128);
+  am:  complex band-pass (rows,512)@(512,256) -> envelope sqrt(zr^2+zi^2)
+       -> DC blocker y[n] = env[n] - env[n-1] + pole*y[n-1] ->
+  AGC env[k] = max(|a[k]|, env[k-1]*release),
   gain = min(target/max(env, 1e-12), max_gain) -> PBT (rows,256)@(256,256)
   giving [L|R] -> output gain.
 
 The framing tail (the RAW previous block, re-scaled and re-mixed at positions
--128..-1), the AGC envelope and the PBT tail carry from segment to segment.
-The noise blanker (``pallas_sweep.py:386-403``) zeroes every scaled sample
-whose magnitude exceeds avg*10^(dB/20) + 1e-12, with avg the one-pole mean
-of the magnitude (a = exp(-1/tau)); its average and the last block's keep
-mask carry too, and the mask gates the re-mixed tail.
+-128..-1), the AGC envelope and the PBT tail carry from segment to segment;
+the AM chain also carries the DC blocker's [last envelope, last output]
+(C, 2). The noise blanker (``pallas_sweep.py:386-403``) zeroes every scaled
+sample whose magnitude exceeds avg*10^(dB/20) + 1e-12, with avg the one-pole
+mean of the magnitude (a = exp(-1/tau)); its average and the last block's
+keep mask carry too, and the mask gates the re-mixed tail.
 
-``sweep_full_chain`` launches ``csrc/sweep_chain.cu`` for CUDA tensors
-(``sweep_chain_ssb``, or ``sweep_chain_ssb_nb`` with ``nb=True``) and raises
-if it cannot; for CPU tensors it runs ``sweep_full_chain_plain``, the plain
-PyTorch version the tests and ``chip_smoke.py`` hold the kernel to.
-``LAUNCHES`` and ``LAUNCHES_NB`` count the two kernels' launches. The JAX
-wrapper's TPU tiling knobs (``block_c``, ``chunk_t``, ``interpret``) have no
-meaning here and are not taken; ``emit_r=False`` comes with a later slice.
+``sweep_full_chain`` and ``sweep_am_chain`` launch ``csrc/sweep_chain.cu``
+for CUDA tensors (``sweep_chain_ssb``, ``sweep_chain_ssb_nb``,
+``sweep_chain_am``, ``sweep_chain_am_nb``) and raise if they cannot; for
+CPU tensors they run ``sweep_full_chain_plain`` / ``sweep_am_chain_plain``,
+the plain PyTorch versions the tests and ``chip_smoke.py`` hold the kernels
+to. ``LAUNCHES``, ``LAUNCHES_NB``, ``LAUNCHES_AM`` and ``LAUNCHES_AM_NB``
+count the four kernels' launches. The JAX wrappers' TPU tiling knobs
+(``block_c``, ``chunk_t``, ``interpret``) have no meaning here and are not
+taken; ``emit_r=False`` comes with a later slice.
 """
 
 from __future__ import annotations
@@ -43,10 +48,13 @@ from radiodsp_sdr_rx_tpu_torch.ops.chain_common import (
     mix,
     pbt_frames,
 )
+from radiodsp_sdr_rx_tpu_torch.ops.iir import DC_POLE
 from radiodsp_sdr_rx_tpu_torch.utils import build
 
-LAUNCHES = 0      # sweep_chain_ssb
-LAUNCHES_NB = 0   # sweep_chain_ssb_nb
+LAUNCHES = 0        # sweep_chain_ssb
+LAUNCHES_NB = 0     # sweep_chain_ssb_nb
+LAUNCHES_AM = 0     # sweep_chain_am
+LAUNCHES_AM_NB = 0  # sweep_chain_am_nb
 
 
 def _env_lanes(mag: torch.Tensor, release: float) -> torch.Tensor:
@@ -124,8 +132,10 @@ def _blank(xr, xi, avg0, nb_thresh_db, nb_tau):
     return xr, xi, avg[:, -1, -1].contiguous(), keep[:, -1].to(torch.float32)
 
 
-def _check_args(xr, xi, inc, phase0, w_ssb, w_pbt, tail_r, tail_i,
-                audio_tail, env0, agc_release, nb, nb_tau, nb_avg0, nb_mask0):
+def _check_args(xr, xi, inc, phase0, w, w_pbt, tail_r, tail_i, audio_tail,
+                env0, agc_release, nb, nb_tau, nb_avg0, nb_mask0, dc0=None,
+                dc_pole=1.0):
+    """``dc0`` given means the AM chain: w is then (512, 256)."""
     check_stream(xr)
     if not 0.0 < agc_release <= 1.0:
         raise ValueError(f"agc_release must be in (0, 1], got {agc_release}")
@@ -134,40 +144,57 @@ def _check_args(xr, xi, inc, phase0, w_ssb, w_pbt, tail_r, tail_i,
     expect = {"xi": (xi, (c, n), f32),
               "inc": (inc, (c,), torch.int64),
               "phase0": (phase0, (c,), torch.int64),
-              "w_ssb": (w_ssb, (512, 128), f32),
               "w_pbt": (w_pbt, (256, 256), f32),
               "tail_r": (tail_r, (c, BLOCK), f32),
               "tail_i": (tail_i, (c, BLOCK), f32),
               "audio_tail": (audio_tail, (c, BLOCK), f32),
               "env0": (env0, (c,), f32),
               "xr": (xr, (c, n), f32)}
+    if dc0 is None:
+        expect["w_ssb"] = (w, (512, 128), f32)
+    else:
+        if not 0.0 < dc_pole <= 1.0:
+            raise ValueError(f"dc_pole must be in (0, 1], got {dc_pole}")
+        expect["w_sb"] = (w, (512, 256), f32)
+        expect["dc0"] = (dc0, (c, 2), f32)
     if nb:
         if not nb_tau > 0.0:
             raise ValueError(f"nb_tau must be positive, got {nb_tau}")
         if nb_avg0 is None or nb_mask0 is None:
             raise ValueError("nb=True takes the blanker's carries nb_avg0 and "
-                             "nb_mask0 (FusedSSBBank.init_state gives them at "
+                             "nb_mask0 (the banks' init_state gives them at "
                              "stream start)")
         expect["nb_avg0"] = (nb_avg0, (c,), f32)
         expect["nb_mask0"] = (nb_mask0, (c, BLOCK), f32)
     check_tensors(expect, xr.device)
 
 
-def sweep_full_chain_plain(xr, xi, inc, phase0, w_ssb, w_pbt, tail_r, tail_i,
-                           audio_tail, env0, agc_release, agc_target,
-                           agc_max_gain, agc_enabled=True, out_gain=1.0,
-                           in_gain=1.0, iq_balance=1.0, nb=False,
-                           nb_thresh_db=10.0, nb_tau=512.0, nb_avg0=None,
-                           nb_mask0=None):
-    """Plain PyTorch version of the chain, vectorised over the whole segment.
+def _dc_block(y, dc0, pole):
+    """AM demod of the band-pass output y (C, rows, 256) = [zr | zi]: the
+    envelope, then the DC blocker as the TPU kernel's decaying-sum doubling
+    scans (within a row, then across rows) plus the row carry. Returns
+    (audio (C, rows, 128), dc' (C, 2))."""
+    c, rows, _ = y.shape
+    env = torch.sqrt(y[..., :BLOCK].square() + y[..., BLOCK:].square())
+    prev = torch.cat([dc0[:, :1], env.reshape(c, -1)[:, :-1]], dim=1)
+    run = _iir_lanes(env - prev.view(c, rows, BLOCK), pole)
+    seq = torch.cat([dc0[:, 1:2], run[:, :-1, -1]], dim=1)
+    carry = _iir_rows(seq, float(np.float64(pole) ** BLOCK))
+    audio = run + carry[:, :, None] * _lane_decay(pole, y.device)
+    return audio, torch.stack([env[:, -1, -1], audio[:, -1, -1]], dim=-1)
 
-    The AGC and the blanker's average run as the TPU kernel's doubling scans
-    (within a 128-sample row, then across rows) plus the row carry, with no
-    per-sample loop. Both products are full fp32 (``chain_common.matmul_fp32``), as the
-    kernel computes them.
-    """
-    _check_args(xr, xi, inc, phase0, w_ssb, w_pbt, tail_r, tail_i,
-                audio_tail, env0, agc_release, nb, nb_tau, nb_avg0, nb_mask0)
+
+def _chain_plain(xr, xi, inc, phase0, w, w_pbt, tail_r, tail_i, audio_tail,
+                 env0, agc_release, agc_target, agc_max_gain, agc_enabled,
+                 out_gain, in_gain, iq_balance, nb, nb_thresh_db, nb_tau,
+                 nb_avg0, nb_mask0, dc0=None, dc_pole=1.0):
+    """The plain chain, SSB or (``dc0`` given) AM, vectorised over the whole
+    segment: the AGC, the blanker's average and the DC blocker run as the TPU
+    kernel's doubling scans (within a 128-sample row, then across rows) plus
+    the row carry, with no per-sample loop. Both products are full fp32
+    (``chain_common.matmul_fp32``), as the kernels compute them."""
+    _check_args(xr, xi, inc, phase0, w, w_pbt, tail_r, tail_i, audio_tail,
+                env0, agc_release, nb, nb_tau, nb_avg0, nb_mask0, dc0, dc_pole)
     c, n = xr.shape
     g_i = float(np.float32(in_gain))
     g_q = float(np.float32(in_gain * iq_balance))
@@ -179,8 +206,10 @@ def sweep_full_chain_plain(xr, xi, inc, phase0, w_ssb, w_pbt, tail_r, tail_i,
         tr, ti = tr * nb_mask0, ti * nb_mask0
     br, bi = mix(xr, xi, phase0, inc, pos)
     del xr, xi
-    audio = demod_frames(br, bi, tr, ti, w_ssb)
+    audio = demod_frames(br, bi, tr, ti, w)
     del br, bi
+    if dc0 is not None:
+        audio, dc = _dc_block(audio, dc0, dc_pole)
 
     run_e = _env_lanes(audio.abs(), agc_release)
     seq_e = torch.cat([env0[:, None], run_e[:, :-1, -1]], dim=1)
@@ -197,20 +226,98 @@ def sweep_full_chain_plain(xr, xi, inc, phase0, w_ssb, w_pbt, tail_r, tail_i,
     audio_l = (lr[..., :BLOCK] * og).reshape(c, n)
     audio_r = (lr[..., BLOCK:] * og).reshape(c, n)
     out = (audio_l, audio_r, audio[:, -1].contiguous(), envl[:, -1, -1].contiguous())
+    if dc0 is not None:
+        out += (dc,)
     return out + (nb_avg, nb_mask) if nb else out
 
 
-def _bind(lib: ctypes.CDLL, nb: bool):
-    ptr, i32, f32, f64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_double
+def sweep_full_chain_plain(xr, xi, inc, phase0, w_ssb, w_pbt, tail_r, tail_i,
+                           audio_tail, env0, agc_release, agc_target,
+                           agc_max_gain, agc_enabled=True, out_gain=1.0,
+                           in_gain=1.0, iq_balance=1.0, nb=False,
+                           nb_thresh_db=10.0, nb_tau=512.0, nb_avg0=None,
+                           nb_mask0=None):
+    """Plain PyTorch version of ``sweep_full_chain``."""
+    return _chain_plain(xr, xi, inc, phase0, w_ssb, w_pbt, tail_r, tail_i,
+                        audio_tail, env0, agc_release, agc_target, agc_max_gain,
+                        agc_enabled, out_gain, in_gain, iq_balance, nb,
+                        nb_thresh_db, nb_tau, nb_avg0, nb_mask0)
+
+
+def sweep_am_chain_plain(xr, xi, inc, phase0, w_sb, w_pbt, tail_r, tail_i,
+                         audio_tail, env0, dc0, agc_release, agc_target,
+                         agc_max_gain, agc_enabled=True, out_gain=1.0,
+                         dc_pole=DC_POLE, in_gain=1.0, iq_balance=1.0, nb=False,
+                         nb_thresh_db=10.0, nb_tau=512.0, nb_avg0=None,
+                         nb_mask0=None):
+    """Plain PyTorch version of ``sweep_am_chain``."""
+    return _chain_plain(xr, xi, inc, phase0, w_sb, w_pbt, tail_r, tail_i,
+                        audio_tail, env0, agc_release, agc_target, agc_max_gain,
+                        agc_enabled, out_gain, in_gain, iq_balance, nb,
+                        nb_thresh_db, nb_tau, nb_avg0, nb_mask0, dc0, dc_pole)
+
+
+_PTR, _I32, _F32, _F64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_double
+_ARGTYPES = {  # the extern "C" launchers of csrc/sweep_chain.cu
+    "sweep_chain_ssb": [_PTR] * 14 + [_I32] * 3 + [_F64] + [_F32] * 2 + [_I32]
+                       + [_F32] * 3 + [_PTR],
+    "sweep_chain_ssb_nb": [_PTR] * 18 + [_I32] * 3 + [_F64] + [_F32] * 2 + [_I32]
+                          + [_F32] * 3 + [_F64, _F32, _PTR],
+    "sweep_chain_am": [_PTR] * 16 + [_I32] * 3 + [_F64] + [_F32] * 2 + [_I32]
+                      + [_F32] * 3 + [_F64, _PTR],
+    "sweep_chain_am_nb": [_PTR] * 20 + [_I32] * 3 + [_F64] + [_F32] * 2 + [_I32]
+                         + [_F32] * 3 + [_F64, _F64, _F32, _PTR],
+}
+
+
+def _launch_chain(xr, xi, inc, phase0, w, w_pbt, tail_r, tail_i, audio_tail,
+                  env0, agc_release, agc_target, agc_max_gain, agc_enabled,
+                  out_gain, in_gain, iq_balance, nb, nb_thresh_db, nb_tau,
+                  nb_avg0, nb_mask0, dc0=None, dc_pole=1.0):
+    """Check, allocate the outputs and launch one of the four kernels; returns
+    them in the order of the plain version's return."""
+    global LAUNCHES, LAUNCHES_NB, LAUNCHES_AM, LAUNCHES_AM_NB
+    if xr.device.type != "cuda":
+        raise ValueError(f"the sweep chain runs on cuda or cpu, not {xr.device}")
+    am = dc0 is not None
+    _check_args(xr, xi, inc, phase0, w, w_pbt, tail_r, tail_i, audio_tail,
+                env0, agc_release, nb, nb_tau, nb_avg0, nb_mask0, dc0, dc_pole)
+    ins = (xr, xi, inc, phase0, w, w_pbt, tail_r, tail_i, audio_tail, env0)
+    ins += (dc0,) if am else ()
+    nb_ins = (nb_avg0, nb_mask0) if nb else ()
+    check_launch("the sweep chain", ins + nb_ins)
+    c, n = xr.shape
+    outs = (torch.empty_like(xr), torch.empty_like(xr),
+            torch.empty_like(audio_tail), torch.empty_like(env0))
+    outs += (torch.empty_like(dc0),) if am else ()
+    nb_outs = (torch.empty_like(nb_avg0), torch.empty_like(nb_mask0)) if nb else ()
+    agc = (float(agc_release), float(np.float32(agc_target)),
+           float(np.float32(agc_max_gain)), int(bool(agc_enabled)),
+           float(np.float32(out_gain)), float(np.float32(in_gain)),
+           float(np.float32(in_gain * iq_balance)))
+    tail_args = (float(dc_pole),) if am else ()
     if nb:
-        fn = lib.sweep_chain_ssb_nb
-        fn.argtypes = ([ptr] * 18 + [i32] * 3 + [f64] + [f32] * 2 + [i32]
-                       + [f32] * 3 + [f64, f32, ptr])
-    else:
-        fn = lib.sweep_chain_ssb
-        fn.argtypes = [ptr] * 14 + [i32] * 3 + [f64] + [f32] * 2 + [i32] + [f32] * 3 + [ptr]
+        thresh, a = nb_constants(nb_thresh_db, nb_tau)
+        tail_args += (a, float(np.float32(thresh)))
+    name = f"sweep_chain_{'am' if am else 'ssb'}{'_nb' if nb else ''}"
+    fn = getattr(build.load_library("sweep_chain"), name)
+    fn.argtypes = _ARGTYPES[name]
     fn.restype = ctypes.c_int
-    return fn
+    stream = torch.cuda.current_stream(xr.device).cuda_stream
+    err = fn(*(t.data_ptr() for t in ins + outs + nb_ins + nb_outs), c, n,
+             xr.device.index or 0, *agc, *tail_args, stream)
+    if err:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+    if am:
+        if nb:
+            LAUNCHES_AM_NB += 1
+        else:
+            LAUNCHES_AM += 1
+    elif nb:
+        LAUNCHES_NB += 1
+    else:
+        LAUNCHES += 1
+    return outs + nb_outs
 
 
 def sweep_full_chain(xr, xi, inc, phase0, w_ssb, w_pbt, tail_r, tail_i,
@@ -236,43 +343,35 @@ def sweep_full_chain(xr, xi, inc, phase0, w_ssb, w_pbt, tail_r, tail_i,
     also (nb_avg_next, nb_mask_next). CPU tensors run the plain version; CUDA
     tensors launch the kernel, or raise.
     """
-    global LAUNCHES, LAUNCHES_NB
+    run = sweep_full_chain_plain if xr.device.type == "cpu" else _launch_chain
+    return run(xr, xi, inc, phase0, w_ssb, w_pbt, tail_r, tail_i, audio_tail,
+               env0, agc_release, agc_target, agc_max_gain, agc_enabled,
+               out_gain, in_gain, iq_balance, nb, nb_thresh_db, nb_tau,
+               nb_avg0, nb_mask0)
+
+
+def sweep_am_chain(xr, xi, inc, phase0, w_sb, w_pbt, tail_r, tail_i,
+                   audio_tail, env0, dc0, agc_release, agc_target, agc_max_gain,
+                   agc_enabled=True, out_gain=1.0, dc_pole=DC_POLE, in_gain=1.0,
+                   iq_balance=1.0, nb=False, nb_thresh_db=10.0, nb_tau=512.0,
+                   nb_avg0=None, nb_mask0=None):
+    """Whole AM receive chain; arguments as ``sweep_full_chain``, plus:
+
+      w_sb:  (512, 256) overlap_save_matrix_real, the complex band-pass
+      dc0:   (C, 2) DC-blocker carry [last envelope, last output] (zeros at
+             stream start)
+
+    Returns (audio_l, audio_r, audio_tail_next, env_next, dc_next), and with
+    nb=True also (nb_avg_next, nb_mask_next). CPU tensors run the plain
+    version; CUDA tensors launch the kernel, or raise.
+    """
     if xr.device.type == "cpu":
-        return sweep_full_chain_plain(
-            xr, xi, inc, phase0, w_ssb, w_pbt, tail_r, tail_i, audio_tail,
-            env0, agc_release, agc_target, agc_max_gain, agc_enabled,
-            out_gain, in_gain, iq_balance, nb, nb_thresh_db, nb_tau, nb_avg0,
-            nb_mask0)
-    if xr.device.type != "cuda":
-        raise ValueError(f"sweep_full_chain runs on cuda or cpu, not {xr.device}")
-    _check_args(xr, xi, inc, phase0, w_ssb, w_pbt, tail_r, tail_i,
-                audio_tail, env0, agc_release, nb, nb_tau, nb_avg0, nb_mask0)
-    ins = (xr, xi, inc, phase0, w_ssb, w_pbt, tail_r, tail_i, audio_tail, env0)
-    check_launch("sweep_full_chain", ins + ((nb_avg0, nb_mask0) if nb else ()))
-    c, n = xr.shape
-    outs = (torch.empty_like(xr), torch.empty_like(xr),
-            torch.empty_like(audio_tail), torch.empty_like(env0))
-    ptrs = [t.data_ptr() for t in ins + outs]
-    nb_outs = ()
-    if nb:
-        nb_outs = (torch.empty_like(nb_avg0), torch.empty_like(nb_mask0))
-        ptrs += [t.data_ptr() for t in (nb_avg0, nb_mask0) + nb_outs]
-    agc = (float(agc_release), float(np.float32(agc_target)),
-           float(np.float32(agc_max_gain)), int(bool(agc_enabled)),
-           float(np.float32(out_gain)), float(np.float32(in_gain)),
-           float(np.float32(in_gain * iq_balance)))
-    nb_args = ()
-    if nb:
-        thresh, a = nb_constants(nb_thresh_db, nb_tau)
-        nb_args = (a, float(np.float32(thresh)))
-    fn = _bind(build.load_library("sweep_chain"), nb)
-    stream = torch.cuda.current_stream(xr.device).cuda_stream
-    err = fn(*ptrs, c, n, xr.device.index or 0, *agc, *nb_args, stream)
-    if err:
-        kernel = "sweep_chain_ssb_nb" if nb else "sweep_chain_ssb"
-        raise RuntimeError(f"{kernel} launch failed: cudaError {err}")
-    if nb:
-        LAUNCHES_NB += 1
-    else:
-        LAUNCHES += 1
-    return outs + nb_outs
+        return sweep_am_chain_plain(xr, xi, inc, phase0, w_sb, w_pbt, tail_r, tail_i,
+                                    audio_tail, env0, dc0, agc_release, agc_target,
+                                    agc_max_gain, agc_enabled, out_gain, dc_pole,
+                                    in_gain, iq_balance, nb, nb_thresh_db, nb_tau,
+                                    nb_avg0, nb_mask0)
+    return _launch_chain(xr, xi, inc, phase0, w_sb, w_pbt, tail_r, tail_i,
+                         audio_tail, env0, agc_release, agc_target, agc_max_gain,
+                         agc_enabled, out_gain, in_gain, iq_balance, nb,
+                         nb_thresh_db, nb_tau, nb_avg0, nb_mask0, dc0, dc_pole)

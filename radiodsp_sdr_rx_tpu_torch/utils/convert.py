@@ -1,10 +1,13 @@
 """Device placement and the carry-across between the JAX package and the port.
 
 ``params_from_numpy`` and ``state_from_numpy`` take the fields of the JAX
-package's ``ReceiverParams`` / ``FusedBankState`` as numpy arrays (a dict,
-e.g. ``state._asdict()``) and return the port's; ``state_to_numpy`` goes
-back. Both packages then compute from the same operators and carries.
-DDS phase words are uint32 in JAX and int64 in the port (ops/nco.py).
+package's ``ReceiverParams`` and of its bank states (``FusedBankState``,
+``FusedAMBankState``, the nested ``ReceiverState``) as numpy arrays (a dict,
+e.g. ``state._asdict()``; nested states as NamedTuples or dicts) and return
+the port's; ``state_to_numpy`` goes back, nested states as dicts. Both
+packages then compute from the same operators and carries. DDS words are
+uint32 in JAX and int64 in the port (ops/nco.py); the LMS ``first`` flag
+stays bool.
 """
 
 from __future__ import annotations
@@ -13,8 +16,6 @@ from typing import Mapping
 
 import numpy as np
 import torch
-
-from radiodsp_sdr_rx_tpu_torch.models.receiver import ReceiverParams
 
 
 def resolve_device(device=None) -> torch.device:
@@ -28,34 +29,82 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
-def params_from_numpy(d: Mapping, device) -> ReceiverParams:
+def split_iq(iq, n_channels: int) -> tuple[np.ndarray, np.ndarray]:
+    """Complex IQ at the host boundary, (C, n) or (n,) for every channel ->
+    planar f32 numpy (re, im), each (C, n)."""
+    iq = np.asarray(iq)
+    if iq.ndim == 1:
+        iq = np.broadcast_to(iq, (n_channels,) + iq.shape)
+    return (np.ascontiguousarray(iq.real, np.float32),
+            np.ascontiguousarray(iq.imag, np.float32))
+
+
+def params_from_numpy(d: Mapping, device):
     """Arrays become C-contiguous f32 tensors on ``device`` (the kernels
-    take row-major operators; the designed ones are column-major); 0-d values (gains, AGC
-    constants, the phase increment) become Python scalars, which the kernels
-    take as arguments; ``None`` stays ``None``."""
+    take row-major operators; the designed ones are column-major), a bank's
+    (C,) phase increments int64; 0-d values (gains, AGC constants, the phase
+    increment) become Python scalars, which the kernels take as arguments;
+    ``None`` stays ``None``. Returns the port's ``ReceiverParams``."""
+    from radiodsp_sdr_rx_tpu_torch.models.receiver import ReceiverParams
+
     out = {}
     for name in ReceiverParams._fields:
         v = d.get(name)
         if v is not None:
             a = np.asarray(v)
-            v = (torch.as_tensor(np.ascontiguousarray(a, np.float32), device=device)
+            dtype = np.int64 if name == "nco_inc" else np.float32
+            v = (torch.as_tensor(np.ascontiguousarray(a, dtype), device=device)
                  if a.ndim else a.item())
         out[name] = v
     return ReceiverParams(**out)
 
 
+def _state_types():
+    from radiodsp_sdr_rx_tpu_torch.models.fused import FusedAMBankState, FusedBankState
+    from radiodsp_sdr_rx_tpu_torch.models.receiver import ReceiverState
+    from radiodsp_sdr_rx_tpu_torch.ops.lms import LMSState
+    from radiodsp_sdr_rx_tpu_torch.ops.planar import SAMStatePlanar
+
+    return (FusedBankState, FusedAMBankState, ReceiverState), {
+        "lms": LMSState, "sam": SAMStatePlanar}
+
+
+def _fields(v) -> Mapping:
+    return v._asdict() if hasattr(v, "_asdict") else v
+
+
 def state_from_numpy(d: Mapping, device):
-    """JAX ``FusedBankState`` fields -> the port's ``FusedBankState``."""
-    from radiodsp_sdr_rx_tpu_torch.models.fused import FusedBankState
+    """The fields of a JAX bank state -> the port's state of the same fields
+    (``FusedBankState``, ``FusedAMBankState`` or ``ReceiverState``)."""
+    tops, nested = _state_types()
+    d = _fields(d)
+    cls = next((t for t in tops if set(t._fields) == set(d)), None)
+    if cls is None:
+        raise ValueError(f"no port state has the fields {sorted(d)}")
 
-    return FusedBankState(**{
-        name: torch.as_tensor(
-            np.asarray(d[name]).astype(np.int64 if name == "nco_phase" else np.float32),
-            device=device)
-        for name in FusedBankState._fields})
+    def leaf(name, v):
+        a = np.array(v)   # a writable copy: JAX hands out read-only arrays
+        if name == "nco_phase":
+            a = a.astype(np.int64)
+        elif a.dtype != np.bool_:
+            a = a.astype(np.float32)
+        return torch.as_tensor(a, device=device)
+
+    def build(t, fields):
+        return t(**{name: build(nested[name], _fields(v)) if name in nested
+                    else leaf(name, v) for name, v in fields.items()})
+
+    return build(cls, d)
 
 
-def state_to_numpy(state) -> dict[str, np.ndarray]:
-    """The port's ``FusedBankState`` -> numpy fields of the JAX state."""
-    return {name: v.cpu().numpy().astype(np.uint32 if name == "nco_phase" else np.float32)
+def state_to_numpy(state) -> dict:
+    """A port bank state -> numpy fields of the JAX state (nested states as
+    dicts)."""
+    def leaf(name, v):
+        a = v.cpu().numpy()
+        if name == "nco_phase":
+            return a.astype(np.uint32)
+        return a if a.dtype == np.bool_ else a.astype(np.float32)
+
+    return {name: state_to_numpy(v) if hasattr(v, "_asdict") else leaf(name, v)
             for name, v in state._asdict().items()}

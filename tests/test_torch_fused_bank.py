@@ -163,7 +163,7 @@ def test_no_device_without_cuda_raises(monkeypatch):
     ({"backend": "staged"}, {}),
     ({}, {"noise_blanker": True}),
 ])
-def test_later_slices_raise_not_implemented(kw, cfg_kw):
+def test_staged_and_nb_entry_points_run(kw, cfg_kw):
     """The two entry points that raised NotImplementedError until this slice
     was ported now build on the CPU, run a segment and thread their carries."""
     _, tc = _configs()

@@ -5,18 +5,22 @@ Every test here needs an NVIDIA card and nvcc; without them each skips (the
 ``python -m pytest tests/test_torch_kernels_cuda.py -q``.
 Tolerance 1e-4, as in chip_smoke.py: both are fp32 (TF32 off), the sums are
 taken in another order, and the AGC gain of up to 316 amplifies rounding.
+The LMS kernel is held to 2e-4, the JAX twin bound (tests/test_pallas_lms.py:
+35): its 96-tap sums run in another order and the adaptation carries that.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from radiodsp_sdr_rx_tpu_torch.models.config import AGCMode, DemodMode, ReceiverConfig
-from radiodsp_sdr_rx_tpu_torch.models.fused import FusedSSBBank
-from radiodsp_sdr_rx_tpu_torch.ops import agc, staged, sweep
+from radiodsp_sdr_rx_tpu_torch.models.config import AGCMode, DemodMode, NRMode, ReceiverConfig
+from radiodsp_sdr_rx_tpu_torch.models.fused import FusedAMBank, FusedSSBBank
+from radiodsp_sdr_rx_tpu_torch.models.receiver import ReceiverBank
+from radiodsp_sdr_rx_tpu_torch.ops import agc, lms, lms_bank, staged, sweep
 
 pytestmark = pytest.mark.cuda
 ATOL = 1e-4
+LMS_ATOL = 2e-4
 
 
 @pytest.fixture
@@ -150,3 +154,91 @@ def test_nb_kernel_matches_plain_over_two_segments(cuda_device, channels, n, agc
         _close((out["audio_l"], out["audio_r"], state.audio_tail, state.agc_env,
                 state.nb_avg, state.nb_mask), ref)
         assert float(state.nb_mask[:, -1].max()) == 0.0
+
+
+def _impulse_scene(channels, n, gen, device):
+    """Clipped noise with impulses of 8(1+1j), one on the last sample, and the
+    mean magnitude to warm-start the blanker's average."""
+    xr = torch.randn((channels, n), generator=gen, device=device) * 0.05
+    xi = torch.randn((channels, n), generator=gen, device=device) * 0.05
+    mag = torch.hypot(xr, xi)
+    f = (2.2 * mag.mean() / mag.clamp(min=1e-12)).clamp(max=1.0)
+    xr, xi = xr * f, xi * f
+    for pos in sorted({n // 5, n // 2 + 3, n - 1}):
+        xr[:, pos] = 8.0
+        xi[:, pos] = 8.0
+    return xr, xi, float(torch.hypot(xr, xi).mean())
+
+
+@pytest.mark.parametrize("nb", [False, True])
+@pytest.mark.parametrize("channels, n, agc_mode", SHAPES)
+def test_am_kernel_matches_plain_over_two_segments(cuda_device, channels, n, agc_mode, nb):
+    """K1-am (and K1-am-nb on the impulse scene) against sweep_am_chain_plain,
+    every output and carry, the DC blocker's included."""
+    cfg = ReceiverConfig(mode=DemodMode.AM, vfo_freq=7_060_000.0,
+                         capture_center_freq=7_050_000.0, agc=agc_mode, noise_blanker=nb)
+    bank = FusedAMBank(cfg, [7_050_000.0 + 1_000.0 * k for k in range(channels)],
+                       device=cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(n + 3)
+    state = bank.init_state()
+    if nb:
+        xr, xi, mean_mag = _impulse_scene(channels, n, gen, cuda_device)
+        state = state._replace(nb_avg=torch.full((channels,), mean_mag, device=cuda_device))
+    for _ in range(2):
+        if not nb:
+            xr = torch.randn((channels, n), generator=gen, device=cuda_device) * 0.1 + 0.2
+            xi = torch.randn((channels, n), generator=gen, device=cuda_device) * 0.1
+            xr[:, n // 3:n // 3 + 100] *= 30.0
+        ref = sweep.sweep_am_chain_plain(*bank.chain_args(xr, xi, state))
+        before = (sweep.LAUNCHES_AM, sweep.LAUNCHES_AM_NB)
+        out, state = bank.process_planar(xr, xi, state)
+        torch.cuda.synchronize()
+        assert (sweep.LAUNCHES_AM, sweep.LAUNCHES_AM_NB) == (before[0] + (not nb), before[1] + nb)
+        got = (out["audio_l"], out["audio_r"], state.audio_tail, state.agc_env, state.am_dc)
+        _close(got + ((state.nb_avg, state.nb_mask) if nb else ()), ref)
+        if nb:
+            assert float(state.nb_mask[:, -1].max()) == 0.0
+
+
+@pytest.mark.parametrize("mode", ["denoise", "notch"])
+@pytest.mark.parametrize("channels, n", [(8, 4096), (5, 1000), (3, 100)])
+def test_lms_kernel_matches_plain_over_two_segments(cuda_device, channels, n, mode):
+    """K3 against lms_nr_run_bank_plain, first=True into the first segment (the
+    quirk) and False after, on tones in noise; n not a multiple of 32, and
+    shorter than the delay line, included."""
+    gen = torch.Generator(device=cuda_device).manual_seed(n + len(mode))
+    t = torch.arange(n, device=cuda_device, dtype=torch.float32)
+    f = torch.rand((channels, 1), generator=gen, device=cuda_device) * 0.2 + 0.01
+    mu = lms.lms_mu_from_strength(30)
+    state = lms.lms_nr_init(channels, device=cuda_device)
+    for seg in range(2):
+        x = (0.3 * torch.sin(2 * torch.pi * f * (t + seg * n))
+             + 0.1 * torch.randn((channels, n), generator=gen, device=cuda_device))
+        args = (x, state.weights, state.window, state.delay, state.first, mu, mode)
+        ref = lms_bank.lms_nr_run_bank_plain(*args)
+        before = lms_bank.LAUNCHES
+        got = lms_bank.lms_nr_run_bank(*args)
+        torch.cuda.synchronize()
+        assert lms_bank.LAUNCHES == before + 1
+        for g, r in zip(got, ref):
+            assert bool(torch.isfinite(g).all())
+            np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(), atol=LMS_ATOL, rtol=0)
+        assert torch.equal(got[2], ref[2]) and torch.equal(got[3], ref[3])  # input copies
+        _, state = lms.lms_nr_run(x, state, mu, mode)
+
+
+@pytest.mark.parametrize("nr", [NRMode.NOTCH, NRMode.DNR2])
+def test_receiver_bank_launches_one_lms_per_segment(cuda_device, nr):
+    cfg = ReceiverConfig(mode=DemodMode.USB, vfo_freq=7_200_000.0,
+                         capture_center_freq=7_190_000.0, nr=nr)
+    bank = ReceiverBank(cfg, [7_190_000.0 + 1_000.0 * k for k in range(4)], backend="batched")
+    assert bank.device.type == "cuda"
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    state = bank.init_state()
+    before = lms_bank.LAUNCHES
+    for _ in range(3):
+        x = torch.randn((4, 2048), generator=gen, device=cuda_device) * 0.1
+        out, state = bank.process_planar(x, x, state)
+    torch.cuda.synchronize()
+    assert lms_bank.LAUNCHES == before + 3
+    assert bool(torch.isfinite(out["audio_l"]).all()) and not bool(state.lms.first.any())

@@ -33,6 +33,12 @@ def test_port_has_modules():
             "radiodsp_sdr_rx_tpu_torch/ops/staged.py",
             "radiodsp_sdr_rx_tpu_torch/ops/chain_common.py",
             "radiodsp_sdr_rx_tpu_torch/ops/agc.py",
+            "radiodsp_sdr_rx_tpu_torch/ops/iir.py",
+            "radiodsp_sdr_rx_tpu_torch/ops/planar.py",
+            "radiodsp_sdr_rx_tpu_torch/ops/qformat.py",
+            "radiodsp_sdr_rx_tpu_torch/ops/lms.py",
+            "radiodsp_sdr_rx_tpu_torch/ops/lms_bank.py",
+            "radiodsp_sdr_rx_tpu_torch/models/receiver.py",
             "radiodsp_sdr_rx_tpu_torch/models/fused.py"} <= names
 
 
