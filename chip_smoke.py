@@ -435,7 +435,7 @@ def main() -> None:
                           capture_center_freq=14_049_000.0, agc=AGCMode.FAST,
                           nr=NRMode.NOTCH)
     cfg7 = cfg.with_(nr=NRMode.DNR2)
-    lms_args = {}
+    lms_args, lms_plain_prefix_ms = {}, {}
     launches["lms_nr"] = 0
     recorded = []
     run_lms = lms_bank.lms_nr_run_bank
@@ -458,10 +458,18 @@ def main() -> None:
         check(launched == only(lms_nr=SEGMENTS), f"expected {SEGMENTS} lms_nr launches (1 "
               f"per segment) and no other, counted {launched}")
         launches["lms_nr"] += launched["lms_nr"]
+        check(len(recorded) == SEGMENTS, f"expected {SEGMENTS} calls of "
+              f"lms_bank.lms_nr_run_bank through ops/lms.lms_nr_run, recorded "
+              f"{len(recorded)}")
         (x, w, win, dl, first, mu_rb, mode), got = recorded[1]
         lms_args[label] = (x, w, win, dl, first, mu_rb, mode)
-        ref = lms_bank.lms_nr_run_bank_plain(x[:, :LMS_PREFIX].contiguous(), w, win, dl,
-                                             first, mu_rb, mode)
+        x_pre = x[:, :LMS_PREFIX].contiguous()
+        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0.record()
+        ref = lms_bank.lms_nr_run_bank_plain(x_pre, w, win, dl, first, mu_rb, mode)
+        t1.record()
+        t1.synchronize()
+        lms_plain_prefix_ms[label] = t0.elapsed_time(t1)
         d = max_diff([got[0][:, :LMS_PREFIX]], ref[:1])
         say(f"check lms_nr ({mode}) full width, segment 1: max |kernel - plain| over the "
             f"first {LMS_PREFIX} outputs = {d:.3e} (tolerance {TOL_LMS:g}); "
@@ -572,16 +580,17 @@ def main() -> None:
     del xr_am, xi_am, xr_amnb, xi_amnb, args
 
     # the LMS kernel on config3's notch input of segment 1 (128 ch x 2^19); no
-    # single PyTorch call computes it; its plain version runs once, at full
-    # length (2^19 steps of the per-sample recurrence)
+    # single PyTorch call computes it. Its plain version, a host-bound loop of
+    # one step per sample, was timed in 4e on the first LMS_PREFIX samples of
+    # the same input; plain_ms scales that time to the whole segment
     args = lms_args["config3 notch"]
     b_ms, b_by = bound(LMS_FLOPS_PER_SAMPLE * samples,
                        8 * samples + N_CHANNELS * 4 * (4 * 96 + 2 * 128))
     timing["lms_nr"] = dict(
         ms=time_ms(lambda: lms_bank.lms_nr_run_bank(*args), REPS),
-        plain_ms=time_ms(lambda: lms_bank.lms_nr_run_bank_plain(*args), 1, warmup=False),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None, flops=LMS_FLOPS_PER_SAMPLE * samples,
-        samples=samples)
+        plain_ms=lms_plain_prefix_ms["config3 notch"] * (SEG_LEN / LMS_PREFIX),
+        plain_from=LMS_PREFIX, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        flops=LMS_FLOPS_PER_SAMPLE * samples, samples=samples)
     del args, lms_args
     for label in ("config3 notch", "config7 DNR2"):
         rb, x_r, x_i, st = ends[label]
@@ -594,7 +603,10 @@ def main() -> None:
         say(f"timing {kname}: kernel {tm['ms']:.3f} ms/segment "
             f"({tm['samples'] / tm['ms'] / 1e3:.1f} "
             f"Msamples/s, {tm['flops'] / tm['ms'] / 1e9:.1f} TFLOP/s fp32), plain "
-            f"{tm['plain_ms']:.3f} ms, library {library}, bound "
+            f"{tm['plain_ms']:.3f} ms"
+            + (f" (timed on the first {tm['plain_from']} samples, scaled to "
+               f"{SEG_LEN})" if "plain_from" in tm else "")
+            + f", library {library}, bound "
             f"{tm['bound_ms']:.3f} ms ({tm['bound_by']})")
     say(f"timing paths: FusedSSBBank.process_planar per segment: sweep {seg_ms:.3f} ms, "
         f"staged {seg_st_ms:.3f} ms (of which agc_run {agc_ms:.3f} ms), noise blanker "
@@ -620,7 +632,8 @@ def main() -> None:
         "launches": launches[kname], "max_abs_err": err[kname],
         "ms": timing[kname]["ms"], "plain_ms": timing[kname]["plain_ms"],
         "bound_ms": timing[kname]["bound_ms"], "bound_by": timing[kname]["bound_by"],
-        "library_ms": timing[kname]["library_ms"]}
+        "library_ms": timing[kname]["library_ms"],
+        "plain_timed_samples": timing[kname].get("plain_from", SEG_LEN)}
         for kname, (src, tpu) in sources.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)

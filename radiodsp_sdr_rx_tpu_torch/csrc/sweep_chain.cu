@@ -105,6 +105,8 @@ __device__ __forceinline__ float seg_factors(double p, float (&lanes)[5]) {
 
 enum class Demod { kSSB, kAM };
 
+constexpr double kDcPole = 0.995;  // the AM DC blocker's pole (ops/iir.DC_POLE)
+
 template <Demod kDemod, bool kNB>
 __global__ void __launch_bounds__(kThreads, 1) sweep_chain_kernel(
     const float* __restrict__ xr, const float* __restrict__ xi,
@@ -119,7 +121,7 @@ __global__ void __launch_bounds__(kThreads, 1) sweep_chain_kernel(
     const float* __restrict__ nb_avg0, const float* __restrict__ nb_mask0,
     float* __restrict__ nb_avg_out, float* __restrict__ nb_mask_out,
     double nb_a, float nb_thresh, const float* __restrict__ dc0,
-    float* __restrict__ dc_out, double dc_pole) {
+    float* __restrict__ dc_out) {
   constexpr bool kAM = kDemod == Demod::kAM;
   extern __shared__ __align__(16) float smem[];
   float* As = smem;
@@ -147,8 +149,8 @@ __global__ void __launch_bounds__(kThreads, 1) sweep_chain_kernel(
   }
   float dc_pf = 0.f, dc_seg = 0.f, dc_lanes[5];
   if constexpr (kAM) {
-    dc_pf = (float)dc_pole;
-    dc_seg = seg_factors(dc_pole, dc_lanes);
+    dc_pf = (float)kDcPole;
+    dc_seg = seg_factors(kDcPole, dc_lanes);
   }
 
   // the carried raw tail, re-scaled and re-mixed at positions -128..-1
@@ -361,7 +363,7 @@ int launch(const float* xr, const float* xi, const long long* inc,
            float target, float max_gain, int agc_enabled, float out_gain,
            float g_i, float g_q, const float* nb_avg0, const float* nb_mask0,
            float* nb_avg_out, float* nb_mask_out, double nb_a, float nb_thresh,
-           const float* dc0, float* dc_out, double dc_pole, void* stream) {
+           const float* dc0, float* dc_out, void* stream) {
   const int smem = (kSmemFloats + (kNB ? kBlk : 0)) * (int)sizeof(float);
   cudaError_t err = cudaSetDevice(device);
   if (err == cudaSuccess)
@@ -372,7 +374,7 @@ int launch(const float* xr, const float* xi, const long long* inc,
       xr, xi, inc, phase0, w_band, w_pbt, tail_r, tail_i, atail_in, env0, out_l,
       out_r, atail_out, env_out, n, release, target, max_gain, agc_enabled,
       out_gain, g_i, g_q, nb_avg0, nb_mask0, nb_avg_out, nb_mask_out, nb_a,
-      nb_thresh, dc0, dc_out, dc_pole);
+      nb_thresh, dc0, dc_out);
   return (int)cudaGetLastError();
 }
 
@@ -392,7 +394,7 @@ extern "C" int sweep_chain_ssb(
       xr, xi, inc, phase0, w_ssb, w_pbt, tail_r, tail_i, atail_in, env0, out_l,
       out_r, atail_out, env_out, channels, n, device, release, target, max_gain,
       agc_enabled, out_gain, g_i, g_q, nullptr, nullptr, nullptr, nullptr, 0.0,
-      0.f, nullptr, nullptr, 1.0, stream);
+      0.f, nullptr, nullptr, stream);
 }
 
 // The same with the noise blanker: nb_avg0 (C,) and nb_mask0 (C,128) in,
@@ -412,7 +414,7 @@ extern "C" int sweep_chain_ssb_nb(
       xr, xi, inc, phase0, w_ssb, w_pbt, tail_r, tail_i, atail_in, env0, out_l,
       out_r, atail_out, env_out, channels, n, device, release, target, max_gain,
       agc_enabled, out_gain, g_i, g_q, nb_avg0, nb_mask0, nb_avg_out,
-      nb_mask_out, nb_a, nb_thresh, nullptr, nullptr, 1.0, stream);
+      nb_mask_out, nb_a, nb_thresh, nullptr, nullptr, stream);
 }
 
 // The AM chain: w_sb (512,256) is the complex band-pass; dc0 (C,2) in and
@@ -424,12 +426,12 @@ extern "C" int sweep_chain_am(
     const float* env0, const float* dc0, float* out_l, float* out_r,
     float* atail_out, float* env_out, float* dc_out, int channels, int n,
     int device, double release, float target, float max_gain, int agc_enabled,
-    float out_gain, float g_i, float g_q, double dc_pole, void* stream) {
+    float out_gain, float g_i, float g_q, void* stream) {
   return launch<Demod::kAM, false>(
       xr, xi, inc, phase0, w_sb, w_pbt, tail_r, tail_i, atail_in, env0, out_l,
       out_r, atail_out, env_out, channels, n, device, release, target, max_gain,
       agc_enabled, out_gain, g_i, g_q, nullptr, nullptr, nullptr, nullptr, 0.0,
-      0.f, dc0, dc_out, dc_pole, stream);
+      0.f, dc0, dc_out, stream);
 }
 
 // The AM chain with the noise blanker (its carries as in sweep_chain_ssb_nb).
@@ -441,11 +443,11 @@ extern "C" int sweep_chain_am_nb(
     float* atail_out, float* env_out, float* dc_out, const float* nb_avg0,
     const float* nb_mask0, float* nb_avg_out, float* nb_mask_out, int channels,
     int n, int device, double release, float target, float max_gain,
-    int agc_enabled, float out_gain, float g_i, float g_q, double dc_pole,
-    double nb_a, float nb_thresh, void* stream) {
+    int agc_enabled, float out_gain, float g_i, float g_q, double nb_a,
+    float nb_thresh, void* stream) {
   return launch<Demod::kAM, true>(
       xr, xi, inc, phase0, w_sb, w_pbt, tail_r, tail_i, atail_in, env0, out_l,
       out_r, atail_out, env_out, channels, n, device, release, target, max_gain,
       agc_enabled, out_gain, g_i, g_q, nb_avg0, nb_mask0, nb_avg_out,
-      nb_mask_out, nb_a, nb_thresh, dc0, dc_out, dc_pole, stream);
+      nb_mask_out, nb_a, nb_thresh, dc0, dc_out, stream);
 }

@@ -33,7 +33,6 @@ from radiodsp_sdr_rx_tpu_torch.models.config import DemodMode, ReceiverConfig
 from radiodsp_sdr_rx_tpu_torch.models.receiver import build_params
 from radiodsp_sdr_rx_tpu_torch.ops import agc as agc_ops
 from radiodsp_sdr_rx_tpu_torch.ops import nco, staged
-from radiodsp_sdr_rx_tpu_torch.ops.iir import DC_POLE
 from radiodsp_sdr_rx_tpu_torch.ops.sweep import sweep_am_chain, sweep_full_chain
 from radiodsp_sdr_rx_tpu_torch.utils.convert import params_from_numpy, resolve_device, split_iq
 
@@ -222,7 +221,7 @@ class FusedAMBank:
                 state.sb_tail[:, _BLOCK:].contiguous(),
                 state.audio_tail, state.agc_env, state.am_dc,
                 p.agc_release, p.agc_target, p.agc_max_gain, p.agc_enabled,
-                p.output_gain, DC_POLE, p.input_gain, cfg.iq_gain_balance,
+                p.output_gain, p.input_gain, cfg.iq_gain_balance,
                 bool(cfg.noise_blanker), float(cfg.nb_threshold_db),
                 float(cfg.nb_tau_samples), state.nb_avg, state.nb_mask)
 

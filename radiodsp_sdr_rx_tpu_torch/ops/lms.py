@@ -55,9 +55,12 @@ def lms_nr_init(channels: int = 1, taps: int = LMS_TAPS, delay: int = LMS_DELAY,
 
 def lms_nr_run(x: torch.Tensor, state: LMSState, mu, mode: str = "denoise"):
     """Run the normalised LMS over a segment x (C, n). Returns (y or e, state')."""
-    from radiodsp_sdr_rx_tpu_torch.ops.lms_bank import lms_nr_run_bank
+    # deferred: lms_bank imports this module's constants. The call goes through
+    # the module attribute, so a caller may wrap lms_bank.lms_nr_run_bank
+    # (chip_smoke.py records its arguments that way)
+    from radiodsp_sdr_rx_tpu_torch.ops import lms_bank
 
-    out, w, win, d = lms_nr_run_bank(x, state.weights, state.window, state.delay,
-                                     state.first, mu, mode)
+    out, w, win, d = lms_bank.lms_nr_run_bank(x, state.weights, state.window,
+                                              state.delay, state.first, mu, mode)
     return out, LMSState(weights=w, window=win, delay=d,
                          first=torch.zeros_like(state.first))

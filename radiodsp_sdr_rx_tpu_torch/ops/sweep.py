@@ -133,8 +133,7 @@ def _blank(xr, xi, avg0, nb_thresh_db, nb_tau):
 
 
 def _check_args(xr, xi, inc, phase0, w, w_pbt, tail_r, tail_i, audio_tail,
-                env0, agc_release, nb, nb_tau, nb_avg0, nb_mask0, dc0=None,
-                dc_pole=1.0):
+                env0, agc_release, nb, nb_tau, nb_avg0, nb_mask0, dc0=None):
     """``dc0`` given means the AM chain: w is then (512, 256)."""
     check_stream(xr)
     if not 0.0 < agc_release <= 1.0:
@@ -153,8 +152,6 @@ def _check_args(xr, xi, inc, phase0, w, w_pbt, tail_r, tail_i, audio_tail,
     if dc0 is None:
         expect["w_ssb"] = (w, (512, 128), f32)
     else:
-        if not 0.0 < dc_pole <= 1.0:
-            raise ValueError(f"dc_pole must be in (0, 1], got {dc_pole}")
         expect["w_sb"] = (w, (512, 256), f32)
         expect["dc0"] = (dc0, (c, 2), f32)
     if nb:
@@ -169,7 +166,7 @@ def _check_args(xr, xi, inc, phase0, w, w_pbt, tail_r, tail_i, audio_tail,
     check_tensors(expect, xr.device)
 
 
-def _dc_block(y, dc0, pole):
+def _dc_block(y, dc0):
     """AM demod of the band-pass output y (C, rows, 256) = [zr | zi]: the
     envelope, then the DC blocker as the TPU kernel's decaying-sum doubling
     scans (within a row, then across rows) plus the row carry. Returns
@@ -177,24 +174,24 @@ def _dc_block(y, dc0, pole):
     c, rows, _ = y.shape
     env = torch.sqrt(y[..., :BLOCK].square() + y[..., BLOCK:].square())
     prev = torch.cat([dc0[:, :1], env.reshape(c, -1)[:, :-1]], dim=1)
-    run = _iir_lanes(env - prev.view(c, rows, BLOCK), pole)
+    run = _iir_lanes(env - prev.view(c, rows, BLOCK), DC_POLE)
     seq = torch.cat([dc0[:, 1:2], run[:, :-1, -1]], dim=1)
-    carry = _iir_rows(seq, float(np.float64(pole) ** BLOCK))
-    audio = run + carry[:, :, None] * _lane_decay(pole, y.device)
+    carry = _iir_rows(seq, float(np.float64(DC_POLE) ** BLOCK))
+    audio = run + carry[:, :, None] * _lane_decay(DC_POLE, y.device)
     return audio, torch.stack([env[:, -1, -1], audio[:, -1, -1]], dim=-1)
 
 
 def _chain_plain(xr, xi, inc, phase0, w, w_pbt, tail_r, tail_i, audio_tail,
                  env0, agc_release, agc_target, agc_max_gain, agc_enabled,
                  out_gain, in_gain, iq_balance, nb, nb_thresh_db, nb_tau,
-                 nb_avg0, nb_mask0, dc0=None, dc_pole=1.0):
+                 nb_avg0, nb_mask0, dc0=None):
     """The plain chain, SSB or (``dc0`` given) AM, vectorised over the whole
     segment: the AGC, the blanker's average and the DC blocker run as the TPU
     kernel's doubling scans (within a 128-sample row, then across rows) plus
     the row carry, with no per-sample loop. Both products are full fp32
     (``chain_common.matmul_fp32``), as the kernels compute them."""
     _check_args(xr, xi, inc, phase0, w, w_pbt, tail_r, tail_i, audio_tail,
-                env0, agc_release, nb, nb_tau, nb_avg0, nb_mask0, dc0, dc_pole)
+                env0, agc_release, nb, nb_tau, nb_avg0, nb_mask0, dc0)
     c, n = xr.shape
     g_i = float(np.float32(in_gain))
     g_q = float(np.float32(in_gain * iq_balance))
@@ -209,7 +206,7 @@ def _chain_plain(xr, xi, inc, phase0, w, w_pbt, tail_r, tail_i, audio_tail,
     audio = demod_frames(br, bi, tr, ti, w)
     del br, bi
     if dc0 is not None:
-        audio, dc = _dc_block(audio, dc0, dc_pole)
+        audio, dc = _dc_block(audio, dc0)
 
     run_e = _env_lanes(audio.abs(), agc_release)
     seq_e = torch.cat([env0[:, None], run_e[:, :-1, -1]], dim=1)
@@ -247,14 +244,14 @@ def sweep_full_chain_plain(xr, xi, inc, phase0, w_ssb, w_pbt, tail_r, tail_i,
 def sweep_am_chain_plain(xr, xi, inc, phase0, w_sb, w_pbt, tail_r, tail_i,
                          audio_tail, env0, dc0, agc_release, agc_target,
                          agc_max_gain, agc_enabled=True, out_gain=1.0,
-                         dc_pole=DC_POLE, in_gain=1.0, iq_balance=1.0, nb=False,
+                         in_gain=1.0, iq_balance=1.0, nb=False,
                          nb_thresh_db=10.0, nb_tau=512.0, nb_avg0=None,
                          nb_mask0=None):
     """Plain PyTorch version of ``sweep_am_chain``."""
     return _chain_plain(xr, xi, inc, phase0, w_sb, w_pbt, tail_r, tail_i,
                         audio_tail, env0, agc_release, agc_target, agc_max_gain,
                         agc_enabled, out_gain, in_gain, iq_balance, nb,
-                        nb_thresh_db, nb_tau, nb_avg0, nb_mask0, dc0, dc_pole)
+                        nb_thresh_db, nb_tau, nb_avg0, nb_mask0, dc0)
 
 
 _PTR, _I32, _F32, _F64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_double
@@ -264,16 +261,16 @@ _ARGTYPES = {  # the extern "C" launchers of csrc/sweep_chain.cu
     "sweep_chain_ssb_nb": [_PTR] * 18 + [_I32] * 3 + [_F64] + [_F32] * 2 + [_I32]
                           + [_F32] * 3 + [_F64, _F32, _PTR],
     "sweep_chain_am": [_PTR] * 16 + [_I32] * 3 + [_F64] + [_F32] * 2 + [_I32]
-                      + [_F32] * 3 + [_F64, _PTR],
+                      + [_F32] * 3 + [_PTR],
     "sweep_chain_am_nb": [_PTR] * 20 + [_I32] * 3 + [_F64] + [_F32] * 2 + [_I32]
-                         + [_F32] * 3 + [_F64, _F64, _F32, _PTR],
+                         + [_F32] * 3 + [_F64, _F32, _PTR],
 }
 
 
 def _launch_chain(xr, xi, inc, phase0, w, w_pbt, tail_r, tail_i, audio_tail,
                   env0, agc_release, agc_target, agc_max_gain, agc_enabled,
                   out_gain, in_gain, iq_balance, nb, nb_thresh_db, nb_tau,
-                  nb_avg0, nb_mask0, dc0=None, dc_pole=1.0):
+                  nb_avg0, nb_mask0, dc0=None):
     """Check, allocate the outputs and launch one of the four kernels; returns
     them in the order of the plain version's return."""
     global LAUNCHES, LAUNCHES_NB, LAUNCHES_AM, LAUNCHES_AM_NB
@@ -281,7 +278,7 @@ def _launch_chain(xr, xi, inc, phase0, w, w_pbt, tail_r, tail_i, audio_tail,
         raise ValueError(f"the sweep chain runs on cuda or cpu, not {xr.device}")
     am = dc0 is not None
     _check_args(xr, xi, inc, phase0, w, w_pbt, tail_r, tail_i, audio_tail,
-                env0, agc_release, nb, nb_tau, nb_avg0, nb_mask0, dc0, dc_pole)
+                env0, agc_release, nb, nb_tau, nb_avg0, nb_mask0, dc0)
     ins = (xr, xi, inc, phase0, w, w_pbt, tail_r, tail_i, audio_tail, env0)
     ins += (dc0,) if am else ()
     nb_ins = (nb_avg0, nb_mask0) if nb else ()
@@ -295,17 +292,17 @@ def _launch_chain(xr, xi, inc, phase0, w, w_pbt, tail_r, tail_i, audio_tail,
            float(np.float32(agc_max_gain)), int(bool(agc_enabled)),
            float(np.float32(out_gain)), float(np.float32(in_gain)),
            float(np.float32(in_gain * iq_balance)))
-    tail_args = (float(dc_pole),) if am else ()
+    nb_args = ()
     if nb:
         thresh, a = nb_constants(nb_thresh_db, nb_tau)
-        tail_args += (a, float(np.float32(thresh)))
+        nb_args = (a, float(np.float32(thresh)))
     name = f"sweep_chain_{'am' if am else 'ssb'}{'_nb' if nb else ''}"
     fn = getattr(build.load_library("sweep_chain"), name)
     fn.argtypes = _ARGTYPES[name]
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(xr.device).cuda_stream
     err = fn(*(t.data_ptr() for t in ins + outs + nb_ins + nb_outs), c, n,
-             xr.device.index or 0, *agc, *tail_args, stream)
+             xr.device.index or 0, *agc, *nb_args, stream)
     if err:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
     if am:
@@ -352,8 +349,8 @@ def sweep_full_chain(xr, xi, inc, phase0, w_ssb, w_pbt, tail_r, tail_i,
 
 def sweep_am_chain(xr, xi, inc, phase0, w_sb, w_pbt, tail_r, tail_i,
                    audio_tail, env0, dc0, agc_release, agc_target, agc_max_gain,
-                   agc_enabled=True, out_gain=1.0, dc_pole=DC_POLE, in_gain=1.0,
-                   iq_balance=1.0, nb=False, nb_thresh_db=10.0, nb_tau=512.0,
+                   agc_enabled=True, out_gain=1.0, in_gain=1.0, iq_balance=1.0,
+                   nb=False, nb_thresh_db=10.0, nb_tau=512.0,
                    nb_avg0=None, nb_mask0=None):
     """Whole AM receive chain; arguments as ``sweep_full_chain``, plus:
 
@@ -368,10 +365,10 @@ def sweep_am_chain(xr, xi, inc, phase0, w_sb, w_pbt, tail_r, tail_i,
     if xr.device.type == "cpu":
         return sweep_am_chain_plain(xr, xi, inc, phase0, w_sb, w_pbt, tail_r, tail_i,
                                     audio_tail, env0, dc0, agc_release, agc_target,
-                                    agc_max_gain, agc_enabled, out_gain, dc_pole,
-                                    in_gain, iq_balance, nb, nb_thresh_db, nb_tau,
+                                    agc_max_gain, agc_enabled, out_gain, in_gain,
+                                    iq_balance, nb, nb_thresh_db, nb_tau,
                                     nb_avg0, nb_mask0)
     return _launch_chain(xr, xi, inc, phase0, w_sb, w_pbt, tail_r, tail_i,
                          audio_tail, env0, agc_release, agc_target, agc_max_gain,
                          agc_enabled, out_gain, in_gain, iq_balance, nb,
-                         nb_thresh_db, nb_tau, nb_avg0, nb_mask0, dc0, dc_pole)
+                         nb_thresh_db, nb_tau, nb_avg0, nb_mask0, dc0)

@@ -278,16 +278,16 @@ def _args(c=2, n=256, nb=False):
     args = [f(c, n), f(c, n), f(c, dtype=torch.int64), f(c, dtype=torch.int64),
             f(512, 256), f(256, 256), f(c, 128), f(c, 128), f(c, 128),
             torch.full((c,), 1e-6), f(c, 2), 1.0, 1.0, 1.0]
-    if nb:   # agc_enabled, out gain, dc pole, the gains, then the blanker's
-        args += [False, 1.0, 0.995, 1.0, 1.0, True, 10.0, 512.0, f(c), torch.ones(c, 128)]
+    if nb:   # agc_enabled, out gain, the gains, then the blanker's
+        args += [False, 1.0, 1.0, 1.0, True, 10.0, 512.0, f(c), torch.ones(c, 128)]
     return args
 
 
 @pytest.mark.parametrize("index, bad", [
     (4, torch.zeros(512, 128)),                 # w_sb is (512, 256)
     (10, torch.zeros(2, 3)),                    # dc0 shape
-    (16, 1.5),                                  # dc_pole outside (0, 1]
-    (22, None),                                 # nb=True needs the carries
+    (11, 1.5),                                  # agc_release outside (0, 1]
+    (21, None),                                 # nb=True needs the carries
 ])
 def test_wrapper_rejects_bad_arguments(index, bad):
     args = _args(nb=index >= 14)
