@@ -22,8 +22,14 @@ banks against the port's reference chain, and times them:
     config3 (CW_NARROW, NR notch) and config7 (USB, DNR2), 128 channels: its
     LMS stage on kernel lms_nr, 1 launch/segment, the other stages plain
     PyTorch;
-  - cross-path parity: the fused SSB and AM banks against ``ReceiverBank`` on
-    the same input, at the docs/CHIP_PARITY.md bound.
+  - the NR bank, ``FusedNRBank``: at bench_full.py's config4 (USB, SPEC2, 64
+    channels) ``fold=True`` on kernel sweep_spec_chain (K4), 1 launch/segment,
+    and ``fold=False`` on sweep_chain_ssb, 1 launch/segment, with the spectral
+    stage plain PyTorch, beside ``ReceiverBank`` at config4 (no kernel); at
+    config7 ``fold=False`` on sweep_chain_ssb_mono + lms_nr, and at config3
+    ``fold=False`` on mix_demod + lms_nr + pbt, 1 launch each per segment;
+  - cross-path parity: the fused SSB, AM and NR banks against
+    ``ReceiverBank`` on the same input, at the docs/CHIP_PARITY.md bound.
 
 Every phase prints one flushed line with the seconds elapsed. Any failure
 raises and exits non-zero; without a CUDA card it exits non-zero at once.
@@ -34,18 +40,28 @@ per-kernel JSON record.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+
+import torch
 
 T0 = time.perf_counter()
 TOL = 1e-4           # kernel vs plain, both fp32: sums taken in another order
 TOL_BACKENDS = 2e-4  # staged vs sweep backend (tests/test_fused_bank.py:66-88)
 TOL_LMS = 2e-4       # the LMS twin bound (tests/test_pallas_lms.py:35)
 TOL_PARITY = 2e-3    # fused bank vs ReceiverBank (docs/CHIP_PARITY.md)
+# Spectral NR scales a bin by 0.2 at or under the floor and by 1 - nf/mag,
+# about 0, just above it: a bin within rounding of the floor may take either
+# side in two summation orders. Bins within FLIP_MARGIN (relative) of the
+# floor are counted per frame; the measured relative rounding of mag and nf
+# is about 1e-6.
+FLIP_MARGIN = 1e-4
 N_CHANNELS = 128     # bench.py:38
 N_AM = 64            # bench_full.py config1_am_64ch
+N_SPEC = 64          # bench_full.py config4_spec_nr_64ch
 SEG_LEN = 1 << 19    # bench.py:39
 SEGMENTS = 3         # threaded segments of each full-width run
 REPS = 10            # timed segments
@@ -55,7 +71,9 @@ PEAK_FP32_S = 67e12      # H100 SXM fp32 outside the tensor cores
 NB_FLOPS_PER_SAMPLE = 10  # |x|, the one-pole average, the threshold test
 AM_FLOPS_PER_SAMPLE = 6   # the envelope and the DC blocker
 LMS_FLOPS_PER_SAMPLE = 6 * 96   # the 96-tap dot, the energy and the update
-LIBRARIES = ("sweep_chain", "staged", "lms")
+# K4: the chain's two products (2,048), W_fwd (4,096) and W_inv (2,048)
+SPEC_FLOPS_PER_SAMPLE = 2 * (512 * 128 + 256 * 256 + 512 * 512 + 512 * 256) // 128
+LIBRARIES = ("sweep_chain", "staged", "lms", "sweep_spec")
 
 
 def say(msg: str) -> None:
@@ -72,8 +90,6 @@ def max_diff(got, ref) -> float:
 
 
 def time_ms(fn, reps: int, warmup: bool = True) -> float:
-    import torch
-
     if warmup:
         fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -86,8 +102,6 @@ def time_ms(fn, reps: int, warmup: bool = True) -> float:
 
 
 def noise(shape, gen, scale=0.1):
-    import torch
-
     return torch.randn(shape, generator=gen, device="cuda") * scale
 
 
@@ -97,8 +111,6 @@ def nb_scene(c, n, gen):
     clipped to 2.2x its mean so that no noise sample lies near the blanking
     threshold, and impulses of 8(1+1j) far above it, one on the last sample.
     Returns (xr, xi, mean magnitude), the last to warm-start the average."""
-    import torch
-
     xr, xi = noise((c, n), gen, 0.05), noise((c, n), gen, 0.05)
     xr[:, n // 3:n // 3 + 400] *= 2.0
     xi[:, n // 3:n // 3 + 400] *= 2.0
@@ -114,8 +126,6 @@ def nb_scene(c, n, gen):
 def tone_scene(c, n, gen):
     """A tone per channel (predictable across the LMS's 128-sample delay) in
     noise: what the LMS stages adapt to."""
-    import torch
-
     t = torch.arange(n, device="cuda", dtype=torch.float32)
     f = torch.rand((c, 1), generator=gen, device="cuda") * 0.2 + 0.01
     return 0.3 * torch.sin(2 * torch.pi * f * t) + noise((c, n), gen)
@@ -123,20 +133,52 @@ def tone_scene(c, n, gen):
 
 def ptxas_summary(log: str):
     """(kernel, registers, stack and spills) per entry function of a build
-    log, the sweep kernel's instantiations (demod x blanker) by entry point."""
+    log, the sweep kernel's instantiations (demod x blanker x R output) by
+    entry point."""
     out = []
     for block in log.split("Compiling entry function")[1:]:
         mangled = block.split("'")[1]
         if "sweep_chain_kernel" in mangled:
-            kname = ("sweep_chain_am" if "DemodE1" in mangled else "sweep_chain_ssb") + (
-                "_nb" if "ELb1E" in mangled else "")
+            am, nb, stereo = re.search(r"DemodE(\d)ELb(\d)ELb(\d)E", mangled).groups()
+            kname = ("sweep_chain_am" if am == "1" else "sweep_chain_ssb") + (
+                "_nb" if nb == "1" else "") + ("" if stereo == "1" else "_mono")
         else:
             kname = next(k for fn, k in (("mix_demod_kernel", "mix_demod"), ("pbt_kernel", "pbt"),
-                                         ("lms_kernel", "lms_nr")) if fn in mangled)
+                                         ("lms_kernel", "lms_nr"),
+                                         ("sweep_spec_kernel", "sweep_spec_chain"))
+                         if fn in mangled)
         lines = block.splitlines()
         out.append((kname, next(ln for ln in lines if "registers" in ln).split(": ")[-1],
                     next(ln for ln in lines if "spill" in ln).strip()))
     return out
+
+
+def floor_margins(spec_args, sweep, sweep_spec):
+    """Per 128-sample frame (C, rows) of the plain K4 on these arguments: the
+    number of bins within FLIP_MARGIN of the floor, and the floor."""
+    (xr, xi, inc, ph, w_ssb, w_pbt, w_fwd, _, tr, ti, atail, env0, nfl0, stl, st_r,
+     level, release, target, max_gain, enabled, _, in_gain, balance) = spec_args
+    l, r, _, _ = sweep.sweep_full_chain_plain(xr, xi, inc, ph, w_ssb, w_pbt, tr, ti, atail,
+                                              env0, release, target, max_gain, enabled, 1.0,
+                                              in_gain, balance)
+    _, _, mag, nfloor = sweep_spec.spectral_floor(l, r, w_fwd, nfl0, stl, st_r, level)
+    nf = nfloor.clamp(min=0.0)
+    return ((mag - nf[..., None]).abs() <= FLIP_MARGIN * nf[..., None]).sum(-1), nf
+
+
+def spectral_diff(got, ref, near, nf, out_gain, tol):
+    """L and R (C, n) against the reference, frame by frame: a frame with no
+    bin near the floor must agree to tol; one with k such bins to
+    tol + k * 0.2 * nf * out_gain / 256, the most that k scales flipping
+    between 0.2 and about 0 move an output sample (the inverse DFT divides by
+    256). Returns (the max diff over frames with no bin near the floor, the
+    frames with one, how many of those differ by more than tol, all pass)."""
+    c = got[0].shape[0]
+    d = torch.stack([(g - r).abs().view(c, -1, 128).amax(-1) for g, r in zip(got, ref)]).amax(0)
+    clear = d[near == 0]
+    ok = bool((d <= tol + near * (0.2 * out_gain / 256) * nf).all())
+    return (float(clear.max()) if clear.numel() else 0.0, int((near > 0).sum()),
+            int(((near > 0) & (d > tol)).sum()), ok)
 
 
 def bound(flops: float, nbytes: float) -> tuple[float, str]:
@@ -145,7 +187,6 @@ def bound(flops: float, nbytes: float) -> tuple[float, str]:
 
 
 def main() -> None:
-    import torch
 
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; this run needs a CUDA card")
@@ -161,9 +202,9 @@ def main() -> None:
 
     from radiodsp_sdr_rx_tpu_torch.models.config import (
         AGCMode, DemodMode, NRMode, ReceiverConfig)
-    from radiodsp_sdr_rx_tpu_torch.models.fused import FusedAMBank, FusedSSBBank
+    from radiodsp_sdr_rx_tpu_torch.models.fused import FusedAMBank, FusedNRBank, FusedSSBBank
     from radiodsp_sdr_rx_tpu_torch.models.receiver import ReceiverBank
-    from radiodsp_sdr_rx_tpu_torch.ops import agc, lms, lms_bank, staged, sweep
+    from radiodsp_sdr_rx_tpu_torch.ops import agc, lms, lms_bank, planar, staged, sweep, sweep_spec
     from radiodsp_sdr_rx_tpu_torch.utils import build
 
     torch.backends.cuda.matmul.allow_tf32 = False   # the plain versions in full fp32
@@ -171,14 +212,17 @@ def main() -> None:
 
     def reset_counts() -> None:
         sweep.LAUNCHES = sweep.LAUNCHES_NB = sweep.LAUNCHES_AM = sweep.LAUNCHES_AM_NB = 0
+        sweep.LAUNCHES_MONO = 0
         staged.LAUNCHES_MIX_DEMOD = staged.LAUNCHES_PBT = 0
         lms_bank.LAUNCHES = 0
+        sweep_spec.LAUNCHES = 0
 
     def counts() -> dict:
         return {"sweep_chain_ssb": sweep.LAUNCHES, "sweep_chain_ssb_nb": sweep.LAUNCHES_NB,
                 "mix_demod": staged.LAUNCHES_MIX_DEMOD, "pbt": staged.LAUNCHES_PBT,
                 "sweep_chain_am": sweep.LAUNCHES_AM, "sweep_chain_am_nb": sweep.LAUNCHES_AM_NB,
-                "lms_nr": lms_bank.LAUNCHES}
+                "lms_nr": lms_bank.LAUNCHES, "sweep_chain_ssb_mono": sweep.LAUNCHES_MONO,
+                "sweep_spec_chain": sweep_spec.LAUNCHES}
 
     def only(**launched) -> dict:
         """The counts of a path that launched these kernels and no other."""
@@ -199,8 +243,8 @@ def main() -> None:
     cfg_nb = cfg.with_(noise_blanker=True)
     freqs = [7_190_000.0 + 1_000.0 * k for k in range(N_CHANNELS)]
     gen = torch.Generator(device="cuda").manual_seed(0)
-    err = dict.fromkeys(("sweep_chain_ssb", "sweep_chain_ssb_nb", "mix_demod", "pbt",
-                         "sweep_chain_am", "sweep_chain_am_nb", "lms_nr"), 0.0)
+    err = dict.fromkeys(counts(), 0.0)
+    launches = dict.fromkeys(counts(), 0)   # summed over every driven path
 
     # 3. each kernel vs its plain version, 8 channels x 8192, two threaded segments
     small = FusedSSBBank(cfg, freqs[:8])
@@ -304,12 +348,57 @@ def main() -> None:
             check(d <= TOL_LMS, f"lms_nr disagrees with the plain version: {d:.3e} > {TOL_LMS:g}")
             err["lms_nr"] = max(err["lms_nr"], d)
             state = lms.LMSState(*got[1:], first=torch.zeros_like(state.first))
-    del small, small_nb, small_st, small_am
+
+    state = small.init_state()
+    for seg in range(2):
+        xr, xi = noise((8, 8192), gen), noise((8, 8192), gen)
+        xr[:, 3000:3400] *= 30.0
+        args = small.chain_args(xr, xi, state)
+        got = sweep.sweep_full_chain(*args, emit_r=False)
+        ref = sweep.sweep_full_chain_plain(*args, emit_r=False)
+        out, state = small.process_planar(xr, xi, state)
+        torch.cuda.synchronize()
+        check(got[1] is None and ref[1] is None, "emit_r=False returned an R")
+        d = max_diff(got[:1] + got[2:], ref[:1] + ref[2:])
+        same = bool(torch.equal(got[0], out["audio_l"]))
+        say(f"check sweep_chain_ssb_mono 8 ch x 8192, segment {seg}: max |kernel - plain| over "
+            f"L, audio_tail, env = {d:.3e} (tolerance {TOL:g}); R is None; L equal to "
+            f"sweep_chain_ssb's: {same}")
+        check(d <= TOL, f"sweep_chain_ssb_mono disagrees with the plain version: {d:.3e} > {TOL:g}")
+        check(same, "sweep_chain_ssb_mono's L differs from sweep_chain_ssb's")
+        err["sweep_chain_ssb_mono"] = max(err["sweep_chain_ssb_mono"], d)
+
+    cfg4 = cfg.with_(nr=NRMode.SPEC2)   # bench_full.py config4_spec_nr_64ch
+    for agc_mode in (AGCMode.MEDIUM, AGCMode.OFF):
+        small_nr = FusedNRBank(cfg4.with_(agc=agc_mode, input_gain=0.7, iq_gain_balance=1.02),
+                               freqs[:8])
+        state = small_nr.init_state()
+        for seg in range(2):
+            xr, xi = noise((8, 8192), gen), noise((8, 8192), gen)
+            xr[:, 3000:3400] *= 30.0
+            args = small_nr.spec_args(xr, xi, state)
+            ref = sweep_spec.sweep_spec_chain_plain(*args)
+            near, nf = floor_margins(args, sweep, sweep_spec)
+            out, state = small_nr.process_planar(xr, xi, state)
+            torch.cuda.synchronize()
+            d_lr, n_near, n_moved, ok = spectral_diff((out["audio_l"], out["audio_r"]), ref[:2],
+                                                      near, nf, small_nr.params.output_gain, TOL)
+            d = max(d_lr, max_diff((state.audio_tail, state.agc_env, state.nfloor,
+                                    state.spec_tail_l, state.spec_tail_r), ref[2:]))
+            say(f"check sweep_spec_chain 8 ch x 8192 (AGC {agc_mode.value}, input gain 0.7, "
+                f"balance 1.02), segment {seg}: max |kernel - plain| over L, R, audio_tail, env, "
+                f"nfloor, spec_tail_l, spec_tail_r = {d:.3e} (tolerance {TOL:g}); frames with a "
+                f"bin within {FLIP_MARGIN:g} of the floor {n_near}, of them over {TOL:g}: "
+                f"{n_moved}, all within the flip bound: {ok}")
+            check(d <= TOL and ok, f"sweep_spec_chain disagrees with the plain version: "
+                  f"{d:.3e} > {TOL:g} or a frame outside its flip bound")
+            err["sweep_spec_chain"] = max(err["sweep_spec_chain"], d)
+    del small, small_nb, small_st, small_am, small_nr
 
     def drive(bank, xr, xi, state, label, channels=N_CHANNELS):
         """SEGMENTS threaded segments with the launch counts set to 0 before and
-        read after; returns (launches, state into segment 1, its output, the
-        state out of it, the final state and output)."""
+        read after (and added to ``launches``); returns (the counts, state
+        into segment 1, its output, the state out of it, the final state)."""
         torch.cuda.synchronize()
         t = time.perf_counter()
         reset_counts()
@@ -321,6 +410,8 @@ def main() -> None:
                 out_1, state_2 = out, state
         torch.cuda.synchronize()
         launched = counts()
+        for k, v in launched.items():
+            launches[k] += v
         say(f"{label}: {channels} ch x {SEG_LEN} samples, {SEGMENTS} threaded segments "
             f"in {time.perf_counter() - t:.3f} s, kernel launches {launched}")
         for key in ("audio_l", "audio_r"):
@@ -334,7 +425,6 @@ def main() -> None:
     launched, state_1, out_1, state_2, state = drive(bank, xr, xi, bank.init_state(), "main path")
     check(launched == only(sweep_chain_ssb=SEGMENTS), f"expected {SEGMENTS} sweep_chain_ssb launches and no "
           f"other, counted {launched}")
-    launches = {"sweep_chain_ssb": launched["sweep_chain_ssb"]}
     ref = sweep.sweep_full_chain_plain(*bank.chain_args(xr, xi, state_1))
     d = max_diff((out_1["audio_l"], out_1["audio_r"], state_2.audio_tail, state_2.agc_env), ref)
     rms = float(out_1["audio_l"].square().mean().sqrt())
@@ -342,8 +432,20 @@ def main() -> None:
         f"(tolerance {TOL:g}); output finite, rms(L) = {rms:.4f}")
     check(d <= TOL, f"sweep_chain_ssb disagrees at full width: {d:.3e} > {TOL:g}")
     err["sweep_chain_ssb"] = max(err["sweep_chain_ssb"], d)
+    args = bank.chain_args(xr, xi, state_1)
+    mono = sweep.sweep_full_chain(*args, emit_r=False)
+    ref = sweep.sweep_full_chain_plain(*args, emit_r=False)
+    torch.cuda.synchronize()
+    d = max_diff(mono[:1] + mono[2:], ref[:1] + ref[2:])
+    same = mono[1] is None and bool(torch.equal(mono[0], out_1["audio_l"]))
+    say(f"check sweep_chain_ssb_mono full width, segment 1: max |kernel - plain| over L, "
+        f"audio_tail, env = {d:.3e} (tolerance {TOL:g}); R None and L equal to the main "
+        f"path's: {same}")
+    check(d <= TOL, f"sweep_chain_ssb_mono disagrees at full width: {d:.3e} > {TOL:g}")
+    check(same, "sweep_chain_ssb_mono's L differs from sweep_chain_ssb's at full width")
+    err["sweep_chain_ssb_mono"] = max(err["sweep_chain_ssb_mono"], d)
     sweep_out_1 = out_1
-    del ref, out_1
+    del ref, out_1, mono, args
 
     # 4b. the staged path at full width, on the same input
     bank_st = FusedSSBBank(cfg, freqs, backend="staged")
@@ -351,7 +453,6 @@ def main() -> None:
                                                   "staged path")
     check(launched == only(mix_demod=SEGMENTS, pbt=SEGMENTS), f"expected {SEGMENTS} launches each of mix_demod "
           f"and pbt (2 per segment) and no other, counted {launched}")
-    launches.update(mix_demod=launched["mix_demod"], pbt=launched["pbt"])
     args = bank_st.mix_demod_args(xr, xi, st_1)
     audio = staged.fused_mix_filter_demod_plain(*args)
     d_a = max_diff([staged.fused_mix_filter_demod(*args)], [audio])
@@ -383,7 +484,6 @@ def main() -> None:
                                                   "noise-blanker path")
     check(launched == only(sweep_chain_ssb_nb=SEGMENTS), f"expected {SEGMENTS} sweep_chain_ssb_nb launches and "
           f"no other, counted {launched}")
-    launches["sweep_chain_ssb_nb"] = launched["sweep_chain_ssb_nb"]
     ref = sweep.sweep_full_chain_plain(*bank_nb.chain_args(xr_nb, xi_nb, nb_1))
     d = max_diff((out_1["audio_l"], out_1["audio_r"], nb_2.audio_tail, nb_2.agc_env,
                   nb_2.nb_avg, nb_2.nb_mask), ref)
@@ -411,7 +511,6 @@ def main() -> None:
                                                  channels=N_AM)
         check(launched == only(**{kname: SEGMENTS}), f"expected {SEGMENTS} {kname} launches "
               f"and no other, counted {launched}")
-        launches[kname] = launched[kname]
         ref = sweep.sweep_am_chain_plain(*b.chain_args(x_r, x_i, s_1))
         got = (out_1["audio_l"], out_1["audio_r"], s_2.audio_tail, s_2.agc_env, s_2.am_dc)
         nb = kname.endswith("_nb")
@@ -436,7 +535,6 @@ def main() -> None:
                           nr=NRMode.NOTCH)
     cfg7 = cfg.with_(nr=NRMode.DNR2)
     lms_args, lms_plain_prefix_ms = {}, {}
-    launches["lms_nr"] = 0
     recorded = []
     run_lms = lms_bank.lms_nr_run_bank
 
@@ -445,9 +543,9 @@ def main() -> None:
         recorded.append((args, out))
         return out
 
+    freqs3 = [cfg3.capture_center_freq + 1_000.0 * k for k in range(N_CHANNELS)]
     for label, c_rb in (("config3 notch", cfg3), ("config7 DNR2", cfg7)):
-        rb = ReceiverBank(c_rb, [c_rb.capture_center_freq + 1_000.0 * k
-                                 for k in range(N_CHANNELS)], backend="batched")
+        rb = ReceiverBank(c_rb, freqs3 if c_rb is cfg3 else freqs, backend="batched")
         recorded.clear()
         lms_bank.lms_nr_run_bank = record
         try:
@@ -457,7 +555,6 @@ def main() -> None:
             lms_bank.lms_nr_run_bank = run_lms
         check(launched == only(lms_nr=SEGMENTS), f"expected {SEGMENTS} lms_nr launches (1 "
               f"per segment) and no other, counted {launched}")
-        launches["lms_nr"] += launched["lms_nr"]
         check(len(recorded) == SEGMENTS, f"expected {SEGMENTS} calls of "
               f"lms_bank.lms_nr_run_bank through ops/lms.lms_nr_run, recorded "
               f"{len(recorded)}")
@@ -479,25 +576,103 @@ def main() -> None:
         ends[label] = (rb, xr, xi, state_rb)
         del out_1, ref, got, recorded[:]
 
+    # 4g. the NR bank at full width: bench_full.py config4 (USB, AGC medium,
+    # SPEC2, 64 ch at 1 kHz, the main path's noise) folded on K4, staged, and
+    # ReceiverBank's plain spectral stage (no kernel); config7 (DNR2) and
+    # config3 (notch), 128 ch, staged (their folded route is the lanes kernel)
+    freqs4 = freqs[:N_SPEC]
+    xr4, xi4 = xr[:N_SPEC], xi[:N_SPEC]
+    bank4 = FusedNRBank(cfg4, freqs4)
+    launched, s4_1, out_1, s4_2, s4_end = drive(bank4, xr4, xi4, bank4.init_state(),
+                                                "NR bank config4 fold=True", channels=N_SPEC)
+    check(launched == only(sweep_spec_chain=SEGMENTS), f"expected {SEGMENTS} sweep_spec_chain "
+          f"launches and no other, counted {launched}")
+    args = bank4.spec_args(xr4, xi4, s4_1)
+    ref = sweep_spec.sweep_spec_chain_plain(*args)
+    near, nf = floor_margins(args, sweep, sweep_spec)
+    d_lr, n_near, n_moved, ok = spectral_diff((out_1["audio_l"], out_1["audio_r"]), ref[:2],
+                                              near, nf, bank4.params.output_gain, TOL)
+    d = max(d_lr, max_diff((s4_2.audio_tail, s4_2.agc_env, s4_2.nfloor, s4_2.spec_tail_l,
+                            s4_2.spec_tail_r), ref[2:]))
+    say(f"check sweep_spec_chain full width, segment 1: max |kernel - plain| over L, R, "
+        f"audio_tail, env, nfloor, spec_tail_l, spec_tail_r = {d:.3e} (tolerance {TOL:g}) in "
+        f"the {near.numel() - n_near} of {near.numel()} frames with no bin within "
+        f"{FLIP_MARGIN:g} of the floor; the other {n_near}: {n_moved} over {TOL:g}, all within "
+        f"the flip bound: {ok}; rms(L) = {float(out_1['audio_l'].square().mean().sqrt()):.4e}, "
+        f"nfloor {float(s4_2.nfloor.min()):.4e}..{float(s4_2.nfloor.max()):.4e}")
+    check(d <= TOL and ok, f"sweep_spec_chain disagrees at full width: {d:.3e} > {TOL:g} or "
+          f"a frame outside its flip bound")
+    del args, near, nf
+    err["sweep_spec_chain"] = max(err["sweep_spec_chain"], d)
+    ends["config4 fold=True"] = (bank4, xr4, xi4, s4_end)
+    del ref, out_1
+
+    cfg3_bank = FusedNRBank(cfg3, freqs3, fold=False)
+    for label, b, x_r, x_i, expect in (
+            ("config4 fold=False", FusedNRBank(cfg4, freqs4, fold=False), xr4, xi4,
+             only(sweep_chain_ssb=SEGMENTS)),
+            ("ReceiverBank config4 SPEC2", ReceiverBank(cfg4, freqs4), xr4, xi4, only()),
+            ("config7 DNR2 fold=False", FusedNRBank(cfg7, freqs, fold=False), xr, xi,
+             only(sweep_chain_ssb_mono=SEGMENTS, lms_nr=SEGMENTS)),
+            ("config3 notch fold=False", cfg3_bank, xr, xi,
+             only(mix_demod=SEGMENTS, lms_nr=SEGMENTS, pbt=SEGMENTS))):
+        launched, _, _, _, s_end = drive(b, x_r, x_i, b.init_state(), f"NR path {label}",
+                                         channels=x_r.shape[0])
+        check(launched == expect, f"{label}: expected the launches {expect}, counted {launched}")
+        ends[label] = (b, x_r, x_i, s_end)
+
     # 4f. cross-path parity: each fused bank against the port's ReceiverBank
-    # on the same input, two threaded segments (docs/CHIP_PARITY.md)
+    # on the same input, two threaded segments (docs/CHIP_PARITY.md); the
+    # NR banks' noise floors too, relative (tests/test_fused_bank.py:196).
+    # The spectral routes are compared frame by frame (spectral_diff), with
+    # the bins near the floor found by the plain K4 on the same segments
+    st, spec_near = bank4.init_state(), []
+    for _ in range(2):
+        spec_near.append(floor_margins(bank4.spec_args(xr4, xi4, st), sweep, sweep_spec))
+        _, st = bank4.process_planar(xr4, xi4, st)
     parity = {}
-    for label, fused_bank, ref_bank, x_r, x_i in (
+    for label, fused_bank, ref_bank, x_r, x_i, near in (
             ("FusedSSBBank vs ReceiverBank(USB)", bank,
-             ReceiverBank(cfg, freqs), xr, xi),
+             ReceiverBank(cfg, freqs), xr, xi, None),
             ("FusedAMBank vs ReceiverBank(AM)", bank_am,
-             ReceiverBank(cfg_am, freqs_am), xr_am, xi_am)):
-        st_f, st_r, worst = fused_bank.init_state(), ref_bank.init_state(), 0.0
-        for _ in range(2):
+             ReceiverBank(cfg_am, freqs_am), xr_am, xi_am, None),
+            ("FusedNRBank(fold=True) vs ReceiverBank(SPEC2), config4", bank4,
+             ReceiverBank(cfg4, freqs4), xr4, xi4, spec_near),
+            ("FusedNRBank(fold=False) vs ReceiverBank(SPEC2), config4",
+             ends["config4 fold=False"][0], ReceiverBank(cfg4, freqs4), xr4, xi4, spec_near),
+            ("FusedNRBank(fold=False) vs ReceiverBank(DNR2), config7",
+             ends["config7 DNR2 fold=False"][0], ReceiverBank(cfg7, freqs), xr, xi, None),
+            ("FusedNRBank(fold=False) vs ReceiverBank(NOTCH), config3", cfg3_bank,
+             ReceiverBank(cfg3, freqs3), xr, xi, None)):
+        st_f, st_r, worst, worst_nf = fused_bank.init_state(), ref_bank.init_state(), 0.0, 0.0
+        n_near = n_moved = 0
+        ok = True
+        for seg in range(2):
             out_f, st_f = fused_bank.process_planar(x_r, x_i, st_f)
             out_r, st_r = ref_bank.process_planar(x_r, x_i, st_r)
-            worst = max(worst, max_diff((out_f["audio_l"], out_f["audio_r"]),
-                                        (out_r["audio_l"], out_r["audio_r"])))
+            got, want = (out_f["audio_l"], out_f["audio_r"]), (out_r["audio_l"], out_r["audio_r"])
+            if near is None:
+                worst = max(worst, max_diff(got, want))
+            else:
+                d, k, moved, seg_ok = spectral_diff(got, want, *near[seg],
+                                                    ref_bank.params.output_gain, TOL_PARITY)
+                worst, n_near, n_moved, ok = max(worst, d), n_near + k, n_moved + moved, ok and seg_ok
+            if hasattr(st_f, "nfloor"):
+                worst_nf = max(worst_nf, float(((st_f.nfloor - st_r.nfloor).abs()
+                                                / st_r.nfloor.abs().clamp(min=1e-6)).max()))
         parity[label] = worst
         say(f"parity {label}, {x_r.shape[0]} ch x {SEG_LEN}, 2 threaded segments: max abs "
-            f"diff over L, R = {worst:.3e} (bound {TOL_PARITY:g})")
-        check(worst <= TOL_PARITY, f"{label}: {worst:.3e} > {TOL_PARITY:g}")
-        del out_f, out_r
+            f"diff over L, R = {worst:.3e} (bound {TOL_PARITY:g})"
+            + ("" if near is None else f" in the frames with no bin within {FLIP_MARGIN:g} of "
+               f"the floor; the other {n_near}: {n_moved} over {TOL_PARITY:g}, all within the "
+               f"flip bound: {ok}")
+            + (f"; nfloor relative {worst_nf:.3e} (bound 1e-3)" if hasattr(st_f, "nfloor")
+               else ""))
+        check(worst <= TOL_PARITY and ok, f"{label}: {worst:.3e} > {TOL_PARITY:g} or a frame "
+              f"outside its flip bound")
+        check(worst_nf <= 1e-3, f"{label}: nfloor relative {worst_nf:.3e} > 1e-3")
+        del out_f, out_r, got, want
+    del spec_near
 
     # 5. timing (CUDA events, after warm-up)
     samples = N_CHANNELS * SEG_LEN
@@ -508,7 +683,9 @@ def main() -> None:
     lib1_ms = time_ms(lambda: torch.matmul(f1, w_ssb), REPS)
     lib2_ms = time_ms(lambda: torch.matmul(f2, w_pbt), REPS)
     library_ms = time_ms(lambda: (torch.matmul(f1, w_ssb), torch.matmul(f2, w_pbt)), REPS)
-    del f1, f2
+    w_pbt_l = w_pbt[:, :128].contiguous()   # the L half of PBT: all that emit_r=False needs
+    library_mono_ms = time_ms(lambda: (torch.matmul(f1, w_ssb), torch.matmul(f2, w_pbt_l)), REPS)
+    del f1, f2, w_pbt_l
     ops1, ops2 = rows * 2 * 512 * 128, rows * 2 * 256 * 256
     words_tails = N_CHANNELS * (2 * 8 + 4 * 128 * 4 + 2 * 4)
     w_bytes = 4 * (512 * 128 + 256 * 256)
@@ -522,6 +699,13 @@ def main() -> None:
         bound_ms=b_ms, bound_by=b_by, library_ms=library_ms, flops=ops1 + ops2,
         samples=samples)
     seg_ms = time_ms(lambda: bank.process_planar(xr, xi, state), REPS)
+    # without R the function needs only L's half of the PBT product
+    b_ms, b_by = bound(ops1 + ops2 // 2, 3 * samples * 4 + w_bytes + words_tails)
+    timing["sweep_chain_ssb_mono"] = dict(
+        ms=time_ms(lambda: sweep.sweep_full_chain(*args, emit_r=False), REPS),
+        plain_ms=time_ms(lambda: sweep.sweep_full_chain_plain(*args, emit_r=False), 3),
+        bound_ms=b_ms, bound_by=b_by, library_ms=library_mono_ms, flops=ops1 + ops2 // 2,
+        samples=samples)
 
     args = bank_nb.chain_args(xr_nb, xi_nb, state_nb)
     flops = ops1 + ops2 + NB_FLOPS_PER_SAMPLE * samples
@@ -579,6 +763,39 @@ def main() -> None:
             lambda: b.process_planar(x_r, x_i, st), REPS)
     del xr_am, xi_am, xr_amnb, xi_amnb, args
 
+    # K4 at config4's shape (64 ch x 2^19); the library yardstick is its four
+    # products as fp32 torch.matmul
+    samples4 = N_SPEC * SEG_LEN
+    rows4 = samples4 // 128
+    w_fwd, w_inv = bank4.w_spec
+    f1 = torch.randn((rows4, 512), generator=gen, device="cuda")
+    f2 = torch.randn((rows4, 256), generator=gen, device="cuda")
+    lib_spec_ms = time_ms(lambda: (torch.matmul(f1, w_ssb), torch.matmul(f2, w_pbt),
+                                   torch.matmul(f1, w_fwd), torch.matmul(f1, w_inv)), REPS)
+    del f1, f2
+    b4, x_r, x_i, st = ends["config4 fold=True"]
+    args = b4.spec_args(x_r, x_i, st)
+    b_ms, b_by = bound(SPEC_FLOPS_PER_SAMPLE * samples4,
+                       4 * samples4 * 4 + 4 * (512 * 128 + 256 * 256 + 512 * 512 + 512 * 256)
+                       + N_SPEC * (2 * 8 + 2 * 128 * 4 + 2 * 128 * 4 + 4 * 4 + 4 * 128 * 4))
+    timing["sweep_spec_chain"] = dict(
+        ms=time_ms(lambda: sweep_spec.sweep_spec_chain(*args), REPS),
+        plain_ms=time_ms(lambda: sweep_spec.sweep_spec_chain_plain(*args), 3),
+        bound_ms=b_ms, bound_by=b_by, library_ms=lib_spec_ms,
+        flops=SPEC_FLOPS_PER_SAMPLE * samples4, samples=samples4)
+    del args
+    # the staged spectral stage alone (plain PyTorch, split DFT) at config4's shape
+    p4 = ends["config4 fold=False"][0].params
+    l4, r4 = noise((N_SPEC, SEG_LEN), gen, 0.05), noise((N_SPEC, SEG_LEN), gen, 0.05)
+    z4, t4 = torch.zeros(N_SPEC, device="cuda"), torch.zeros((N_SPEC, 128), device="cuda")
+    spec_stage_ms = time_ms(lambda: planar.spectral_subtract_planar(
+        l4, r4, p4.nr_level, z4, p4.dft_cos, p4.dft_sin, t4, t4), REPS)
+    del l4, r4
+    for label in ("config4 fold=True", "config4 fold=False", "ReceiverBank config4 SPEC2",
+                  "config7 DNR2 fold=False", "config3 notch fold=False"):
+        b, x_r, x_i, st = ends[label]
+        path_ms[f"NR {label}"] = time_ms(lambda: b.process_planar(x_r, x_i, st), REPS)
+
     # the LMS kernel on config3's notch input of segment 1 (128 ch x 2^19); no
     # single PyTorch call computes it. Its plain version, a host-bound loop of
     # one step per sample, was timed in 4e on the first LMS_PREFIX samples of
@@ -612,9 +829,12 @@ def main() -> None:
         f"staged {seg_st_ms:.3f} ms (of which agc_run {agc_ms:.3f} ms), noise blanker "
         f"{seg_nb_ms:.3f} ms; "
         + "; ".join(f"{k} {v:.3f} ms" for k, v in path_ms.items())
-        + f" (AM {N_AM} ch, the rest {N_CHANNELS} ch); library: "
+        + f" (AM and config4 {N_AM} ch, the rest {N_CHANNELS} ch); library: "
         f"torch.matmul (rows,512)@(512,128) {lib1_ms:.3f} ms, (rows,256)@(256,256) "
-        f"{lib2_ms:.3f} ms, both {library_ms:.3f} ms; peak memory "
+        f"{lib2_ms:.3f} ms, both {library_ms:.3f} ms, with PBT's L half alone "
+        f"{library_mono_ms:.3f} ms; K4's four products at config4 "
+        f"{lib_spec_ms:.3f} ms; the staged spectral stage (planar.spectral_subtract_planar) "
+        f"alone at config4 {spec_stage_ms:.3f} ms; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {smi}")
 
     # 6. the per-kernel record
@@ -624,7 +844,9 @@ def main() -> None:
                "pbt": ("staged.cu", "pallas_kernels.py:177"),
                "sweep_chain_am": ("sweep_chain.cu", "pallas_sweep.py:261"),
                "sweep_chain_am_nb": ("sweep_chain.cu", "pallas_sweep.py:261"),
-               "lms_nr": ("lms.cu", "pallas_lms.py:36")}
+               "lms_nr": ("lms.cu", "pallas_lms.py:36"),
+               "sweep_chain_ssb_mono": ("sweep_chain.cu", "pallas_sweep.py:261"),
+               "sweep_spec_chain": ("sweep_spec.cu", "pallas_sweep_spec.py:46")}
     print(json.dumps({"kernels": [{
         "name": kname, "route": "cuda",
         "source": f"radiodsp_sdr_rx_tpu_torch/csrc/{src}",

@@ -9,12 +9,17 @@ beside a plain PyTorch version of the same function that runs on the CPU.
 Layers, from the entry point down:
   models/fused.py  FusedSSBBank: state threading; sweep backend one launch
                    per segment (noise blanker included), staged backend two;
-                   FusedAMBank: one launch per segment (blanker included)
+                   FusedAMBank: one launch per segment (blanker included);
+                   FusedNRBank: spectral NR folded into one launch per
+                   segment, or DNR / notch / spectral staged
   models/receiver.py  ReceiverBank: the reference bank chain, plain PyTorch
                    stages (ops/planar.py, ops/iir.py, ops/agc.py,
                    ops/qformat.py) and the LMS stages on a kernel
   ops/sweep.py     sweep_full_chain, sweep_am_chain: kernel wrappers, plain
                    versions, launch counts
+  ops/sweep_spec.py  sweep_spec_chain: the chain with spectral NR (K4)
+  ops/planar.py, ops/spectral_sub.py  the reference chain's stages, the
+                   spectral subtraction's DFT operators and floor tracking
   ops/staged.py    fused_mix_filter_demod, pbt_filter: the staged kernels
   ops/lms_bank.py  lms_nr_run_bank: the LMS kernel (ops/lms.py: its state)
   ops/agc.py       agc_run: the staged backend's and ReceiverBank's AGC
@@ -35,9 +40,12 @@ from radiodsp_sdr_rx_tpu_torch.models.fused import (
     FusedAMBank,
     FusedAMBankState,
     FusedBankState,
+    FusedNRBank,
+    FusedNRBankState,
     FusedSSBBank,
 )
 from radiodsp_sdr_rx_tpu_torch.models.receiver import ReceiverBank, ReceiverState
 
 __all__ = ["AGCMode", "DemodMode", "FusedAMBank", "FusedAMBankState", "FusedBankState",
-           "FusedSSBBank", "NRMode", "ReceiverBank", "ReceiverConfig", "ReceiverState"]
+           "FusedNRBank", "FusedNRBankState", "FusedSSBBank", "NRMode", "ReceiverBank",
+           "ReceiverConfig", "ReceiverState"]

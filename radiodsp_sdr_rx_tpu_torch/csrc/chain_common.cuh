@@ -1,12 +1,15 @@
 // chain_common.cuh: device code shared by the receive-chain kernels
-// (sweep_chain.cu, staged.cu).
+// (sweep_chain.cu, staged.cu, sweep_spec.cu).
 //
 // A block of 256 threads works on chunks of 64 rows of 128 samples. Row
 // buffers hold 65 rows at a padded stride of 129 floats: row 0 is the row
 // before the chunk (the framing carry), rows 1..64 the chunk. chunk_gemm
-// multiplies the overlap-save frames of such buffers by an operator held in
-// device memory, streamed through shared memory in K tiles of 16 rows,
-// double-buffered with a register prefetch of the next tile. mix() is the
+// multiplies the overlap-save frames of such buffers (or, for the spectral
+// stage's inverse product, two spectrum buffers of 64 rows of 256 values) by
+// an operator held in device memory, streamed through shared memory in K
+// tiles of 16 rows, double-buffered with a register prefetch of the next
+// tile. scan_segment_carries is the carry step of the chunk scans (the AGC,
+// the blanker's average, the DC blocker). mix() is the
 // DDS NCO mix at a uint32 phase word, read as int32 before the float
 // conversion, with full-accuracy sincosf (no --use_fast_math), as the TPU
 // kernels' int32 phase word does.
@@ -28,14 +31,22 @@ constexpr float kPhaseScale = (float)(6.283185307179586 / 4294967296.0);
 constexpr int kAsFloats = 2 * kKT * kRows;            // frame tiles, k-major
 constexpr int kBsFloats = 2 * kKT * 256;              // operator tiles
 constexpr int kRowBuf = (kRows + 1) * kLd;            // row 0 = carry
+constexpr int kLdSpec = 2 * kBlk + 1;                 // padded spectrum row stride
 
 static_assert(kRows == 8 * (kThreads / 32), "each warp owns 8 rows of a product");
 
-// Frame operand A(r, k) of a product, with r the row of the chunk:
-// k in [0,128) -> lo[r][k], [128,256) -> lo[r+1][k-128],
-// [256,384) -> hi[r][k-256], [384,512) -> hi[r+1][k-384].
-// lo/hi are row buffers whose row 0 is the previous chunk's last row.
-template <int N>
+// How a product reads its A operand A(r, k), r the row of the chunk, from
+// the buffers lo and hi:
+//   kFrames: the overlap-save frames of two row buffers whose row 0 is the
+//     previous chunk's last row: k in [0,128) -> lo[r][k], [128,256) ->
+//     lo[r+1][k-128], [256,384) -> hi[r][k-256], [384,512) -> hi[r+1][k-384];
+//   kSpectrum: [sr bins 0..255 | si bins 0..255] of two spectrum buffers
+//     (64 rows of kLdSpec), lo = [sr | si] of bins 0..127, hi = [sr | si] of
+//     bins 128..255: k in [0,128) -> lo[r][k], [128,256) -> hi[r][k-128],
+//     [256,384) -> lo[r][k-128], [384,512) -> hi[r][k-256].
+enum class ALayout { kFrames, kSpectrum };
+
+template <int N, ALayout kA = ALayout::kFrames>
 struct Tile {
   static constexpr int BV = kKT * N / 4 / kThreads;   // float4 of W per thread
   static constexpr int AV = kKT * kRows / kThreads;   // A values per thread
@@ -46,11 +57,18 @@ struct Tile {
                                         const float4* __restrict__ w4, int t) {
     const int tid = threadIdx.x;
     const int k0 = t * kKT;
-    const float* src = (k0 >= 256) ? hi : lo;
-    const int row = tid % kRows + ((k0 >> 7) & 1);
-    const int col = (k0 & 127) + tid / kRows;
+    if constexpr (kA == ALayout::kFrames) {
+      const float* src = (k0 >= 256) ? hi : lo;
+      const int row = tid % kRows + ((k0 >> 7) & 1);
+      const int col = (k0 & 127) + tid / kRows;
 #pragma unroll
-    for (int v = 0; v < AV; ++v) a[v] = src[row * kLd + col + 4 * v];
+      for (int v = 0; v < AV; ++v) a[v] = src[row * kLd + col + 4 * v];
+    } else {
+      const float* src = ((k0 >> 7) & 1) ? hi : lo;
+      const int col = (k0 & 127) + ((k0 >> 8) & 1) * kBlk + tid / kRows;
+#pragma unroll
+      for (int v = 0; v < AV; ++v) a[v] = src[(tid % kRows) * kLdSpec + col + 4 * v];
+    }
 #pragma unroll
     for (int v = 0; v < BV; ++v)
       b[v] = __ldg(w4 + (size_t)t * (kKT * N / 4) + tid + v * kThreads);
@@ -67,7 +85,7 @@ struct Tile {
 
 // acc[i][4q+j] = sum_k A(8*warp+i, k) * w[k][128q + 4*lane + j], fp32 FMA.
 // Ends with __syncthreads(), so the caller may overwrite what A read.
-template <int N>
+template <int N, ALayout kA = ALayout::kFrames>
 __device__ __forceinline__ void chunk_gemm(const float* lo, const float* hi,
                                            const float* __restrict__ w, int K,
                                            float* As, float* Bs,
@@ -79,7 +97,7 @@ __device__ __forceinline__ void chunk_gemm(const float* lo, const float* hi,
 #pragma unroll
     for (int j = 0; j < N / 32; ++j) acc[i][j] = 0.f;
 
-  Tile<N> next;
+  Tile<N, kA> next;
   next.fetch(lo, hi, w4, 0);
   next.stash(As, Bs);
   __syncthreads();
@@ -111,6 +129,49 @@ __device__ __forceinline__ void chunk_gemm(const float* lo, const float* hi,
   }
 }
 
+constexpr int kSegLen = kRows * kBlk / kThreads;      // scan segment: 32 samples
+constexpr int kSegsPerRow = kBlk / kSegLen;           // 4
+constexpr int kSegsPerLane = kThreads / 32;           // 8 segments per lane of warp 0
+
+static_assert(kSegsPerRow * kSegLen == kBlk, "segments tile a row");
+
+// Warp 0 turns the 256 segment ends of a chunk scan (each from a zero start)
+// into the value carried INTO each segment, given c0 carried into the chunk.
+// kSum: the decaying sum y = x + y*f (the blanker's average); else the
+// decaying max y = max(x, y*f) (the AGC). f_seg decays over one segment,
+// f_lanes[i] over 2^i lanes of 8 segments each.
+template <bool kSum>
+__device__ __forceinline__ void scan_segment_carries(float* seg, float c0,
+                                                     float f_seg,
+                                                     const float (&f_lanes)[5]) {
+  const int lane = threadIdx.x & 31;
+  auto comb = [](float x, float y) { return kSum ? x + y : fmaxf(x, y); };
+  // lane owns segments 8*lane..8*lane+7; the chunk's carry folds into lane 0
+  float y = 0.f;
+  for (int i = 0; i < kSegsPerLane; ++i) y = comb(seg[lane * kSegsPerLane + i], y * f_seg);
+  if (lane == 0) y = comb(y, c0 * f_lanes[0]);
+#pragma unroll
+  for (int i = 0; i < 5; ++i) {
+    const float o = __shfl_up_sync(0xffffffffu, y, 1 << i);
+    if (lane >= (1 << i)) y = comb(y, o * f_lanes[i]);
+  }
+  float carry = __shfl_up_sync(0xffffffffu, y, 1);
+  if (lane == 0) carry = c0;
+  for (int i = 0; i < kSegsPerLane; ++i) {
+    const float end = seg[lane * kSegsPerLane + i];
+    seg[lane * kSegsPerLane + i] = carry;
+    carry = comb(end, carry * f_seg);
+  }
+}
+
+// decay factors of a scan with per-sample factor p: one segment, 2^i lanes
+__device__ __forceinline__ float seg_factors(double p, float (&lanes)[5]) {
+#pragma unroll
+  for (int i = 0; i < 5; ++i)
+    lanes[i] = (float)pow(p, (double)(kSegLen * kSegsPerLane << i));
+  return (float)pow(p, (double)kSegLen);
+}
+
 __device__ __forceinline__ void mix(float x, float y, uint32_t phase, float g_i,
                                     float g_q, float& out_r, float& out_i) {
   float s, c;
@@ -122,8 +183,9 @@ __device__ __forceinline__ void mix(float x, float y, uint32_t phase, float g_i,
 }
 
 // Store acc rows of a product to device memory as float4, times `gain`:
-// row r of the chunk goes to out + (row0 + r) * 128, column 4*lane + 128*q.
-template <int N>
+// row r of the chunk goes to out + (row0 + r) * 128, column 4*lane + 128*q,
+// for the first kParts 128-column parts q.
+template <int N, int kParts = N / 128>
 __device__ __forceinline__ void store_rows(const float (&acc)[8][N / 32],
                                            float* __restrict__ out_lo,
                                            float* __restrict__ out_hi,
@@ -136,7 +198,7 @@ __device__ __forceinline__ void store_rows(const float (&acc)[8][N / 32],
     if (r < rows) {
       const size_t o = base + (size_t)(row0 + r) * kBlk + lane * 4;
 #pragma unroll
-      for (int q = 0; q < N / 128; ++q)
+      for (int q = 0; q < kParts; ++q)
         *reinterpret_cast<float4*>((q ? out_hi : out_lo) + o) =
             make_float4(acc[i][4 * q + 0] * gain, acc[i][4 * q + 1] * gain,
                         acc[i][4 * q + 2] * gain, acc[i][4 * q + 3] * gain);

@@ -1,12 +1,14 @@
 // sweep_chain.cu: the whole receive chain of one channel per thread block.
 //
-// Replaces _chain_kernel (radiodsp_sdr_rx_tpu/ops/pallas_sweep.py:261) in four
-// instantiations of one template, demod x noise blanker:
-//   sweep_chain_ssb     demod="ssb"            (wrapper sweep_full_chain :628)
-//   sweep_chain_ssb_nb  demod="ssb", nb=true   (:327-331, 361-363, 386-403)
-//   sweep_chain_am      demod="am"             (wrapper sweep_am_chain :695;
-//                                               :339-341, 357-360, 418-447)
-//   sweep_chain_am_nb   demod="am", nb=true
+// Replaces _chain_kernel (radiodsp_sdr_rx_tpu/ops/pallas_sweep.py:261) in five
+// instantiations of one template, demod x noise blanker x R output:
+//   sweep_chain_ssb      demod="ssb"            (wrapper sweep_full_chain :628)
+//   sweep_chain_ssb_nb   demod="ssb", nb=true   (:327-331, 361-363, 386-403)
+//   sweep_chain_am       demod="am"             (wrapper sweep_am_chain :695;
+//                                                :339-341, 357-360, 418-447)
+//   sweep_chain_am_nb    demod="am", nb=true
+//   sweep_chain_ssb_mono demod="ssb", emit_r=False (:482-489, 558-561): R is
+//                        neither computed into the output nor stored
 // Per sample: input gain / IQ balance, [nb: the noise blanker,] DDS NCO mix,
 // then
 //   ssb: overlap-save band-pass + SSB demod as frames(rows,512) @ w_ssb(512,128);
@@ -26,7 +28,10 @@
 //
 // What bounds it on an H100: per IQ sample it reads 8 B and writes 8 B, and
 // does 2,048 flops for ssb (1,024 for each of the two products per 128
-// samples) or 3,072 for am (2,048 for the twice-as-wide band-pass). One
+// samples) or 3,072 for am (2,048 for the twice-as-wide band-pass); the mono
+// variant writes 4 B, not 8, and needs 1,536 flops (the compiler drops the R
+// half of the PBT product, whose sums are never stored: 127 registers
+// against 159). One
 // 128-channel x 2^19-sample ssb segment is 1.07 GB (0.32 ms at 3.35 TB/s) and
 // 137 GFLOP (2.0 ms at the 67 TFLOP/s fp32 rate outside the tensor cores):
 // in fp32 SIMT it is bound by arithmetic. The blanker adds about 10 flops
@@ -57,57 +62,15 @@
 
 namespace {
 
-constexpr int kSegLen = kRows * kBlk / kThreads;      // scan segment: 32 samples
-constexpr int kSegsPerRow = kBlk / kSegLen;           // 4
-constexpr int kSegsPerLane = kThreads / 32;           // 8 segments per lane of warp 0
 // every instantiation: As, Bs, three row buffers, segment ends, carries;
 // nb adds the keep mask of the last row
 constexpr int kSmemFloats = kAsFloats + kBsFloats + 3 * kRowBuf + kThreads + 4;
-
-static_assert(kSegsPerRow * kSegLen == kBlk, "segments tile a row");
-
-// Warp 0 turns the 256 segment ends of a chunk scan (each from a zero start)
-// into the value carried INTO each segment, given c0 carried into the chunk.
-// kSum: the decaying sum y = x + y*f (the blanker's average); else the
-// decaying max y = max(x, y*f) (the AGC). f_seg decays over one segment,
-// f_lanes[i] over 2^i lanes of 8 segments each.
-template <bool kSum>
-__device__ __forceinline__ void scan_segment_carries(float* seg, float c0,
-                                                     float f_seg,
-                                                     const float (&f_lanes)[5]) {
-  const int lane = threadIdx.x & 31;
-  auto comb = [](float x, float y) { return kSum ? x + y : fmaxf(x, y); };
-  // lane owns segments 8*lane..8*lane+7; the chunk's carry folds into lane 0
-  float y = 0.f;
-  for (int i = 0; i < kSegsPerLane; ++i) y = comb(seg[lane * kSegsPerLane + i], y * f_seg);
-  if (lane == 0) y = comb(y, c0 * f_lanes[0]);
-#pragma unroll
-  for (int i = 0; i < 5; ++i) {
-    const float o = __shfl_up_sync(0xffffffffu, y, 1 << i);
-    if (lane >= (1 << i)) y = comb(y, o * f_lanes[i]);
-  }
-  float carry = __shfl_up_sync(0xffffffffu, y, 1);
-  if (lane == 0) carry = c0;
-  for (int i = 0; i < kSegsPerLane; ++i) {
-    const float end = seg[lane * kSegsPerLane + i];
-    seg[lane * kSegsPerLane + i] = carry;
-    carry = comb(end, carry * f_seg);
-  }
-}
-
-// decay factors of a scan with per-sample factor p: one segment, 2^i lanes
-__device__ __forceinline__ float seg_factors(double p, float (&lanes)[5]) {
-#pragma unroll
-  for (int i = 0; i < 5; ++i)
-    lanes[i] = (float)pow(p, (double)(kSegLen * kSegsPerLane << i));
-  return (float)pow(p, (double)kSegLen);
-}
 
 enum class Demod { kSSB, kAM };
 
 constexpr double kDcPole = 0.995;  // the AM DC blocker's pole (ops/iir.DC_POLE)
 
-template <Demod kDemod, bool kNB>
+template <Demod kDemod, bool kNB, bool kEmitR>
 __global__ void __launch_bounds__(kThreads, 1) sweep_chain_kernel(
     const float* __restrict__ xr, const float* __restrict__ xi,
     const long long* __restrict__ inc, const long long* __restrict__ phase0,
@@ -325,11 +288,12 @@ __global__ void __launch_bounds__(kThreads, 1) sweep_chain_kernel(
     }
     __syncthreads();
 
-    // 4. PBT -> [L|R], output gain, straight to device memory
+    // 4. PBT -> [L|R] (L alone without kEmitR), output gain, straight to
+    // device memory
     {
       float acc[8][8];
       chunk_gemm<256>(Ab, Ab, w_pbt, 256, As, Bs, acc);
-      store_rows<256>(acc, out_l, out_r, base, row0, rows, out_gain);
+      store_rows<256, kEmitR ? 2 : 1>(acc, out_l, out_r, base, row0, rows, out_gain);
     }
 
     // 5. this chunk's last row becomes the next chunk's row 0
@@ -354,7 +318,7 @@ __global__ void __launch_bounds__(kThreads, 1) sweep_chain_kernel(
   }
 }
 
-template <Demod kDemod, bool kNB>
+template <Demod kDemod, bool kNB, bool kEmitR = true>
 int launch(const float* xr, const float* xi, const long long* inc,
            const long long* phase0, const float* w_band, const float* w_pbt,
            const float* tail_r, const float* tail_i, const float* atail_in,
@@ -367,10 +331,10 @@ int launch(const float* xr, const float* xi, const long long* inc,
   const int smem = (kSmemFloats + (kNB ? kBlk : 0)) * (int)sizeof(float);
   cudaError_t err = cudaSetDevice(device);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(sweep_chain_kernel<kDemod, kNB>,
+    err = cudaFuncSetAttribute(sweep_chain_kernel<kDemod, kNB, kEmitR>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  sweep_chain_kernel<kDemod, kNB><<<channels, kThreads, smem, (cudaStream_t)stream>>>(
+  sweep_chain_kernel<kDemod, kNB, kEmitR><<<channels, kThreads, smem, (cudaStream_t)stream>>>(
       xr, xi, inc, phase0, w_band, w_pbt, tail_r, tail_i, atail_in, env0, out_l,
       out_r, atail_out, env_out, n, release, target, max_gain, agc_enabled,
       out_gain, g_i, g_q, nb_avg0, nb_mask0, nb_avg_out, nb_mask_out, nb_a,
@@ -450,4 +414,21 @@ extern "C" int sweep_chain_am_nb(
       out_r, atail_out, env_out, channels, n, device, release, target, max_gain,
       agc_enabled, out_gain, g_i, g_q, nb_avg0, nb_mask0, nb_avg_out,
       nb_mask_out, nb_a, nb_thresh, dc0, dc_out, stream);
+}
+
+// The SSB chain without R (FusedNRBank(fold=False)'s DNR route): as
+// sweep_chain_ssb, with no out_r.
+extern "C" int sweep_chain_ssb_mono(
+    const float* xr, const float* xi, const long long* inc,
+    const long long* phase0, const float* w_ssb, const float* w_pbt,
+    const float* tail_r, const float* tail_i, const float* atail_in,
+    const float* env0, float* out_l, float* atail_out, float* env_out,
+    int channels, int n, int device, double release, float target,
+    float max_gain, int agc_enabled, float out_gain, float g_i, float g_q,
+    void* stream) {
+  return launch<Demod::kSSB, false, false>(
+      xr, xi, inc, phase0, w_ssb, w_pbt, tail_r, tail_i, atail_in, env0, out_l,
+      nullptr, atail_out, env_out, channels, n, device, release, target,
+      max_gain, agc_enabled, out_gain, g_i, g_q, nullptr, nullptr, nullptr,
+      nullptr, 0.0, 0.f, nullptr, nullptr, stream);
 }

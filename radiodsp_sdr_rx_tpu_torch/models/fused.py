@@ -20,6 +20,15 @@ call to call in a ``FusedBankState``.
 envelope, DC blocker, AGC, PBT), with or without the blanker, in ONE kernel
 launch per segment (ops/sweep.sweep_am_chain); its ``FusedAMBankState``
 adds the DC blocker's carry ``am_dc``.
+
+``FusedNRBank`` (:217-579) adds a noise-reduction stage to the SSB modes:
+``fold=True`` (the default) runs spectral NR folded into ONE kernel launch
+per segment (ops/sweep_spec.sweep_spec_chain, K4); ``fold=False`` stages it:
+the DNR (lms) route runs the sweep kernel without R, then the LMS kernel,
+the notch route runs mix + demod, the LMS kernel, the AGC and PBT, and the
+spectral route runs the sweep kernel, then the plain-PyTorch spectral
+subtraction. The routes that run the JAX package's lanes kernel (K6) raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -30,10 +39,13 @@ import numpy as np
 import torch
 
 from radiodsp_sdr_rx_tpu_torch.models.config import DemodMode, ReceiverConfig
-from radiodsp_sdr_rx_tpu_torch.models.receiver import build_params
+from radiodsp_sdr_rx_tpu_torch.models.receiver import LMS_MAX_CHANNELS, build_params
 from radiodsp_sdr_rx_tpu_torch.ops import agc as agc_ops
-from radiodsp_sdr_rx_tpu_torch.ops import nco, staged
+from radiodsp_sdr_rx_tpu_torch.ops import lms_bank, nco, planar, staged
+from radiodsp_sdr_rx_tpu_torch.ops.lms import LMS_DELAY, LMS_TAPS
+from radiodsp_sdr_rx_tpu_torch.ops.spectral_sub import spectral_matmul_ops
 from radiodsp_sdr_rx_tpu_torch.ops.sweep import sweep_am_chain, sweep_full_chain
+from radiodsp_sdr_rx_tpu_torch.ops.sweep_spec import sweep_spec_chain
 from radiodsp_sdr_rx_tpu_torch.utils.convert import params_from_numpy, resolve_device, split_iq
 
 _BLOCK = 128
@@ -239,5 +251,194 @@ class FusedAMBank:
         return {"audio_l": l, "audio_r": r}, new_state
 
     def process(self, iq, state: FusedAMBankState):
+        """Complex IQ at the host boundary: (C, n), or (n,) for every channel."""
+        return self.process_planar(*split_iq(iq, self.n_channels), state)
+
+
+class FusedNRBankState(NamedTuple):
+    """Carry of the NR bank; fields, shapes and meaning as the JAX
+    ``FusedNRBankState``, with the leading channel axis. DDS words are int64
+    in [0, 2^32). The LMS rows stay padded to the JAX bank's 128 lanes; the
+    padded rows carry zeros, which the LMS keeps at zero. ``lms_first`` is one
+    bool for the whole bank, as in JAX. ``dc``, ``pll``, ``nb_avg`` and
+    ``nb_mask`` belong to the lanes-kernel routes (ROADMAP item 6) and are
+    carried unchanged.
+
+    ``sb_tail`` differs by route, so a state of one route is not valid for
+    the other: ``fold=True`` stores the RAW input's last block [re|im], which
+    the kernel re-scales and re-mixes; ``fold=False`` scales the input by the
+    input gain and IQ balance before any kernel and stores the SCALED, unmixed
+    last block.
+    """
+
+    nco_phase: torch.Tensor    # (C,) int64 DDS phase words
+    sb_tail: torch.Tensor      # (C, 256) f32 input last block [re|im] (see above)
+    audio_tail: torch.Tensor   # (C, 128) f32 PBT framing tail (post-AGC audio)
+    agc_env: torch.Tensor      # (C,) f32
+    lms_weights: torch.Tensor  # (128, 96) f32, rows past C zero
+    lms_window: torch.Tensor   # (128, 96) f32
+    lms_delay: torch.Tensor    # (128, 128) f32
+    lms_first: torch.Tensor    # () bool, the reference's first-block quirk
+    nfloor: torch.Tensor       # (C,) f32 spectral-subtraction noise floor
+    spec_tail_l: torch.Tensor  # (C, 128) f32 spectral-subtraction frame carries
+    spec_tail_r: torch.Tensor  # (C, 128) f32
+    dc: torch.Tensor           # (C, 2) f32 AM/SAM DC-blocker carry
+    pll: torch.Tensor          # (2, 128) f32 SAM PLL [phase | freq]
+    nb_avg: torch.Tensor       # (C,) f32 noise-blanker running average
+    nb_mask: torch.Tensor      # (C, 128) f32 noise-blanker keep mask of the last block
+
+
+class FusedNRBank:
+    """Many-channel SSB receiver (USB/LSB/CW/RTTY) with a noise-reduction
+    stage; the output gain comes after the NR stage, as in ``rx_chain``.
+
+      - ``fold=True``, spectral NR (SPEC1-4), no blanker: the whole chain in
+        ONE launch of K4 per segment (``ops/sweep_spec.sweep_spec_chain``).
+      - ``fold=False``, DNR1-4: the sweep kernel without R, with unit output
+        gain (``sweep_full_chain(emit_r=False)``), the LMS kernel in denoise
+        mode (``ops/lms_bank``), x1.1 makeup, R <- L, output gain.
+      - ``fold=False``, notch: mix + demod (``staged.fused_mix_filter_demod``),
+        the LMS kernel in notch mode, the AGC (``agc.agc_run``), PBT with the
+        output gain (``staged.pbt_filter``).
+      - ``fold=False``, spectral: the sweep kernel with unit output gain,
+        then ``planar.spectral_subtract_planar``, output gain.
+
+    ``fold=False`` scales the input before any kernel, so every kernel of
+    that route runs with unit input gain and balance. ``fold=True`` with DNR
+    or notch, AM/SAM with NR, and any NR with the blanker run the JAX
+    package's lanes kernel (K6), which the port does not have yet: they
+    raise ``NotImplementedError``. The JAX ``ValueError``s stay: NR off, the
+    blanker or AM/SAM with ``fold=False``, more than 128 channels with
+    ``fold=False``. ``device=None`` means the CUDA card and raises without
+    one; pass ``device="cpu"`` to run the plain PyTorch versions.
+    """
+
+    def __init__(self, config: ReceiverConfig, freqs_hz, fold: bool = True, device=None):
+        kind = config.nr.kind
+        if kind not in ("lms", "spectral", "notch"):
+            raise ValueError("FusedNRBank needs an NR config; use FusedSSBBank for nr=off")
+        if config.noise_blanker and not fold:
+            raise ValueError("the noise blanker folds into the lanes kernel (fold=True); "
+                             "the staged oracle is ReceiverBank")
+        ssb = config.mode not in (DemodMode.AM, DemodMode.SAM)
+        if not ssb and not fold:
+            raise ValueError("AM/SAM + NR run on the folded lanes kernel (fold=True); "
+                             "the staged oracle is ReceiverBank")
+        if len(freqs_hz) > LMS_MAX_CHANNELS and not fold:
+            raise ValueError(f"FusedNRBank supports <= {LMS_MAX_CHANNELS} channels on the "
+                             "staged path (fold=True lifts the ceiling)")
+        if fold and (kind != "spectral" or not ssb or config.noise_blanker):
+            raise NotImplementedError(
+                "this FusedNRBank route runs the lanes kernel K6 (DNR or notch folded, "
+                "AM/SAM with NR, NR with the blanker), which comes with ROADMAP item 6; "
+                "fold=False stages DNR and notch for the SSB modes")
+        self.config = config
+        self.fold = fold
+        self.device = resolve_device(device)
+        self.n_channels = len(freqs_hz)
+        self.params = p = params_from_numpy(build_params(config)._asdict(), self.device)
+        self.agc_params = agc_ops.AGCParams(
+            release=p.agc_release, target=p.agc_target,
+            max_gain=p.agc_max_gain, enabled=p.agc_enabled)
+        # fold=False scales before any kernel, in f32 as the JAX bank does
+        self.gain_i = np.float32(p.input_gain)
+        self.gain_q = self.gain_i * np.float32(p.iq_gain_balance)
+        self.incs = _phase_incs(config, freqs_hz, self.device)
+        if fold:
+            self.w_spec = tuple(torch.as_tensor(w, device=self.device)
+                                for w in spectral_matmul_ops(config.fft_length))
+
+    def init_state(self) -> FusedNRBankState:
+        c, lanes, dev = self.n_channels, LMS_MAX_CHANNELS, self.device
+        return FusedNRBankState(
+            nco_phase=torch.zeros(c, dtype=torch.int64, device=dev),
+            sb_tail=torch.zeros(c, 2 * _BLOCK, device=dev),
+            audio_tail=torch.zeros(c, _BLOCK, device=dev),
+            agc_env=torch.full((c,), 1e-6, device=dev),
+            lms_weights=torch.zeros(lanes, LMS_TAPS, device=dev),
+            lms_window=torch.zeros(lanes, LMS_TAPS, device=dev),
+            lms_delay=torch.zeros(lanes, LMS_DELAY, device=dev),
+            lms_first=torch.ones((), dtype=torch.bool, device=dev),
+            nfloor=torch.zeros(c, device=dev),
+            spec_tail_l=torch.zeros(c, _BLOCK, device=dev),
+            spec_tail_r=torch.zeros(c, _BLOCK, device=dev),
+            dc=torch.zeros(c, 2, device=dev),
+            pll=torch.zeros(2, lanes, device=dev),
+            nb_avg=torch.zeros(c, device=dev),
+            nb_mask=torch.ones(c, _BLOCK, device=dev),
+        )
+
+    def spec_args(self, xr: torch.Tensor, xi: torch.Tensor,
+                  state: FusedNRBankState) -> tuple:
+        """The positional arguments of ``sweep_spec_chain`` for one segment
+        (``fold=True``)."""
+        p, cfg = self.params, self.config
+        return (xr, xi, self.incs, state.nco_phase, p.w_ssb, p.w_pbt, *self.w_spec,
+                state.sb_tail[:, :_BLOCK].contiguous(), state.sb_tail[:, _BLOCK:].contiguous(),
+                state.audio_tail, state.agc_env, state.nfloor, state.spec_tail_l,
+                state.spec_tail_r, p.nr_level, p.agc_release, p.agc_target, p.agc_max_gain,
+                p.agc_enabled, p.output_gain, p.input_gain, cfg.iq_gain_balance)
+
+    def _lms(self, audio, state: FusedNRBankState, mode: str):
+        """K3 on the bank's C rows; the padded rows pass through."""
+        c = self.n_channels
+        out, w, win, dly = lms_bank.lms_nr_run_bank(
+            audio, state.lms_weights[:c], state.lms_window[:c], state.lms_delay[:c],
+            state.lms_first, self.params.lms_mu, mode)
+
+        def padded(new, old):
+            return torch.cat([new, old[c:]]) if c < old.shape[0] else new
+
+        return out, dict(lms_weights=padded(w, state.lms_weights),
+                         lms_window=padded(win, state.lms_window),
+                         lms_delay=padded(dly, state.lms_delay),
+                         lms_first=torch.zeros_like(state.lms_first))
+
+    def _staged(self, xr, xi, state: FusedNRBankState):
+        p, kind = self.params, self.config.nr.kind
+        xr, xi = xr * float(self.gain_i), xi * float(self.gain_q)
+        upd = dict(sb_tail=torch.cat([xr[:, -_BLOCK:], xi[:, -_BLOCK:]], dim=-1))
+        if kind == "notch":   # the notch precedes the AGC
+            audio = staged.fused_mix_filter_demod(xr, xi, self.incs, state.nco_phase,
+                                                  p.w_ssb, state.sb_tail)
+            audio, lms_upd = self._lms(audio, state, "notch")
+            audio, env = agc_ops.agc_run(audio, self.agc_params, state.agc_env)
+            l, r = staged.pbt_filter(audio, p.w_pbt, state.audio_tail, p.output_gain)
+            upd.update(lms_upd, audio_tail=audio[:, -_BLOCK:].contiguous(), agc_env=env)
+            return {"audio_l": l, "audio_r": r}, upd
+        l, r, atail, env = sweep_full_chain(
+            xr, xi, self.incs, state.nco_phase, p.w_ssb, p.w_pbt,
+            state.sb_tail[:, :_BLOCK].contiguous(), state.sb_tail[:, _BLOCK:].contiguous(),
+            state.audio_tail, state.agc_env, p.agc_release, p.agc_target, p.agc_max_gain,
+            p.agc_enabled, emit_r=kind == "spectral")
+        upd.update(audio_tail=atail, agc_env=env)
+        og = p.output_gain
+        if kind == "lms":
+            l, lms_upd = self._lms(l, state, "denoise")
+            upd.update(lms_upd)
+            l = l * float(np.float32(1.1)) * og   # makeup (RDSP_convolutional.h:334)
+            return {"audio_l": l, "audio_r": l}, upd   # mono copy R<-L (:335)
+        l, r, nfloor, spec_l, spec_r = planar.spectral_subtract_planar(
+            l, r, p.nr_level, state.nfloor, p.dft_cos, p.dft_sin,
+            state.spec_tail_l, state.spec_tail_r)
+        upd.update(nfloor=nfloor, spec_tail_l=spec_l, spec_tail_r=spec_r)
+        return {"audio_l": l * og, "audio_r": r * og}, upd
+
+    def process_planar(self, xr, xi, state: FusedNRBankState):
+        """One segment of planar f32 IQ, (C, n) each with n a multiple of 128.
+        Returns ({"audio_l", "audio_r"}, next state)."""
+        xr, xi = _planar(xr, xi, self.device)
+        phase = nco.advance_phase(state.nco_phase, xr.shape[-1], self.incs)
+        if not self.fold:
+            out, upd = self._staged(xr, xi, state)
+            return out, state._replace(nco_phase=phase, **upd)
+        l, r, atail, env, nfloor, spec_l, spec_r = sweep_spec_chain(
+            *self.spec_args(xr, xi, state))
+        return {"audio_l": l, "audio_r": r}, state._replace(
+            nco_phase=phase, sb_tail=torch.cat([xr[:, -_BLOCK:], xi[:, -_BLOCK:]], dim=-1),
+            audio_tail=atail, agc_env=env, nfloor=nfloor, spec_tail_l=spec_l,
+            spec_tail_r=spec_r)
+
+    def process(self, iq, state: FusedNRBankState):
         """Complex IQ at the host boundary: (C, n), or (n,) for every channel."""
         return self.process_planar(*split_iq(iq, self.n_channels), state)

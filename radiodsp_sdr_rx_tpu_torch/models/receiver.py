@@ -2,15 +2,14 @@
 
 ``build_params`` designs every operator in float64 numpy, exactly as the JAX
 package does, so the two packages compute from bit-equal operators. The
-fields keep the JAX names. The DFT matrices are left ``None`` until the
-spectral noise-reduction slice (ROADMAP item 4) ports them.
+fields keep the JAX names.
 
 ``ReceiverBank`` is the many-channel reference chain: every stage of
 ``rx_chain_batched`` (:310-460) on (C, n) planes, plain PyTorch as the JAX
 chain is XLA, except the adaptive LMS stages, which run the K3 kernel on the
 card (``ops/lms_bank.py``). It covers the SSB modes and AM, NR off / notch /
-lms (DNR1-4), the noise blanker, ``quantize_output`` and ``mute``. SAM,
-spectral NR and the conv-first variants raise ``NotImplementedError``
+lms (DNR1-4), spectral NR (SPEC1-4), the noise blanker, ``quantize_output``
+and ``mute``. SAM and the conv-first variants raise ``NotImplementedError``
 naming their ROADMAP item; their state fields are carried unchanged, so a
 JAX state converts both ways (``utils/convert.py``). The single-channel
 ``Receiver`` and the per-channel ``rx_chain`` come with ROADMAP item 7.
@@ -39,8 +38,8 @@ class ReceiverParams(NamedTuple):
     w_ssb: Any            # (2F, F/2) f32 fused sideband filter + SSB demod
     w_pbt: Any            # (F, F) f32 PBT operator -> [L|R]
     w_audio: Any          # (2F, F) f32 audio operator
-    dft_cos: Any          # None: spectral NR slice
-    dft_sin: Any          # None: spectral NR slice
+    dft_cos: Any          # (F, F) f32 DFT matrices (spectral subtraction)
+    dft_sin: Any
     agc_release: Any      # f32
     agc_target: Any       # f32
     agc_max_gain: Any     # f32
@@ -63,6 +62,7 @@ def build_params(config: ReceiverConfig) -> ReceiverParams:
     mask_audio = fir_design.design_filter_mask(
         config.pbt_lo, config.pbt_hi, config.sample_rate, config.fft_length,
         window_id=int(config.fir_window))
+    dft_c, dft_s = planar.dft_matrices(config.fft_length)
     agc_p = agc_ops.agc_presets(
         config.sample_rate, target=config.agc_target,
         max_gain=config.agc_max_gain)[config.agc.value]
@@ -77,8 +77,8 @@ def build_params(config: ReceiverConfig) -> ReceiverParams:
         w_ssb=ssb_demod_operator(mask_sb),
         w_pbt=pbt_operator(mask_audio),
         w_audio=fir_design.overlap_save_matrix_real(mask_audio),
-        dft_cos=None,
-        dft_sin=None,
+        dft_cos=dft_c,
+        dft_sin=dft_s,
         agc_release=np.float32(agc_p.release),
         agc_target=np.float32(agc_p.target),
         agc_max_gain=np.float32(agc_p.max_gain),
@@ -141,15 +141,13 @@ _SSB_MODES = (DemodMode.USB, DemodMode.LSB, DemodMode.RTTY, DemodMode.CW,
 LMS_MAX_CHANNELS = 128   # the JAX bank's LMS lane width (pallas_lms.LANES)
 
 
-def check_ported(mode: DemodMode, nr: NRMode, conv_first: bool = False,
+def check_ported(mode: DemodMode, conv_first: bool = False,
                  conv_inline_denoise: bool = False, fft_length: int = 256) -> None:
     """Raise NotImplementedError for a stage the port does not have yet."""
     if mode == DemodMode.SAM:
         raise NotImplementedError("SAM comes with ROADMAP item 5 (the SAM PLL on K5)")
     if mode not in _SSB_MODES + (DemodMode.AM,):
         raise ValueError(f"unsupported mode {mode}")
-    if nr.kind == "spectral":
-        raise NotImplementedError("spectral NR comes with ROADMAP item 4 (K4)")
     if conv_first or conv_inline_denoise:
         raise NotImplementedError("the conv-first variants come with ROADMAP item 7")
     if fft_length != 256:
@@ -173,11 +171,11 @@ def rx_chain_batched(params: ReceiverParams, state: ReceiverState, xr, xi, *,
     128; ``params.nco_inc`` holds the (C,) DDS increments. Stage for stage
     the JAX ``rx_chain_batched``: input gain and IQ balance, [noise blanker],
     DDS mix, band-pass + SSB demod or band-pass + AM envelope + DC blocker,
-    [LMS notch], AGC, PBT, [LMS denoise, x1.1 makeup, R <- L], output gain
-    (0 when muted), [q15 round trip]. Every product is full fp32, the JAX
-    chain's default ``matmul_precision="highest"``; the port does not read
-    that setting. Returns ({"audio_l", "audio_r"}, state')."""
-    check_ported(mode, nr, conv_first, conv_inline_denoise, fft_length)
+    [LMS notch], AGC, PBT, [LMS denoise, x1.1 makeup, R <- L, or spectral
+    subtraction with the split DFT], output gain (0 when muted), [q15 round
+    trip]. Every product is full fp32, the JAX chain's default
+    ``matmul_precision="highest"``; the port does not read that setting. Returns ({"audio_l", "audio_r"}, state')."""
+    check_ported(mode, conv_first, conv_inline_denoise, fft_length)
     xr = xr * params.input_gain
     xi = xi * params.input_gain
     xr, xi = planar.iq_gain_balance_planar(xr, xi, params.iq_gain_balance)
@@ -210,10 +208,16 @@ def rx_chain_batched(params: ReceiverParams, state: ReceiverState, xr, xi, *,
     audio_l, audio_r, audio_tail = planar.pbt_filter_planar(
         audio, params.w_pbt, state.audio_tail)
 
+    nfloor = state.nfloor
+    spec_tail_l, spec_tail_r = state.spec_tail_l, state.spec_tail_r
     if nr.kind == "lms":
         audio_l, lms_state = _run_lms(audio_l, lms_state, params.lms_mu, "denoise")
         audio_l = audio_l * 1.1          # makeup gain (RDSP_convolutional.h:334)
         audio_r = audio_l                # mono copy R<-L (:335)
+    elif nr.kind == "spectral":
+        audio_l, audio_r, nfloor, spec_tail_l, spec_tail_r = planar.spectral_subtract_planar(
+            audio_l, audio_r, params.nr_level, nfloor, params.dft_cos, params.dft_sin,
+            spec_tail_l, spec_tail_r)
 
     out_gain = 0.0 if params.mute else params.output_gain
     audio_l = audio_l * out_gain
@@ -224,7 +228,7 @@ def rx_chain_batched(params: ReceiverParams, state: ReceiverState, xr, xi, *,
     new_state = state._replace(
         nco_phase=nco_phase, sb_tail_r=sb_tail_r, sb_tail_i=sb_tail_i,
         audio_tail=audio_tail, agc_env=agc_env, nb_avg=nb_avg, am_dc=am_dc,
-        lms=lms_state)
+        lms=lms_state, nfloor=nfloor, spec_tail_l=spec_tail_l, spec_tail_r=spec_tail_r)
     return {"audio_l": audio_l, "audio_r": audio_r}, new_state
 
 
@@ -244,7 +248,7 @@ class ReceiverBank:
                  device=None):
         if backend not in ("vmap", "batched"):
             raise ValueError(f"backend must be 'vmap' or 'batched', got {backend!r}")
-        check_ported(config.mode, config.nr, config.conv_first,
+        check_ported(config.mode, config.conv_first,
                      config.conv_inline_denoise, config.fft_length)
         self.backend = backend
         self.config = config

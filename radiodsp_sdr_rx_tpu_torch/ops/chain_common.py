@@ -1,10 +1,11 @@
 """Plain PyTorch pieces shared by the sweep and staged chains.
 
-The DDS mix, the two overlap-save framings with their fp32 products, and the
-argument checks of the kernel wrappers. ``ops/sweep.py`` and ``ops/staged.py``
-build their plain versions from these, so both backends' references frame
-and mix the stream the same way; ``csrc/chain_common.cuh`` is the device
-side of the same pieces.
+The DDS mix, the two overlap-save framings with their fp32 products, the
+decaying-sum row scan, and the argument checks of the kernel wrappers.
+``ops/sweep.py``, ``ops/sweep_spec.py`` and ``ops/staged.py`` build their
+plain versions from these, so every backend's reference frames and mixes the
+stream the same way; ``csrc/chain_common.cuh`` is the device side of the
+same pieces.
 """
 
 from __future__ import annotations
@@ -27,6 +28,18 @@ def matmul_fp32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return torch.matmul(a, b)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = allow
+
+
+def iir_rows(seq: torch.Tensor, pole: float) -> torch.Tensor:
+    """Inclusive decaying-sum scan along the last axis: y[k] = seq[k] +
+    pole * y[k-1], y[-1] = 0, as Hillis-Steele doubling with the factor
+    pole^sh rounded to f32, as the TPU kernels' row scans compute it."""
+    sh = 1
+    while sh < seq.shape[-1]:
+        f = float(np.float32(pole ** sh))
+        seq = seq + torch.nn.functional.pad(seq[..., :-sh], (sh, 0)) * f
+        sh *= 2
+    return seq
 
 
 def mix(xr, xi, phase0, inc, positions):

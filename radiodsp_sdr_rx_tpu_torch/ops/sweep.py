@@ -25,10 +25,12 @@ for CUDA tensors (``sweep_chain_ssb``, ``sweep_chain_ssb_nb``,
 ``sweep_chain_am``, ``sweep_chain_am_nb``) and raise if they cannot; for
 CPU tensors they run ``sweep_full_chain_plain`` / ``sweep_am_chain_plain``,
 the plain PyTorch versions the tests and ``chip_smoke.py`` hold the kernels
-to. ``LAUNCHES``, ``LAUNCHES_NB``, ``LAUNCHES_AM`` and ``LAUNCHES_AM_NB``
-count the four kernels' launches. The JAX wrappers' TPU tiling knobs
-(``block_c``, ``chunk_t``, ``interpret``) have no meaning here and are not
-taken; ``emit_r=False`` comes with a later slice.
+to. ``sweep_full_chain(..., emit_r=False)`` (the SSB chain without the
+blanker) returns R as ``None``: the kernel ``sweep_chain_ssb_mono`` neither
+computes R into the output nor stores it. ``LAUNCHES``, ``LAUNCHES_NB``,
+``LAUNCHES_AM``, ``LAUNCHES_AM_NB`` and ``LAUNCHES_MONO`` count the five
+kernels' launches. The JAX wrappers' TPU tiling knobs (``block_c``,
+``chunk_t``, ``interpret``) have no meaning here and are not taken.
 """
 
 from __future__ import annotations
@@ -45,6 +47,7 @@ from radiodsp_sdr_rx_tpu_torch.ops.chain_common import (
     check_stream,
     check_tensors,
     demod_frames,
+    iir_rows,
     mix,
     pbt_frames,
 )
@@ -55,6 +58,7 @@ LAUNCHES = 0        # sweep_chain_ssb
 LAUNCHES_NB = 0     # sweep_chain_ssb_nb
 LAUNCHES_AM = 0     # sweep_chain_am
 LAUNCHES_AM_NB = 0  # sweep_chain_am_nb
+LAUNCHES_MONO = 0   # sweep_chain_ssb_mono
 
 
 def _env_lanes(mag: torch.Tensor, release: float) -> torch.Tensor:
@@ -88,17 +92,6 @@ def _iir_lanes(x: torch.Tensor, pole: float) -> torch.Tensor:
     return x
 
 
-def _iir_rows(seq: torch.Tensor, pole128: float) -> torch.Tensor:
-    """The ``+`` twin of ``_env_rows``: inclusive decaying-sum scan along
-    axis 1 of (C, rows), factor pole^128 per step."""
-    sh = 1
-    while sh < seq.shape[1]:
-        f = float(np.float32(pole128 ** sh))
-        seq = seq + torch.nn.functional.pad(seq[:, :-sh], (sh, 0)) * f
-        sh *= 2
-    return seq
-
-
 def _lane_decay(p: float, device) -> torch.Tensor:
     """p^(l+1) for lanes l = 0..127, as the TPU kernel computes it in f32."""
     lane1 = torch.arange(1, BLOCK + 1, dtype=torch.float32, device=device)
@@ -114,7 +107,7 @@ def nb_constants(nb_thresh_db: float, nb_tau: float) -> tuple[float, float]:
 
 def _blank(xr, xi, avg0, nb_thresh_db, nb_tau):
     """Noise blanker on scaled IQ (C, n): the one-pole mean of |x| by the
-    decaying-sum doubling scans (``_iir_lanes`` within a row, ``_iir_rows``
+    decaying-sum doubling scans (``_iir_lanes`` within a row, ``iir_rows``
     across rows), samples above avg*thresh + 1e-12 zeroed. Returns
     (xr, xi, avg at the last sample, keep mask of the last row)."""
     thresh, a = nb_constants(nb_thresh_db, nb_tau)
@@ -124,7 +117,7 @@ def _blank(xr, xi, avg0, nb_thresh_db, nb_tau):
     mag = torch.sqrt(xr * xr + xi * xi)
     run = _iir_lanes(mag * float(np.float32(1.0 - a)), a)
     seq = torch.cat([avg0[:, None], run[:, :-1, -1]], dim=1)
-    carry = _iir_rows(seq, float(np.float64(a) ** BLOCK))
+    carry = iir_rows(seq, float(np.float64(a) ** BLOCK))
     avg = run + carry[:, :, None] * _lane_decay(a, xr.device)
     keep = mag <= avg * float(np.float32(thresh)) + 1e-12
     xr = torch.where(keep, xr, 0.0).view(c, n)
@@ -132,12 +125,16 @@ def _blank(xr, xi, avg0, nb_thresh_db, nb_tau):
     return xr, xi, avg[:, -1, -1].contiguous(), keep[:, -1].to(torch.float32)
 
 
-def _check_args(xr, xi, inc, phase0, w, w_pbt, tail_r, tail_i, audio_tail,
-                env0, agc_release, nb, nb_tau, nb_avg0, nb_mask0, dc0=None):
-    """``dc0`` given means the AM chain: w is then (512, 256)."""
+def check_chain_args(xr, xi, inc, phase0, w, w_pbt, tail_r, tail_i, audio_tail,
+                env0, agc_release, nb, nb_tau, nb_avg0, nb_mask0, dc0=None, emit_r=True):
+    """Raise ValueError on arguments the chain does not take; ``dc0`` given
+    means the AM chain: w is then (512, 256)."""
     check_stream(xr)
     if not 0.0 < agc_release <= 1.0:
         raise ValueError(f"agc_release must be in (0, 1], got {agc_release}")
+    if not emit_r and (nb or dc0 is not None):
+        raise ValueError("emit_r=False is the SSB chain without the blanker "
+                         "(FusedNRBank(fold=False)'s DNR route)")
     c, n = xr.shape
     f32 = torch.float32
     expect = {"xi": (xi, (c, n), f32),
@@ -176,7 +173,7 @@ def _dc_block(y, dc0):
     prev = torch.cat([dc0[:, :1], env.reshape(c, -1)[:, :-1]], dim=1)
     run = _iir_lanes(env - prev.view(c, rows, BLOCK), DC_POLE)
     seq = torch.cat([dc0[:, 1:2], run[:, :-1, -1]], dim=1)
-    carry = _iir_rows(seq, float(np.float64(DC_POLE) ** BLOCK))
+    carry = iir_rows(seq, float(np.float64(DC_POLE) ** BLOCK))
     audio = run + carry[:, :, None] * _lane_decay(DC_POLE, y.device)
     return audio, torch.stack([env[:, -1, -1], audio[:, -1, -1]], dim=-1)
 
@@ -184,14 +181,15 @@ def _dc_block(y, dc0):
 def _chain_plain(xr, xi, inc, phase0, w, w_pbt, tail_r, tail_i, audio_tail,
                  env0, agc_release, agc_target, agc_max_gain, agc_enabled,
                  out_gain, in_gain, iq_balance, nb, nb_thresh_db, nb_tau,
-                 nb_avg0, nb_mask0, dc0=None):
+                 nb_avg0, nb_mask0, dc0=None, emit_r=True):
     """The plain chain, SSB or (``dc0`` given) AM, vectorised over the whole
     segment: the AGC, the blanker's average and the DC blocker run as the TPU
     kernel's doubling scans (within a 128-sample row, then across rows) plus
     the row carry, with no per-sample loop. Both products are full fp32
-    (``chain_common.matmul_fp32``), as the kernels compute them."""
-    _check_args(xr, xi, inc, phase0, w, w_pbt, tail_r, tail_i, audio_tail,
-                env0, agc_release, nb, nb_tau, nb_avg0, nb_mask0, dc0)
+    (``chain_common.matmul_fp32``), as the kernels compute them; without
+    ``emit_r`` R is computed and dropped, so L is the emit_r=True L."""
+    check_chain_args(xr, xi, inc, phase0, w, w_pbt, tail_r, tail_i, audio_tail,
+                env0, agc_release, nb, nb_tau, nb_avg0, nb_mask0, dc0, emit_r)
     c, n = xr.shape
     g_i = float(np.float32(in_gain))
     g_q = float(np.float32(in_gain * iq_balance))
@@ -221,7 +219,7 @@ def _chain_plain(xr, xi, inc, phase0, w, w_pbt, tail_r, tail_i, audio_tail,
     lr = pbt_frames(audio, audio_tail, w_pbt)
     og = float(np.float32(out_gain))
     audio_l = (lr[..., :BLOCK] * og).reshape(c, n)
-    audio_r = (lr[..., BLOCK:] * og).reshape(c, n)
+    audio_r = (lr[..., BLOCK:] * og).reshape(c, n) if emit_r else None
     out = (audio_l, audio_r, audio[:, -1].contiguous(), envl[:, -1, -1].contiguous())
     if dc0 is not None:
         out += (dc,)
@@ -233,12 +231,12 @@ def sweep_full_chain_plain(xr, xi, inc, phase0, w_ssb, w_pbt, tail_r, tail_i,
                            agc_max_gain, agc_enabled=True, out_gain=1.0,
                            in_gain=1.0, iq_balance=1.0, nb=False,
                            nb_thresh_db=10.0, nb_tau=512.0, nb_avg0=None,
-                           nb_mask0=None):
+                           nb_mask0=None, emit_r=True):
     """Plain PyTorch version of ``sweep_full_chain``."""
     return _chain_plain(xr, xi, inc, phase0, w_ssb, w_pbt, tail_r, tail_i,
                         audio_tail, env0, agc_release, agc_target, agc_max_gain,
                         agc_enabled, out_gain, in_gain, iq_balance, nb,
-                        nb_thresh_db, nb_tau, nb_avg0, nb_mask0)
+                        nb_thresh_db, nb_tau, nb_avg0, nb_mask0, emit_r=emit_r)
 
 
 def sweep_am_chain_plain(xr, xi, inc, phase0, w_sb, w_pbt, tail_r, tail_i,
@@ -264,27 +262,29 @@ _ARGTYPES = {  # the extern "C" launchers of csrc/sweep_chain.cu
                       + [_F32] * 3 + [_PTR],
     "sweep_chain_am_nb": [_PTR] * 20 + [_I32] * 3 + [_F64] + [_F32] * 2 + [_I32]
                          + [_F32] * 3 + [_F64, _F32, _PTR],
+    "sweep_chain_ssb_mono": [_PTR] * 13 + [_I32] * 3 + [_F64] + [_F32] * 2 + [_I32]
+                            + [_F32] * 3 + [_PTR],
 }
 
 
 def _launch_chain(xr, xi, inc, phase0, w, w_pbt, tail_r, tail_i, audio_tail,
                   env0, agc_release, agc_target, agc_max_gain, agc_enabled,
                   out_gain, in_gain, iq_balance, nb, nb_thresh_db, nb_tau,
-                  nb_avg0, nb_mask0, dc0=None):
-    """Check, allocate the outputs and launch one of the four kernels; returns
+                  nb_avg0, nb_mask0, dc0=None, emit_r=True):
+    """Check, allocate the outputs and launch one of the five kernels; returns
     them in the order of the plain version's return."""
-    global LAUNCHES, LAUNCHES_NB, LAUNCHES_AM, LAUNCHES_AM_NB
+    global LAUNCHES, LAUNCHES_NB, LAUNCHES_AM, LAUNCHES_AM_NB, LAUNCHES_MONO
     if xr.device.type != "cuda":
         raise ValueError(f"the sweep chain runs on cuda or cpu, not {xr.device}")
     am = dc0 is not None
-    _check_args(xr, xi, inc, phase0, w, w_pbt, tail_r, tail_i, audio_tail,
-                env0, agc_release, nb, nb_tau, nb_avg0, nb_mask0, dc0)
+    check_chain_args(xr, xi, inc, phase0, w, w_pbt, tail_r, tail_i, audio_tail,
+                env0, agc_release, nb, nb_tau, nb_avg0, nb_mask0, dc0, emit_r)
     ins = (xr, xi, inc, phase0, w, w_pbt, tail_r, tail_i, audio_tail, env0)
     ins += (dc0,) if am else ()
     nb_ins = (nb_avg0, nb_mask0) if nb else ()
     check_launch("the sweep chain", ins + nb_ins)
     c, n = xr.shape
-    outs = (torch.empty_like(xr), torch.empty_like(xr),
+    outs = (torch.empty_like(xr), torch.empty_like(xr) if emit_r else None,
             torch.empty_like(audio_tail), torch.empty_like(env0))
     outs += (torch.empty_like(dc0),) if am else ()
     nb_outs = (torch.empty_like(nb_avg0), torch.empty_like(nb_mask0)) if nb else ()
@@ -297,15 +297,18 @@ def _launch_chain(xr, xi, inc, phase0, w, w_pbt, tail_r, tail_i, audio_tail,
         thresh, a = nb_constants(nb_thresh_db, nb_tau)
         nb_args = (a, float(np.float32(thresh)))
     name = f"sweep_chain_{'am' if am else 'ssb'}{'_nb' if nb else ''}"
+    name += "" if emit_r else "_mono"
     fn = getattr(build.load_library("sweep_chain"), name)
     fn.argtypes = _ARGTYPES[name]
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(xr.device).cuda_stream
-    err = fn(*(t.data_ptr() for t in ins + outs + nb_ins + nb_outs), c, n,
+    err = fn(*(t.data_ptr() for t in ins + outs + nb_ins + nb_outs if t is not None), c, n,
              xr.device.index or 0, *agc, *nb_args, stream)
     if err:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
-    if am:
+    if not emit_r:
+        LAUNCHES_MONO += 1
+    elif am:
         if nb:
             LAUNCHES_AM_NB += 1
         else:
@@ -321,7 +324,7 @@ def sweep_full_chain(xr, xi, inc, phase0, w_ssb, w_pbt, tail_r, tail_i,
                      audio_tail, env0, agc_release, agc_target, agc_max_gain,
                      agc_enabled=True, out_gain=1.0, in_gain=1.0, iq_balance=1.0,
                      nb=False, nb_thresh_db=10.0, nb_tau=512.0, nb_avg0=None,
-                     nb_mask0=None):
+                     nb_mask0=None, emit_r=True):
     """Whole SSB receive chain; arguments and return order as the JAX
     ``sweep_full_chain``:
 
@@ -337,14 +340,15 @@ def sweep_full_chain(xr, xi, inc, phase0, w_ssb, w_pbt, tail_r, tail_i,
                    with nb=True)
 
     Returns (audio_l, audio_r, audio_tail_next, env_next), and with nb=True
-    also (nb_avg_next, nb_mask_next). CPU tensors run the plain version; CUDA
-    tensors launch the kernel, or raise.
+    also (nb_avg_next, nb_mask_next); audio_r is None with emit_r=False (not
+    taken with nb=True). CPU tensors run the plain version; CUDA tensors
+    launch the kernel, or raise.
     """
     run = sweep_full_chain_plain if xr.device.type == "cpu" else _launch_chain
     return run(xr, xi, inc, phase0, w_ssb, w_pbt, tail_r, tail_i, audio_tail,
                env0, agc_release, agc_target, agc_max_gain, agc_enabled,
                out_gain, in_gain, iq_balance, nb, nb_thresh_db, nb_tau,
-               nb_avg0, nb_mask0)
+               nb_avg0, nb_mask0, emit_r=emit_r)
 
 
 def sweep_am_chain(xr, xi, inc, phase0, w_sb, w_pbt, tail_r, tail_i,

@@ -2,12 +2,12 @@
 
 ``params_from_numpy`` and ``state_from_numpy`` take the fields of the JAX
 package's ``ReceiverParams`` and of its bank states (``FusedBankState``,
-``FusedAMBankState``, the nested ``ReceiverState``) as numpy arrays (a dict,
+``FusedAMBankState``, ``FusedNRBankState``, the nested ``ReceiverState``) as numpy arrays (a dict,
 e.g. ``state._asdict()``; nested states as NamedTuples or dicts) and return
 the port's; ``state_to_numpy`` goes back, nested states as dicts. Both
 packages then compute from the same operators and carries. DDS words are
-uint32 in JAX and int64 in the port (ops/nco.py); the LMS ``first`` flag
-stays bool.
+uint32 in JAX and int64 in the port (ops/nco.py); the LMS ``first`` flags
+stay bool.
 """
 
 from __future__ import annotations
@@ -60,12 +60,16 @@ def params_from_numpy(d: Mapping, device):
 
 
 def _state_types():
-    from radiodsp_sdr_rx_tpu_torch.models.fused import FusedAMBankState, FusedBankState
+    from radiodsp_sdr_rx_tpu_torch.models.fused import (
+        FusedAMBankState,
+        FusedBankState,
+        FusedNRBankState,
+    )
     from radiodsp_sdr_rx_tpu_torch.models.receiver import ReceiverState
     from radiodsp_sdr_rx_tpu_torch.ops.lms import LMSState
     from radiodsp_sdr_rx_tpu_torch.ops.planar import SAMStatePlanar
 
-    return (FusedBankState, FusedAMBankState, ReceiverState), {
+    return (FusedBankState, FusedAMBankState, FusedNRBankState, ReceiverState), {
         "lms": LMSState, "sam": SAMStatePlanar}
 
 
@@ -75,7 +79,8 @@ def _fields(v) -> Mapping:
 
 def state_from_numpy(d: Mapping, device):
     """The fields of a JAX bank state -> the port's state of the same fields
-    (``FusedBankState``, ``FusedAMBankState`` or ``ReceiverState``)."""
+    (``FusedBankState``, ``FusedAMBankState``, ``FusedNRBankState`` or
+    ``ReceiverState``)."""
     tops, nested = _state_types()
     d = _fields(d)
     cls = next((t for t in tops if set(t._fields) == set(d)), None)

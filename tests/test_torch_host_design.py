@@ -40,13 +40,11 @@ def test_build_params_bit_equal(mode, agc):
     compared = 0
     for name in got._fields:
         g = getattr(got, name)
-        if g is None:   # the DFT matrices: the spectral NR slice
-            continue
         w = np.asarray(getattr(want, name))
         assert np.asarray(g).dtype == w.dtype, name
         assert np.array_equal(np.asarray(g), w), name
         compared += 1
-    assert compared == len(got._fields) - 2
+    assert compared == len(got._fields)
 
 
 @pytest.mark.parametrize("vfo", [7_200_000.0, 14_070_000.0])

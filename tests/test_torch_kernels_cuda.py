@@ -7,6 +7,8 @@ Tolerance 1e-4, as in chip_smoke.py: both are fp32 (TF32 off), the sums are
 taken in another order, and the AGC gain of up to 316 amplifies rounding.
 The LMS kernel is held to 2e-4, the JAX twin bound (tests/test_pallas_lms.py:
 35): its 96-tap sums run in another order and the adaptation carries that.
+The NR bank's staged routes are held to the port's ReceiverBank at 2e-3
+(docs/CHIP_PARITY.md).
 """
 
 import numpy as np
@@ -14,9 +16,9 @@ import pytest
 import torch
 
 from radiodsp_sdr_rx_tpu_torch.models.config import AGCMode, DemodMode, NRMode, ReceiverConfig
-from radiodsp_sdr_rx_tpu_torch.models.fused import FusedAMBank, FusedSSBBank
+from radiodsp_sdr_rx_tpu_torch.models.fused import FusedAMBank, FusedNRBank, FusedSSBBank
 from radiodsp_sdr_rx_tpu_torch.models.receiver import ReceiverBank
-from radiodsp_sdr_rx_tpu_torch.ops import agc, lms, lms_bank, staged, sweep
+from radiodsp_sdr_rx_tpu_torch.ops import agc, lms, lms_bank, staged, sweep, sweep_spec
 
 pytestmark = pytest.mark.cuda
 ATOL = 1e-4
@@ -242,3 +244,85 @@ def test_receiver_bank_launches_one_lms_per_segment(cuda_device, nr):
     torch.cuda.synchronize()
     assert lms_bank.LAUNCHES == before + 3
     assert bool(torch.isfinite(out["audio_l"]).all()) and not bool(state.lms.first.any())
+
+
+def _nr_bank(nr, channels, fold=True, agc_mode=AGCMode.MEDIUM, **extra):
+    cfg = ReceiverConfig(mode=DemodMode.USB, vfo_freq=7_200_000.0,
+                         capture_center_freq=7_190_000.0, agc=agc_mode, nr=nr, **extra)
+    return FusedNRBank(cfg, [7_190_000.0 + 1_000.0 * k for k in range(channels)], fold=fold)
+
+
+@pytest.mark.parametrize("gains", [{}, {"input_gain": 0.7, "iq_gain_balance": 1.02}])
+@pytest.mark.parametrize("channels, n, agc_mode", SHAPES)
+def test_spec_kernel_matches_plain_over_two_segments(cuda_device, channels, n, agc_mode, gains):
+    """K4 against sweep_spec_chain_plain, all seven outputs, over two threaded
+    segments (the floor, the l/r carries and the raw tail carry into the
+    second)."""
+    bank = _nr_bank(NRMode.SPEC2, channels, agc_mode=agc_mode, **gains)
+    gen = torch.Generator(device=cuda_device).manual_seed(n + 4)
+    state = bank.init_state()
+    for _ in range(2):
+        xr = torch.randn((channels, n), generator=gen, device=cuda_device) * 0.1
+        xi = torch.randn((channels, n), generator=gen, device=cuda_device) * 0.1
+        xr[:, n // 3:n // 3 + 100] *= 30.0
+        ref = sweep_spec.sweep_spec_chain_plain(*bank.spec_args(xr, xi, state))
+        before = sweep_spec.LAUNCHES
+        out, state = bank.process_planar(xr, xi, state)
+        torch.cuda.synchronize()
+        assert sweep_spec.LAUNCHES == before + 1
+        _close((out["audio_l"], out["audio_r"], state.audio_tail, state.agc_env, state.nfloor,
+                state.spec_tail_l, state.spec_tail_r), ref)
+        assert float(state.nfloor.min()) > 0.0
+
+
+@pytest.mark.parametrize("channels, n, agc_mode", SHAPES)
+def test_mono_kernel_matches_plain(cuda_device, channels, n, agc_mode):
+    """sweep_chain_ssb_mono (emit_r=False): L as the plain version's, R None,
+    and L bit for bit the L of the stereo kernel."""
+    bank = _bank(agc_mode, channels, cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(n + 5)
+    xr = torch.randn((channels, n), generator=gen, device=cuda_device) * 0.1
+    xi = torch.randn((channels, n), generator=gen, device=cuda_device) * 0.1
+    args = bank.chain_args(xr, xi, bank.init_state())
+    before = (sweep.LAUNCHES, sweep.LAUNCHES_MONO)
+    got = sweep.sweep_full_chain(*args, emit_r=False)
+    stereo = sweep.sweep_full_chain(*args)
+    torch.cuda.synchronize()
+    assert (sweep.LAUNCHES, sweep.LAUNCHES_MONO) == (before[0] + 1, before[1] + 1)
+    assert got[1] is None
+    ref = sweep.sweep_full_chain_plain(*args, emit_r=False)
+    assert ref[1] is None
+    _close(got[:1] + got[2:], ref[:1] + ref[2:])
+    assert torch.equal(got[0], stereo[0])
+
+
+@pytest.mark.parametrize("nr, launches", [
+    (NRMode.DNR2, {"mono": 1, "lms": 1}),
+    (NRMode.NOTCH, {"mix_demod": 1, "lms": 1, "pbt": 1}),
+    (NRMode.SPEC2, {"ssb": 1}),
+])
+def test_nr_bank_staged_routes(cuda_device, nr, launches):
+    """FusedNRBank(fold=False): each route's kernels, one launch each per
+    segment and no other, and the port's ReceiverBank within 2e-3."""
+    bank = _nr_bank(nr, 8, fold=False)
+    ref_bank = ReceiverBank(bank.config, [7_190_000.0 + 1_000.0 * k for k in range(8)])
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    st, st_ref = bank.init_state(), ref_bank.init_state()
+
+    def counts():
+        return {"ssb": sweep.LAUNCHES, "mono": sweep.LAUNCHES_MONO,
+                "mix_demod": staged.LAUNCHES_MIX_DEMOD, "pbt": staged.LAUNCHES_PBT,
+                "lms": lms_bank.LAUNCHES, "spec": sweep_spec.LAUNCHES}
+
+    for _ in range(2):
+        xr = torch.randn((8, 4096), generator=gen, device=cuda_device) * 0.1
+        xi = torch.randn((8, 4096), generator=gen, device=cuda_device) * 0.1
+        before = counts()
+        out, st = bank.process_planar(xr, xi, st)
+        torch.cuda.synchronize()
+        after = counts()
+        assert {k: after[k] - before[k] for k in after} == {k: launches.get(k, 0) for k in after}
+        want, st_ref = ref_bank.process_planar(xr, xi, st_ref)
+        for key in ("audio_l", "audio_r"):
+            np.testing.assert_allclose(out[key].cpu().numpy(), want[key].cpu().numpy(),
+                                       atol=2e-3, rtol=0)

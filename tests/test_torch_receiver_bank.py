@@ -3,16 +3,16 @@
 Both port backends ("vmap" and "batched" run the one bank chain) against the
 JAX ``ReceiverBank(backend="batched")`` (whose LMS stages run the Pallas
 kernel in interpret mode), two threaded segments of 8 channels x 4096, for
-the SSB modes and AM, NR off / notch / DNR2, the noise blanker (on the
-decisive impulse scene of tests/test_fused_bank.py:484-545), q15 output and
-mute: <= 1e-4 (both are f32; the products, scans and LMS sums run in
-another order, and the AGC gain amplifies that). The measured max is 5.1e-7
-(CW_NARROW + notch), and one q15 step (3.05e-5) with ``quantize_output``,
-where a sample that rounding puts on the other side of a truncation
-boundary lands one step away.
+the SSB modes and AM, NR off / notch / DNR2 / SPEC1-4, the noise blanker
+(on the decisive impulse scene of tests/test_fused_bank.py:484-545), q15
+output and mute: <= 1e-4 (both are f32; the products, scans and LMS sums
+run in another order, and the AGC gain amplifies that). The measured max is
+5.1e-7 (CW_NARROW + notch; the spectral cases 1.9e-7), and one q15 step
+(3.05e-5) with ``quantize_output``, where a sample that rounding puts on
+the other side of a truncation boundary lands one step away.
 The planar stages are held to their JAX functions at the same bound, the
-q15 round trip bit for bit. SAM, spectral NR and the conv-first variants
-raise NotImplementedError.
+q15 round trip bit for bit. SAM and the conv-first variants raise
+NotImplementedError.
 """
 
 import functools
@@ -49,6 +49,10 @@ CASES = {
                7_200_000.0, 7_190_000.0),
     "lsb_q15": ("LSB", "OFF", "SLOW", {"quantize_output": True}, 7_100_000.0, 7_110_000.0),
     "usb_mute": ("USB", "OFF", "MEDIUM", {"mute": True}, 7_200_000.0, 7_190_000.0),
+    "usb_spec1": ("USB", "SPEC1", "MEDIUM", {}, 7_200_000.0, 7_190_000.0),
+    "lsb_spec2": ("LSB", "SPEC2", "FAST", {}, 7_100_000.0, 7_110_000.0),
+    "cw_spec3": ("CW", "SPEC3", "SLOW", {}, 14_050_000.0, 14_049_000.0),
+    "am_spec4": ("AM", "SPEC4", "OFF", {}, 7_060_000.0, 7_050_000.0),
 }
 
 
@@ -128,13 +132,15 @@ def test_bank_matches_jax_batched_bank(name, backend):
         d, jst = convert.state_to_numpy(st), jstates[seg + 1]
         np.testing.assert_array_equal(d["nco_phase"], np.asarray(jst.nco_phase))
         np.testing.assert_array_equal(d["lms"]["first"], np.asarray(jst.lms.first))
-        for field in ("sb_tail_r", "sb_tail_i", "audio_tail", "am_dc"):
+        for field in ("sb_tail_r", "sb_tail_i", "audio_tail", "am_dc", "spec_tail_l",
+                      "spec_tail_r"):
             np.testing.assert_allclose(d[field], np.asarray(getattr(jst, field)), atol=ATOL, rtol=0)
         for field in ("weights", "window", "delay"):
             np.testing.assert_allclose(d["lms"][field], np.asarray(getattr(jst.lms, field)),
                                        atol=ATOL, rtol=0)
         np.testing.assert_allclose(d["agc_env"], np.asarray(jst.agc_env), rtol=1e-4)
         np.testing.assert_allclose(d["nb_avg"], np.asarray(jst.nb_avg), rtol=1e-4)
+        np.testing.assert_allclose(d["nfloor"], np.asarray(jst.nfloor), rtol=1e-4)
     if CASES[name][3].get("mute"):
         assert not got["audio_l"].any() and not got["audio_r"].any()
     if CASES[name][3].get("quantize_output"):
@@ -143,7 +149,7 @@ def test_bank_matches_jax_batched_bank(name, backend):
         assert torch.equal(got["audio_l"], got["audio_r"])
 
 
-@pytest.mark.parametrize("name", ["usb_dnr2", "usb_nb", "cw_narrow_notch"])
+@pytest.mark.parametrize("name", ["usb_dnr2", "usb_nb", "cw_narrow_notch", "lsb_spec2"])
 def test_jax_state_continues_in_port(name):
     """The JAX bank's state after segment 1, nested LMS and SAM states
     included, continues in the port (utils/convert.py); the port's state
@@ -254,7 +260,6 @@ def test_q15_round_trip_matches_jax_bit_for_bit():
 
 @pytest.mark.parametrize("cfg_kw", [
     {"mode": tcfg.DemodMode.SAM},
-    {"nr": tcfg.NRMode.SPEC2},
     {"conv_first": True},
     {"conv_first": True, "conv_inline_denoise": True},
     {"fft_length": 512},
@@ -264,7 +269,7 @@ def test_unported_stages_raise_not_implemented(cfg_kw):
     with pytest.raises(NotImplementedError, match="ROADMAP item"):
         ReceiverBank(tc.with_(**cfg_kw), _freqs("usb"), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP item"):
-        receiver.check_ported(tc.with_(**cfg_kw).mode, tc.with_(**cfg_kw).nr,
+        receiver.check_ported(tc.with_(**cfg_kw).mode,
                               cfg_kw.get("conv_first", False),
                               cfg_kw.get("conv_inline_denoise", False),
                               cfg_kw.get("fft_length", 256))
