@@ -29,7 +29,19 @@ banks against the port's reference chain, and times them:
     config7 ``fold=False`` on sweep_chain_ssb_mono + lms_nr, and at config3
     ``fold=False`` on mix_demod + lms_nr + pbt, 1 launch each per segment;
   - cross-path parity: the fused SSB, AM and NR banks against
-    ``ReceiverBank`` on the same input, at the docs/CHIP_PARITY.md bound.
+    ``ReceiverBank`` on the same input, at the docs/CHIP_PARITY.md bound;
+  - the SAM bank, ``FusedSAMBank``, on locked-carrier scenes (every channel
+    on its own AM carrier; the PLL is chaotic on noise): at bench_full.py's
+    config6 (128 channels, AGC medium) ``fold=False`` on kernels sam_pll (K5)
+    and pbt, 1 launch each per segment, ``fold=True`` on sweep_chain_sam
+    (K6) and with the blanker sweep_chain_sam_nb, 1 launch/segment; at
+    config10 (1,024 channels, 2^17-sample segments) on sam_wide (K7, 8
+    channels a block) and with the blanker sam_wide_nb, 1 launch/segment.
+    Each kernel against its plain version on a full-width prefix of
+    SAM_PREFIX samples (the plain PLL is one host-bound step per sample):
+    threaded as two segments, and the full run's first samples; each route
+    against ``ReceiverBank(mode=SAM)`` on a prefix; K7 against K6 at
+    1,024 channels over two full segments.
 
 Every phase prints one flushed line with the seconds elapsed. Any failure
 raises and exits non-zero; without a CUDA card it exits non-zero at once.
@@ -60,6 +72,10 @@ TOL_PARITY = 2e-3    # fused bank vs ReceiverBank (docs/CHIP_PARITY.md)
 # is about 1e-6.
 FLIP_MARGIN = 1e-4
 N_CHANNELS = 128     # bench.py:38
+N_SAM = 128          # bench_full.py config6_sam_128ch
+N_SAM_WIDE = 1024    # bench_full.py config10_sam_1024ch
+SEG_WIDE = 1 << 17   # config10's segment (bench_full.py seg_override)
+SAM_PREFIX = 2048    # samples of the per-sample plain PLL held to the kernels
 N_AM = 64            # bench_full.py config1_am_64ch
 N_SPEC = 64          # bench_full.py config4_spec_nr_64ch
 SEG_LEN = 1 << 19    # bench.py:39
@@ -70,10 +86,14 @@ PEAK_BYTES_S = 3.35e12   # H100 SXM device memory
 PEAK_FP32_S = 67e12      # H100 SXM fp32 outside the tensor cores
 NB_FLOPS_PER_SAMPLE = 10  # |x|, the one-pole average, the threshold test
 AM_FLOPS_PER_SAMPLE = 6   # the envelope and the DC blocker
+DC_FLOPS_PER_SAMPLE = 3   # the DC blocker alone
 LMS_FLOPS_PER_SAMPLE = 6 * 96   # the 96-tap dot, the energy and the update
 # K4: the chain's two products (2,048), W_fwd (4,096) and W_inv (2,048)
 SPEC_FLOPS_PER_SAMPLE = 2 * (512 * 128 + 256 * 256 + 512 * 512 + 512 * 256) // 128
-LIBRARIES = ("sweep_chain", "staged", "lms", "sweep_spec")
+# the PLL step: the two products, the atan2 (a divide counted as one), the
+# loop update, the base oscillator's two Horner chains, the rotation
+PLL_FLOPS_PER_SAMPLE = 72
+LIBRARIES = ("sweep_chain", "staged", "lms", "sweep_spec", "sam", "sam_wide")
 
 
 def say(msg: str) -> None:
@@ -133,19 +153,23 @@ def tone_scene(c, n, gen):
 
 def ptxas_summary(log: str):
     """(kernel, registers, stack and spills) per entry function of a build
-    log, the sweep kernel's instantiations (demod x blanker x R output) by
-    entry point."""
+    log, the sweep kernel's instantiations (demod x blanker x R output) and
+    the wide SAM kernel's (channels a block x blanker) by entry point."""
     out = []
     for block in log.split("Compiling entry function")[1:]:
         mangled = block.split("'")[1]
         if "sweep_chain_kernel" in mangled:
-            am, nb, stereo = re.search(r"DemodE(\d)ELb(\d)ELb(\d)E", mangled).groups()
-            kname = ("sweep_chain_am" if am == "1" else "sweep_chain_ssb") + (
+            demod, nb, stereo = re.search(r"DemodE(\d)ELb(\d)ELb(\d)E", mangled).groups()
+            kname = "sweep_chain_" + ("ssb", "am", "sam")[int(demod)] + (
                 "_nb" if nb == "1" else "") + ("" if stereo == "1" else "_mono")
+        elif "sam_wide_kernel" in mangled:
+            g, nb = re.search(r"sam_wide_kernelILi(\d)ELb(\d)E", mangled).groups()
+            kname = f"sam_wide{'_nb' if nb == '1' else ''} (G={g})"
         else:
             kname = next(k for fn, k in (("mix_demod_kernel", "mix_demod"), ("pbt_kernel", "pbt"),
                                          ("lms_kernel", "lms_nr"),
-                                         ("sweep_spec_kernel", "sweep_spec_chain"))
+                                         ("sweep_spec_kernel", "sweep_spec_chain"),
+                                         ("sam_pll_kernel", "sam_pll"))
                          if fn in mangled)
         lines = block.splitlines()
         out.append((kname, next(ln for ln in lines if "registers" in ln).split(": ")[-1],
@@ -181,6 +205,34 @@ def spectral_diff(got, ref, near, nf, out_gain, tol):
             int(((near > 0) & (d > tol)).sum()), ok)
 
 
+def locked_scene(c, n, gen, nco_hz, impulses=False):
+    """Planar IQ (c, n) whose row k carries an AM carrier (depth 0.4, a
+    400-500 Hz tone) at nco_hz[k] plus up to 50 Hz, so that channel k's own
+    mix brings it within 50 Hz of 0 Hz, and 0.02-sigma noise
+    (tests/test_pallas_sam.py:46-59; the SAM PLL is chaotic on noise). With
+    ``impulses``: 8(1+1j) at five places, one on the last sample, far above
+    the blanker's threshold. Returns (xr, xi, mean magnitude)."""
+    t = torch.arange(n, device="cuda", dtype=torch.float64) / 44117.64706
+    r = torch.rand((c, 3), generator=gen, device="cuda", dtype=torch.float64)
+    f = torch.tensor(nco_hz, device="cuda", dtype=torch.float64)[:, None] + (r[:, :1] - 0.5) * 100
+    ang = 2 * torch.pi * (f * t + r[:, 2:3])
+    env = 1.0 + 0.4 * torch.sin(2 * torch.pi * (400.0 + 100.0 * r[:, 1:2]) * t)
+    xr = (env * torch.cos(ang)).float() + noise((c, n), gen, 0.02)
+    xi = (env * torch.sin(ang)).float() + noise((c, n), gen, 0.02)
+    del t, ang, env
+    if impulses:
+        for pos in (500, 1733, n // 2 + 7, n - 3, n - 1):
+            xr[:, pos] = 8.0
+            xi[:, pos] = 8.0
+    return xr, xi, float(torch.hypot(xr, xi).mean())
+
+
+def phase_diff(a, b) -> float:
+    """Largest distance between two phase vectors on the circle."""
+    d = (a - b).abs() % (2 * torch.pi)
+    return float(torch.minimum(d, 2 * torch.pi - d).max())
+
+
 def bound(flops: float, nbytes: float) -> tuple[float, str]:
     t_ops, t_bytes = flops / PEAK_FP32_S, nbytes / PEAK_BYTES_S
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops > t_bytes else "bytes"
@@ -202,9 +254,11 @@ def main() -> None:
 
     from radiodsp_sdr_rx_tpu_torch.models.config import (
         AGCMode, DemodMode, NRMode, ReceiverConfig)
-    from radiodsp_sdr_rx_tpu_torch.models.fused import FusedAMBank, FusedNRBank, FusedSSBBank
+    from radiodsp_sdr_rx_tpu_torch.models.fused import (
+        FusedAMBank, FusedNRBank, FusedSAMBank, FusedSSBBank)
     from radiodsp_sdr_rx_tpu_torch.models.receiver import ReceiverBank
-    from radiodsp_sdr_rx_tpu_torch.ops import agc, lms, lms_bank, planar, staged, sweep, sweep_spec
+    from radiodsp_sdr_rx_tpu_torch.ops import (
+        agc, iir, lms, lms_bank, planar, sam, sam_wide, staged, sweep, sweep_spec)
     from radiodsp_sdr_rx_tpu_torch.utils import build
 
     torch.backends.cuda.matmul.allow_tf32 = False   # the plain versions in full fp32
@@ -216,13 +270,17 @@ def main() -> None:
         staged.LAUNCHES_MIX_DEMOD = staged.LAUNCHES_PBT = 0
         lms_bank.LAUNCHES = 0
         sweep_spec.LAUNCHES = 0
+        sam.LAUNCHES = sweep.LAUNCHES_SAM = sweep.LAUNCHES_SAM_NB = 0
+        sam_wide.LAUNCHES = sam_wide.LAUNCHES_NB = 0
 
     def counts() -> dict:
         return {"sweep_chain_ssb": sweep.LAUNCHES, "sweep_chain_ssb_nb": sweep.LAUNCHES_NB,
                 "mix_demod": staged.LAUNCHES_MIX_DEMOD, "pbt": staged.LAUNCHES_PBT,
                 "sweep_chain_am": sweep.LAUNCHES_AM, "sweep_chain_am_nb": sweep.LAUNCHES_AM_NB,
                 "lms_nr": lms_bank.LAUNCHES, "sweep_chain_ssb_mono": sweep.LAUNCHES_MONO,
-                "sweep_spec_chain": sweep_spec.LAUNCHES}
+                "sweep_spec_chain": sweep_spec.LAUNCHES, "sam_pll": sam.LAUNCHES,
+                "sweep_chain_sam": sweep.LAUNCHES_SAM, "sweep_chain_sam_nb": sweep.LAUNCHES_SAM_NB,
+                "sam_wide": sam_wide.LAUNCHES, "sam_wide_nb": sam_wide.LAUNCHES_NB}
 
     def only(**launched) -> dict:
         """The counts of a path that launched these kernels and no other."""
@@ -395,7 +453,7 @@ def main() -> None:
             err["sweep_spec_chain"] = max(err["sweep_spec_chain"], d)
     del small, small_nb, small_st, small_am, small_nr
 
-    def drive(bank, xr, xi, state, label, channels=N_CHANNELS):
+    def drive(bank, xr, xi, state, label, channels=N_CHANNELS, seg_len=SEG_LEN):
         """SEGMENTS threaded segments with the launch counts set to 0 before and
         read after (and added to ``launches``); returns (the counts, state
         into segment 1, its output, the state out of it, the final state)."""
@@ -412,10 +470,10 @@ def main() -> None:
         launched = counts()
         for k, v in launched.items():
             launches[k] += v
-        say(f"{label}: {channels} ch x {SEG_LEN} samples, {SEGMENTS} threaded segments "
+        say(f"{label}: {channels} ch x {seg_len} samples, {SEGMENTS} threaded segments "
             f"in {time.perf_counter() - t:.3f} s, kernel launches {launched}")
         for key in ("audio_l", "audio_r"):
-            check(tuple(out[key].shape) == (channels, SEG_LEN), f"{key} shape {tuple(out[key].shape)}")
+            check(tuple(out[key].shape) == (channels, seg_len), f"{key} shape {tuple(out[key].shape)}")
             check(bool(torch.isfinite(out[key]).all()), f"{key} has non-finite values")
         return launched, state_1, out_1, state_2, state
 
@@ -674,6 +732,192 @@ def main() -> None:
         del out_f, out_r, got, want
     del spec_near
 
+    # 4h. SAM at full width on locked-carrier scenes: bench_full.py config6
+    # (128 ch at 1 kHz, AGC medium; staged K5 + pbt, folded K6, K6 + blanker)
+    # and config10 (1,024 ch, 2^17-sample segments; K7, K7 + blanker). The
+    # plain PLL is one host-bound step per sample, so each kernel is held to
+    # it on a SAM_PREFIX-sample prefix of the full width: threaded as two
+    # segments (every carry crosses a boundary), and the full run's segment 1
+    # on its first SAM_PREFIX samples (the chain is causal), timed
+    cfg_sam = ReceiverConfig(mode=DemodMode.SAM, vfo_freq=7_060_000.0,
+                             capture_center_freq=7_050_000.0, agc=AGCMode.MEDIUM)
+    cfg_sam_nb = cfg_sam.with_(noise_blanker=True)
+    freqs10 = [cfg_sam.capture_center_freq + 1_000.0 * k for k in range(N_SAM_WIDE)]
+    nco10 = [f - cfg_sam.tuning_offset - cfg_sam.capture_center_freq for f in freqs10]
+    sam_plain_prefix_ms, sam_ends, half = {}, {}, SAM_PREFIX // 2
+
+    def timed(fn):
+        """(fn(), its time in ms by CUDA events)."""
+        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0.record()
+        out = fn()
+        t1.record()
+        t1.synchronize()
+        return out, t0.elapsed_time(t1)
+
+    # config6 staged: K5 (recorded through ops/sam.sam_pll_run, as the LMS
+    # stage is above) and pbt
+    c6 = N_SAM
+    xr6, xi6, _ = locked_scene(c6, SEG_LEN, gen, nco10[:c6])
+    bank6s = FusedSAMBank(cfg_sam, freqs10[:c6], fold=False)
+    run_pll, pll_calls = sam.sam_pll_run, []
+
+    def record_pll(*args):
+        out = run_pll(*args)
+        pll_calls.append((args, out))
+        return out
+
+    sam.sam_pll_run = record_pll
+    try:
+        launched, _, out_1, _, s6s_end = drive(bank6s, xr6, xi6, bank6s.init_state(),
+                                               "SAM config6 fold=False", channels=c6)
+    finally:
+        sam.sam_pll_run = run_pll
+    check(launched == only(sam_pll=SEGMENTS, pbt=SEGMENTS), f"expected {SEGMENTS} launches "
+          f"each of sam_pll and pbt (2 per segment) and no other, counted {launched}")
+    check(len(pll_calls) == SEGMENTS, f"expected {SEGMENTS} calls of sam.sam_pll_run, "
+          f"recorded {len(pll_calls)}")
+    (zr, zi, ph0, fr0, bw, fs, chunk), got = pll_calls[1]
+    ref, sam_plain_prefix_ms["sam_pll"] = timed(lambda: sam.sam_pll_run_plain(
+        zr[:, :SAM_PREFIX].contiguous(), zi[:, :SAM_PREFIX].contiguous(), ph0, fr0, bw, fs,
+        chunk))
+    d_full = max_diff([got[0][:, :SAM_PREFIX]], ref[:1])
+    d_two, ph, fr = 0.0, ph0, fr0
+    for h in range(2):   # two threaded segments of the prefix
+        args = (zr[:, h * half:(h + 1) * half].contiguous(),
+                zi[:, h * half:(h + 1) * half].contiguous(), ph, fr, bw, fs, chunk)
+        k_out, p_out = sam.sam_pll_run(*args), sam.sam_pll_run_plain(*args)
+        d_two = max(d_two, max_diff((k_out[0], k_out[2]), (p_out[0], p_out[2])),
+                    phase_diff(k_out[1], p_out[1]))
+        ph, fr = k_out[1], k_out[2]
+    torch.cuda.synchronize()
+    d = max(d_full, d_two)
+    say(f"check sam_pll full width ({c6} ch), segment 1: max |kernel - plain| over vr on its "
+        f"first {SAM_PREFIX} samples = {d_full:.3e}; over vr, phase (wrap-aware), freq, "
+        f"{SAM_PREFIX} samples as two threaded segments = {d_two:.3e} (tolerance {TOL:g}); "
+        f"rms(L) = {float(out_1['audio_l'].square().mean().sqrt()):.4e}")
+    check(d <= TOL, f"sam_pll disagrees with the plain version: {d:.3e} > {TOL:g}")
+    err["sam_pll"] = d
+    pll_args = pll_calls[1][0]
+    sam_ends["config6 fold=False"] = (bank6s, xr6, xi6, s6s_end)
+    del pll_calls, zr, zi, got, ref, out_1
+
+    def sam_kernel_checks(kname, bank, xr, xi, state0, label, seg_len):
+        """Drive the folded route (launch counts: 1 of kname per segment and no
+        other), then hold its kernel to the plain chain on the prefix: two
+        threaded segments of half the prefix through the bank, and the full
+        run's segment 1 on its first SAM_PREFIX samples, on the full run's
+        re-seed schedule. Returns the state after the drive."""
+        c = xr.shape[0]
+        plain = sam_wide.sweep_sam_wide_plain if bank.route == "wide" else \
+            sweep.sweep_sam_chain_plain
+        nb = kname.endswith("_nb")
+        st = state0
+        d_two = 0.0
+        for h in range(2):
+            x_r = xr[:, h * half:(h + 1) * half].contiguous()
+            x_i = xi[:, h * half:(h + 1) * half].contiguous()
+            ref = plain(*bank.chain_args(x_r, x_i, st))
+            out, st = bank.process_planar(x_r, x_i, st)
+            torch.cuda.synchronize()
+            got = (out["audio_l"], out["audio_r"], st.audio_tail, st.agc_env, st.sam_dc,
+                   st.sam_freq[:c]) + ((st.nb_avg, st.nb_mask) if nb else ())
+            want = ref[:5] + (ref[5][1],) + ref[6:]
+            d_two = max(d_two, max_diff(got, want), phase_diff(st.sam_phase[:c], ref[5][0]))
+        launched, s_1, out_1, _, s_end = drive(bank, xr, xi, state0, label, channels=c,
+                                               seg_len=seg_len)
+        check(launched == only(**{kname: SEGMENTS}), f"expected {SEGMENTS} {kname} launches "
+              f"and no other, counted {launched}")
+        ref, sam_plain_prefix_ms[kname] = timed(lambda: plain(*bank.chain_args(
+            xr[:, :SAM_PREFIX].contiguous(), xi[:, :SAM_PREFIX].contiguous(), s_1,
+            reseed=bank.reseed_schedule(seg_len))))
+        d_full = max_diff((out_1["audio_l"][:, :SAM_PREFIX], out_1["audio_r"][:, :SAM_PREFIX]),
+                          ref[:2])
+        d = max(d_two, d_full)
+        say(f"check {kname} full width ({c} ch), segment 1: max |kernel - plain| over L, R on "
+            f"the first {SAM_PREFIX} samples = {d_full:.3e}; over L, R, audio_tail, env, "
+            f"sam_dc, sam_phase (wrap-aware), sam_freq{', nb_avg, nb_mask' if nb else ''}, "
+            f"{SAM_PREFIX} samples as two threaded segments = {d_two:.3e} (tolerance {TOL:g}); "
+            f"rms(L) = {float(out_1['audio_l'].square().mean().sqrt()):.4e}")
+        check(d <= TOL, f"{kname} disagrees with the plain version: {d:.3e} > {TOL:g}")
+        if nb:
+            check(float(s_end.nb_mask[:, -1].max()) == 0.0,
+                  "the impulse on the segment's last sample was not blanked")
+        err[kname] = max(err[kname], d)
+        return s_end
+
+    bank6 = FusedSAMBank(cfg_sam, freqs10[:c6])
+    check(bank6.route == "lanes", f"config6 folded route {bank6.route}")
+    sam_ends["sweep_chain_sam"] = (bank6, xr6, xi6, sam_kernel_checks(
+        "sweep_chain_sam", bank6, xr6, xi6, bank6.init_state(), "SAM config6 fold=True",
+        SEG_LEN))
+    xr6nb, xi6nb, mean6 = locked_scene(c6, SEG_LEN, gen, nco10[:c6], impulses=True)
+    bank6nb = FusedSAMBank(cfg_sam_nb, freqs10[:c6])
+    st0 = bank6nb.init_state()._replace(nb_avg=torch.full((c6,), mean6, device="cuda"))
+    sam_ends["sweep_chain_sam_nb"] = (bank6nb, xr6nb, xi6nb, sam_kernel_checks(
+        "sweep_chain_sam_nb", bank6nb, xr6nb, xi6nb, st0, "SAM config6 fold=True + blanker",
+        SEG_LEN))
+
+    xr10, xi10, _ = locked_scene(N_SAM_WIDE, SEG_WIDE, gen, nco10)
+    bank10 = FusedSAMBank(cfg_sam, freqs10)
+    check((bank10.route, bank10.groups) == ("wide", 8), f"config10 route {bank10.route} "
+          f"G={bank10.groups}")
+    sam_ends["sam_wide"] = (bank10, xr10, xi10, sam_kernel_checks(
+        "sam_wide", bank10, xr10, xi10, bank10.init_state(), "SAM config10", SEG_WIDE))
+    xr10nb, xi10nb, mean10 = locked_scene(N_SAM_WIDE, SEG_WIDE, gen, nco10, impulses=True)
+    bank10nb = FusedSAMBank(cfg_sam_nb, freqs10)
+    st0 = bank10nb.init_state()._replace(nb_avg=torch.full((N_SAM_WIDE,), mean10, device="cuda"))
+    sam_ends["sam_wide_nb"] = (bank10nb, xr10nb, xi10nb, sam_kernel_checks(
+        "sam_wide_nb", bank10nb, xr10nb, xi10nb, st0, "SAM config10 + blanker", SEG_WIDE))
+
+    # K7 against K6 (wide_groups=1, one channel a block) at config10, two
+    # threaded full segments: their re-seed periods (256, 1,024) differ
+    bank10k6 = FusedSAMBank(cfg_sam, freqs10, wide_groups=1)
+    s_w, s_n, worst, worst_ph = bank10.init_state(), bank10k6.init_state(), 0.0, 0.0
+    for _ in range(2):
+        o_w, s_w = bank10.process_planar(xr10, xi10, s_w)
+        o_n, s_n = bank10k6.process_planar(xr10, xi10, s_n)
+        worst = max(worst, max_diff((o_w["audio_l"], o_w["audio_r"]),
+                                    (o_n["audio_l"], o_n["audio_r"])))
+        worst_ph = max(worst_ph, phase_diff(s_w.sam_phase, s_n.sam_phase))
+    say(f"parity sam_wide (K7) vs sweep_chain_sam (K6, wide_groups=1), {N_SAM_WIDE} ch x "
+        f"{SEG_WIDE}, 2 threaded segments: max abs diff over L, R = {worst:.3e}, PLL phase "
+        f"{worst_ph:.3e} (bound {TOL_PARITY:g})")
+    check(max(worst, worst_ph) <= TOL_PARITY, f"K7 and K6 disagree: {max(worst, worst_ph):.3e} "
+          f"> {TOL_PARITY:g}")
+    del o_w, o_n, s_w, s_n, bank10k6
+
+    # each SAM route against ReceiverBank(SAM), the exact PLL (plain PyTorch,
+    # one step per sample), on the prefix as two threaded segments
+    for label, key in (("FusedSAMBank(fold=False) config6", "config6 fold=False"),
+                       ("FusedSAMBank config6 (K6)", "sweep_chain_sam"),
+                       ("FusedSAMBank config6 + blanker (K6)", "sweep_chain_sam_nb"),
+                       ("FusedSAMBank config10 (K7)", "sam_wide"),
+                       ("FusedSAMBank config10 + blanker (K7)", "sam_wide_nb")):
+        b, x_r, x_i, _ = sam_ends[key]
+        c = x_r.shape[0]
+        rb = ReceiverBank(b.config, freqs10[:c])
+        st_f, st_r = b.init_state(), rb.init_state()
+        if b.config.noise_blanker:
+            warm = float(torch.hypot(x_r, x_i).mean())
+            st_f = st_f._replace(nb_avg=torch.full((c,), warm, device="cuda"))
+            st_r = st_r._replace(nb_avg=torch.full((c,), warm, device="cuda"))
+        worst = worst_ph = 0.0
+        for h in range(2):
+            xs = (x_r[:, h * half:(h + 1) * half].contiguous(),
+                  x_i[:, h * half:(h + 1) * half].contiguous())
+            out_f, st_f = b.process_planar(*xs, st_f)
+            out_r, st_r = rb.process_planar(*xs, st_r)
+            worst = max(worst, max_diff((out_f["audio_l"], out_f["audio_r"]),
+                                        (out_r["audio_l"], out_r["audio_r"])))
+            worst_ph = max(worst_ph, phase_diff(st_f.sam_phase[:c], st_r.sam.phase))
+        say(f"parity {label} vs ReceiverBank(SAM), {c} ch x {SAM_PREFIX} as 2 threaded "
+            f"segments: max abs diff over L, R = {worst:.3e}, PLL phase {worst_ph:.3e} "
+            f"(bound {TOL_PARITY:g})")
+        check(max(worst, worst_ph) <= TOL_PARITY, f"{label}: {max(worst, worst_ph):.3e} > "
+              f"{TOL_PARITY:g}")
+    del out_f, out_r
+
     # 5. timing (CUDA events, after warm-up)
     samples = N_CHANNELS * SEG_LEN
     rows = samples // 128
@@ -814,22 +1058,85 @@ def main() -> None:
         path_ms[f"ReceiverBank {label}"] = time_ms(
             lambda: rb.process_planar(x_r, x_i, st), REPS)
 
+    # the SAM kernels: K5 on config6's recorded segment-1 input, K6 at config6,
+    # K7 at config10. plain_ms scales the time of the plain version on the
+    # SAM_PREFIX-sample prefix (its per-sample PLL loop is host-bound) to the
+    # segment; the library yardstick of K6 and K7 is their two products as
+    # fp32 torch.matmul, and no single PyTorch call computes K5
+    b6s, x_r, x_i, st = sam_ends["config6 fold=False"]
+    samples6 = c6 * SEG_LEN
+    b_ms, b_by = bound(PLL_FLOPS_PER_SAMPLE * samples6, 12 * samples6 + c6 * 4 * 4)
+    timing["sam_pll"] = dict(
+        ms=time_ms(lambda: sam.sam_pll_run(*pll_args), REPS),
+        plain_ms=sam_plain_prefix_ms["sam_pll"] * (SEG_LEN / SAM_PREFIX),
+        plain_from=SAM_PREFIX, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        flops=PLL_FLOPS_PER_SAMPLE * samples6, samples=samples6, steps=SEG_LEN)
+    sam_stage_ms = {"front end (mix, band-pass)": time_ms(lambda: b6s.pll_args(x_r, x_i, st),
+                                                          REPS)}
+    vr = sam.sam_pll_run(*pll_args)[0]
+    sam_stage_ms["dc_blocker"] = time_ms(lambda: iir.dc_blocker(vr, st.sam_dc), REPS)
+    vr = iir.dc_blocker(vr, st.sam_dc)[0]
+    sam_stage_ms["agc_run"] = time_ms(lambda: agc.agc_run(vr, b6s.agc_params, st.agc_env),
+                                      REPS)
+    del vr, pll_args
+    path_ms["SAM config6 fold=False"] = time_ms(lambda: b6s.process_planar(x_r, x_i, st), REPS)
+    w_sb = bank6.params.w_sideband
+    lib_sam_ms = {}
+    for kname, label in (("sweep_chain_sam", "SAM config6"),
+                         ("sweep_chain_sam_nb", "SAM config6 + blanker"),
+                         ("sam_wide", "SAM config10"), ("sam_wide_nb", "SAM config10 + blanker")):
+        b, x_r, x_i, st = sam_ends[kname]
+        c, n = x_r.shape
+        samples_k, rows_k = c * n, c * n // 128
+        if (c, n) not in lib_sam_ms:
+            f1 = torch.randn((rows_k, 512), generator=gen, device="cuda")
+            f2 = torch.randn((rows_k, 256), generator=gen, device="cuda")
+            lib_sam_ms[(c, n)] = time_ms(lambda: (torch.matmul(f1, w_sb),
+                                                  torch.matmul(f2, w_pbt)), REPS)
+            del f1, f2
+        nb = kname.endswith("_nb")
+        flops = (rows_k * 2 * 512 * 256 + rows_k * 2 * 256 * 256
+                 + (PLL_FLOPS_PER_SAMPLE + DC_FLOPS_PER_SAMPLE
+                    + (NB_FLOPS_PER_SAMPLE if nb else 0)) * samples_k)
+        b_ms, b_by = bound(flops, 4 * samples_k * 4 + 4 * (512 * 256 + 256 * 256)
+                           + c * (2 * 8 + 4 * 128 * 4 + 2 * 4 + 2 * 2 * 4 + 2 * 2 * 4)
+                           + (c * (2 * 4 + 2 * 128 * 4) if nb else 0))
+        run = sam_wide.sweep_sam_wide if b.route == "wide" else sweep.sweep_sam_chain
+        args = b.chain_args(x_r, x_i, st)
+        timing[kname] = dict(
+            ms=time_ms(lambda: run(*args), REPS),
+            plain_ms=sam_plain_prefix_ms[kname] * (n / SAM_PREFIX), plain_from=SAM_PREFIX,
+            bound_ms=b_ms, bound_by=b_by, library_ms=lib_sam_ms[(c, n)], flops=flops,
+            samples=samples_k, steps=n)
+        path_ms[label] = time_ms(lambda: b.process_planar(x_r, x_i, st), REPS)
+    del args, sam_ends, xr6, xi6, xr6nb, xi6nb, xr10, xi10, xr10nb, xi10nb
+    clocks = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.split("\n")[0]
+    sm_now, sm_max = (float(v) for v in clocks.split(","))
+
     for kname, tm in timing.items():
         library = "none (no single PyTorch call)" if tm["library_ms"] is None else \
             f"{tm['library_ms']:.3f} ms"
+        step = "" if "steps" not in tm else (
+            f", PLL step {tm['ms'] * 1e6 / tm['steps']:.2f} ns = "
+            f"{tm['ms'] * 1e-3 / tm['steps'] * sm_max * 1e6:.1f} cycles at {sm_max:.0f} MHz")
         say(f"timing {kname}: kernel {tm['ms']:.3f} ms/segment "
             f"({tm['samples'] / tm['ms'] / 1e3:.1f} "
-            f"Msamples/s, {tm['flops'] / tm['ms'] / 1e9:.1f} TFLOP/s fp32), plain "
+            f"Msamples/s, {tm['flops'] / tm['ms'] / 1e9:.1f} TFLOP/s fp32{step}), plain "
             f"{tm['plain_ms']:.3f} ms"
-            + (f" (timed on the first {tm['plain_from']} samples, scaled to "
-               f"{SEG_LEN})" if "plain_from" in tm else "")
+            + (f" (timed on the first {tm['plain_from']} samples, scaled to the "
+               f"segment)" if "plain_from" in tm else "")
             + f", library {library}, bound "
             f"{tm['bound_ms']:.3f} ms ({tm['bound_by']})")
     say(f"timing paths: FusedSSBBank.process_planar per segment: sweep {seg_ms:.3f} ms, "
         f"staged {seg_st_ms:.3f} ms (of which agc_run {agc_ms:.3f} ms), noise blanker "
         f"{seg_nb_ms:.3f} ms; "
         + "; ".join(f"{k} {v:.3f} ms" for k, v in path_ms.items())
-        + f" (AM and config4 {N_AM} ch, the rest {N_CHANNELS} ch); library: "
+        + f" (AM and config4 {N_AM} ch, SAM config10 {N_SAM_WIDE} ch x {SEG_WIDE}, the rest "
+        f"{N_CHANNELS} ch); the staged SAM path's plain stages: "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in sam_stage_ms.items())
+        + f"; SM clock {sm_now:.0f} MHz after the timing, max {sm_max:.0f} MHz; library: "
         f"torch.matmul (rows,512)@(512,128) {lib1_ms:.3f} ms, (rows,256)@(256,256) "
         f"{lib2_ms:.3f} ms, both {library_ms:.3f} ms, with PBT's L half alone "
         f"{library_mono_ms:.3f} ms; K4's four products at config4 "
@@ -846,7 +1153,12 @@ def main() -> None:
                "sweep_chain_am_nb": ("sweep_chain.cu", "pallas_sweep.py:261"),
                "lms_nr": ("lms.cu", "pallas_lms.py:36"),
                "sweep_chain_ssb_mono": ("sweep_chain.cu", "pallas_sweep.py:261"),
-               "sweep_spec_chain": ("sweep_spec.cu", "pallas_sweep_spec.py:46")}
+               "sweep_spec_chain": ("sweep_spec.cu", "pallas_sweep_spec.py:46"),
+               "sam_pll": ("sam.cu", "pallas_sam.py:226"),
+               "sweep_chain_sam": ("sweep_chain.cu", "pallas_chain_lanes.py:98"),
+               "sweep_chain_sam_nb": ("sweep_chain.cu", "pallas_chain_lanes.py:98"),
+               "sam_wide": ("sam_wide.cu", "pallas_sam_wide.py:49"),
+               "sam_wide_nb": ("sam_wide.cu", "pallas_sam_wide.py:49")}
     print(json.dumps({"kernels": [{
         "name": kname, "route": "cuda",
         "source": f"radiodsp_sdr_rx_tpu_torch/csrc/{src}",

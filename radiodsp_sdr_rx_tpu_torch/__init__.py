@@ -11,12 +11,18 @@ Layers, from the entry point down:
                    per segment (noise blanker included), staged backend two;
                    FusedAMBank: one launch per segment (blanker included);
                    FusedNRBank: spectral NR folded into one launch per
-                   segment, or DNR / notch / spectral staged
+                   segment, or DNR / notch / spectral staged;
+                   FusedSAMBank: staged (the PLL kernel, then PBT), or
+                   folded into one launch per segment, up to 128 channels
+                   on the lanes chain, wider banks on the wide chain
   models/receiver.py  ReceiverBank: the reference bank chain, plain PyTorch
-                   stages (ops/planar.py, ops/iir.py, ops/agc.py,
-                   ops/qformat.py) and the LMS stages on a kernel
-  ops/sweep.py     sweep_full_chain, sweep_am_chain: kernel wrappers, plain
-                   versions, launch counts
+                   stages (ops/planar.py with the exact SAM PLL, ops/iir.py,
+                   ops/agc.py, ops/qformat.py) and the LMS stages on a kernel
+  ops/sweep.py     sweep_full_chain, sweep_am_chain, sweep_sam_chain: kernel
+                   wrappers, plain versions, launch counts
+  ops/sam.py       sam_pll_run: the SAM PLL kernel (K5); the PLL step and
+                   re-seed schedule the SAM chains share
+  ops/sam_wide.py  sweep_sam_wide: the SAM chain for wide banks (K7)
   ops/sweep_spec.py  sweep_spec_chain: the chain with spectral NR (K4)
   ops/planar.py, ops/spectral_sub.py  the reference chain's stages, the
                    spectral subtraction's DFT operators and floor tracking
@@ -25,7 +31,8 @@ Layers, from the entry point down:
   ops/agc.py       agc_run: the staged backend's and ReceiverBank's AGC
   ops/chain_common.py  the mix, framings and argument checks the plain
                    versions, wrappers and the reference chain share
-  csrc/*.cu        the kernels (shared device code in csrc/chain_common.cuh)
+  csrc/*.cu        the kernels (shared device code in csrc/chain_common.cuh
+                   and, for the SAM PLL, csrc/sam_pll.cuh)
   models/config.py, models/receiver.py, ops/{fir_design,operators,agc,nco}.py
                    host-side design, bit-equal to the JAX package's
 """
@@ -42,10 +49,12 @@ from radiodsp_sdr_rx_tpu_torch.models.fused import (
     FusedBankState,
     FusedNRBank,
     FusedNRBankState,
+    FusedSAMBank,
+    FusedSAMBankState,
     FusedSSBBank,
 )
 from radiodsp_sdr_rx_tpu_torch.models.receiver import ReceiverBank, ReceiverState
 
 __all__ = ["AGCMode", "DemodMode", "FusedAMBank", "FusedAMBankState", "FusedBankState",
-           "FusedNRBank", "FusedNRBankState", "FusedSSBBank", "NRMode", "ReceiverBank",
-           "ReceiverConfig", "ReceiverState"]
+           "FusedNRBank", "FusedNRBankState", "FusedSAMBank", "FusedSAMBankState",
+           "FusedSSBBank", "NRMode", "ReceiverBank", "ReceiverConfig", "ReceiverState"]

@@ -1,5 +1,5 @@
 // chain_common.cuh: device code shared by the receive-chain kernels
-// (sweep_chain.cu, staged.cu, sweep_spec.cu).
+// (sweep_chain.cu, staged.cu, sweep_spec.cu, sam_wide.cu).
 //
 // A block of 256 threads works on chunks of 64 rows of 128 samples. Row
 // buffers hold 65 rows at a padded stride of 129 floats: row 0 is the row
@@ -46,7 +46,11 @@ static_assert(kRows == 8 * (kThreads / 32), "each warp owns 8 rows of a product"
 //     [256,384) -> lo[r][k-128], [384,512) -> hi[r][k-256].
 enum class ALayout { kFrames, kSpectrum };
 
-template <int N, ALayout kA = ALayout::kFrames>
+// kFrames with kRPC < kRows: the chunk's rows are kRows / kRPC channels of
+// kRPC rows each, and each channel's rows sit after its own carry row, so
+// chunk row r = g*kRPC + i reads buffer rows r + g and r + g + 1
+// (sam_wide.cu's layout).
+template <int N, ALayout kA = ALayout::kFrames, int kRPC = kRows>
 struct Tile {
   static constexpr int BV = kKT * N / 4 / kThreads;   // float4 of W per thread
   static constexpr int AV = kKT * kRows / kThreads;   // A values per thread
@@ -59,7 +63,8 @@ struct Tile {
     const int k0 = t * kKT;
     if constexpr (kA == ALayout::kFrames) {
       const float* src = (k0 >= 256) ? hi : lo;
-      const int row = tid % kRows + ((k0 >> 7) & 1);
+      const int r = tid % kRows;
+      const int row = r + (kRPC < kRows ? r / kRPC : 0) + ((k0 >> 7) & 1);
       const int col = (k0 & 127) + tid / kRows;
 #pragma unroll
       for (int v = 0; v < AV; ++v) a[v] = src[row * kLd + col + 4 * v];
@@ -85,7 +90,7 @@ struct Tile {
 
 // acc[i][4q+j] = sum_k A(8*warp+i, k) * w[k][128q + 4*lane + j], fp32 FMA.
 // Ends with __syncthreads(), so the caller may overwrite what A read.
-template <int N, ALayout kA = ALayout::kFrames>
+template <int N, ALayout kA = ALayout::kFrames, int kRPC = kRows>
 __device__ __forceinline__ void chunk_gemm(const float* lo, const float* hi,
                                            const float* __restrict__ w, int K,
                                            float* As, float* Bs,
@@ -97,7 +102,7 @@ __device__ __forceinline__ void chunk_gemm(const float* lo, const float* hi,
 #pragma unroll
     for (int j = 0; j < N / 32; ++j) acc[i][j] = 0.f;
 
-  Tile<N, kA> next;
+  Tile<N, kA, kRPC> next;
   next.fetch(lo, hi, w4, 0);
   next.stash(As, Bs);
   __syncthreads();

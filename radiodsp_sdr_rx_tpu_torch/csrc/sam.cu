@@ -1,0 +1,137 @@
+// sam.cu: the SAM carrier PLL over a segment, K5 of the staged FusedSAMBank.
+//
+// Replaces _sam_kernel (radiodsp_sdr_rx_tpu/ops/pallas_sam.py:226; wrapper
+// sam_pll_run_pallas :258). Per channel and sample, sam_pll.cuh's step: the
+// in-phase product vr = Re(z * conj(ref)) goes out, the phase detector
+// atan2(Im, Re) drives a second-order loop (freq += ki*err clipped to
+// +-max_freq, phase += freq + kp*err wrapped into [0, 2*pi)); the oscillator
+// re-seeds from the phase every `period` samples (the JAX chunk, 4096 or the
+// whole segment when shorter). The (C,) phase and frequency carry out.
+//
+// What bounds it on an H100: not bytes (12 B per sample per channel) nor
+// operations (about 72 flops per sample), but the chain of dependent
+// operations from one sample's phase error to the next sample's oscillator:
+// the atan2 with its IEEE divide, the loop update and the small-angle
+// rotation, some 40 dependent operations at 4 or more cycles each. A segment
+// of n samples costs n such steps whatever the channel count.
+//
+// What the design does about it: one thread per channel walks its time axis,
+// so 32 channels share one warp's chain; the base oscillator's 13-FMA
+// polynomial hangs off the previous step's state and runs beside the chain.
+// A block owns 32 channels and has five warps: warp 0 runs the PLLs out of
+// shared memory while warps 1-4 load the next tile of 128 samples of the 32
+// channels (thread q the column q of every row: coalesced, 16 loads in
+// flight a thread) and store the previous tile's vr, so that no global
+// memory latency sits on the chain. (With one copy warp the loads went one
+// DRAM latency at a time and the copy, not the chain, set the pace: 182.5 ms
+// per config6 segment on an H100.) Rows are padded to 129 floats, so the 32
+// threads reading one column hit 32 banks. Channels past the end compute on
+// zeros and store nothing.
+
+#include <cuda_runtime.h>
+
+#include "sam_pll.cuh"
+
+namespace {
+
+constexpr int kCh = 32;          // channels per block, one per lane of warp 0
+constexpr int kTile = 128;       // samples per tile, one per copy thread
+constexpr int kLdT = kTile + 1;  // padded row stride
+constexpr int kTileFloats = kCh * kLdT;
+constexpr int kBlockThreads = 32 + kTile;   // the PLL warp, then the copy warps
+
+__global__ void __launch_bounds__(kBlockThreads) sam_pll_kernel(
+    const float* __restrict__ zr, const float* __restrict__ zi,
+    const float* __restrict__ phase0, const float* __restrict__ freq0,
+    float* __restrict__ vr_out, float* __restrict__ phase_out,
+    float* __restrict__ freq_out, int channels, int n, int period, float kp,
+    float ki, float max_freq) {
+  extern __shared__ float smem[];
+  float* zin = smem;                       // [2 slots][zr | zi][kCh][kLdT]
+  float* vbuf = smem + 4 * kTileFloats;    // [2 slots][kCh][kLdT]
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int q = threadIdx.x - 32;   // a copy thread's column
+  const int c0 = blockIdx.x * kCh;
+  const int tiles = (n + kTile - 1) / kTile;
+
+  // copy threads: column q of tile t of the block's channels into slot t & 1
+  // (zeros past the end)
+  auto load = [&](int t) {
+    float* dr = zin + (t & 1) * 2 * kTileFloats + q;
+    float* di = dr + kTileFloats;
+    const int pos = t * kTile + q;
+#pragma unroll 8
+    for (int ch = 0; ch < kCh; ++ch) {
+      const bool ok = c0 + ch < channels && pos < n;
+      const size_t o = (size_t)(c0 + ch) * n + pos;
+      dr[ch * kLdT] = ok ? zr[o] : 0.f;
+      di[ch * kLdT] = ok ? zi[o] : 0.f;
+    }
+  };
+  auto store = [&](int t) {
+    const float* src = vbuf + (t & 1) * kTileFloats + q;
+    const int pos = t * kTile + q;
+    if (pos < n)
+      for (int ch = 0; ch < kCh && c0 + ch < channels; ++ch)
+        vr_out[(size_t)(c0 + ch) * n + pos] = src[ch * kLdT];
+  };
+
+  const int c = c0 + lane;
+  const PllGains gains{kp, ki, max_freq};
+  Pll pll{0.f, 0.f, 0.f, 0.f};
+  if (warp == 0 && c < channels) {
+    pll.phase = phase0[c];
+    pll.freq = freq0[c];
+  }
+  int next = 0;   // the next re-seed position
+
+  if (warp > 0) load(0);
+  __syncthreads();
+  for (int t = 0; t < tiles; ++t) {
+    if (warp == 0) {
+      const float* a = zin + (t & 1) * 2 * kTileFloats + lane * kLdT;
+      const float* b = a + kTileFloats;
+      float* v = vbuf + (t & 1) * kTileFloats + lane * kLdT;
+      const int len = min(kTile, n - t * kTile);
+#pragma unroll 4
+      for (int k = 0; k < len; ++k) {
+        const int pos = t * kTile + k;
+        if (pos == next) {
+          pll.reseed();
+          next += period;
+        }
+        v[k] = pll.step(a[k], b[k], gains);
+      }
+    } else {
+      if (t + 1 < tiles) load(t + 1);
+      if (t > 0) store(t - 1);
+    }
+    __syncthreads();
+  }
+  if (warp > 0) store(tiles - 1);
+  if (warp == 0 && c < channels) {
+    phase_out[c] = pll.phase;
+    freq_out[c] = pll.freq;
+  }
+}
+
+}  // namespace
+
+// K5 on `stream` of CUDA device `device`: zr, zi, vr_out (C, n); phase0,
+// freq0, phase_out, freq_out (C,); the oscillator re-seeds every `period`
+// samples. Returns the cudaError_t of the launch (0 on success).
+extern "C" int sam_pll(const float* zr, const float* zi, const float* phase0,
+                       const float* freq0, float* vr_out, float* phase_out,
+                       float* freq_out, int channels, int n, int period, float kp,
+                       float ki, float max_freq, int device, void* stream) {
+  const int smem = 6 * kTileFloats * (int)sizeof(float);
+  cudaError_t err = cudaSetDevice(device);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(sam_pll_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+  if (err != cudaSuccess) return (int)err;
+  sam_pll_kernel<<<(channels + kCh - 1) / kCh, kBlockThreads, smem, (cudaStream_t)stream>>>(
+      zr, zi, phase0, freq0, vr_out, phase_out, freq_out, channels, n, period, kp, ki,
+      max_freq);
+  return (int)cudaGetLastError();
+}

@@ -1,7 +1,9 @@
 // sweep_chain.cu: the whole receive chain of one channel per thread block.
 //
 // Replaces _chain_kernel (radiodsp_sdr_rx_tpu/ops/pallas_sweep.py:261) in five
-// instantiations of one template, demod x noise blanker x R output:
+// instantiations of one template, demod x noise blanker x R output, and the
+// SAM stage of _lanes_chain_kernel (ops/pallas_chain_lanes.py:98, stage "sam",
+// wrapper sweep_lanes_chain :748) in two more:
 //   sweep_chain_ssb      demod="ssb"            (wrapper sweep_full_chain :628)
 //   sweep_chain_ssb_nb   demod="ssb", nb=true   (:327-331, 361-363, 386-403)
 //   sweep_chain_am       demod="am"             (wrapper sweep_am_chain :695;
@@ -9,12 +11,19 @@
 //   sweep_chain_am_nb    demod="am", nb=true
 //   sweep_chain_ssb_mono demod="ssb", emit_r=False (:482-489, 558-561): R is
 //                        neither computed into the output nor stored
+//   sweep_chain_sam      pallas_chain_lanes demod="sam", nr="none" (:413-455,
+//                        :620-627): the AM chain with the carrier PLL of
+//                        sam_pll.cuh in place of the envelope
+//   sweep_chain_sam_nb   the same with the noise blanker
 // Per sample: input gain / IQ balance, [nb: the noise blanker,] DDS NCO mix,
 // then
 //   ssb: overlap-save band-pass + SSB demod as frames(rows,512) @ w_ssb(512,128);
 //   am:  the complex band-pass frames(rows,512) @ w_sb(512,256) -> (zr | zi),
 //        envelope sqrt(zr^2 + zi^2), DC blocker
 //        y[n] = env[n] - env[n-1] + pole*y[n-1] (pole 0.995);
+//   sam: the complex band-pass, then the PLL's in-phase product vr in place
+//        of the envelope (carry: the (2, C) [phase | freq] rows, re-seeded
+//        on the schedule the caller passes), then the same DC blocker;
 // then AGC env[k] = max(|a[k]|, env[k-1]*release), gain =
 // min(target/max(env,1e-12), max_gain) (not applied with AGC off), PBT
 // frames(rows,256) @ w_pbt(256,256) -> [L|R], output gain.
@@ -49,7 +58,12 @@
 // DC blocker's carries stay in shared memory from chunk to chunk. In the AM
 // band-pass each thread's 8 columns are j and j+128 for four j, so the same
 // thread holds zr and zi of a sample and writes its envelope straight into
-// the audio rows. The AGC, the blanker's average and the DC blocker are
+// the audio rows. SAM writes zr into the audio rows and zi into the mixed Q
+// rows (dead after the product once their last row has moved to row 0), and
+// thread 0 walks the chunk's 8,192 samples in time order, overwriting zr with
+// vr, while the other 255 threads wait at the barrier: the PLL's chain of
+// dependent steps (sam.cu) then bounds the SAM kernels, about n steps of it
+// per segment, with the rest of the chain stalled behind it. The AGC, the blanker's average and the DC blocker are
 // scans over the chunk, run as 256 segments of 32 samples: each thread scans
 // its segment from zero, warp 0 scans the segment ends (a decaying max for
 // the AGC, a decaying sum for the other two) and each thread re-runs its
@@ -59,6 +73,7 @@
 // two products is later work.
 
 #include "chain_common.cuh"
+#include "sam_pll.cuh"
 
 namespace {
 
@@ -66,7 +81,7 @@ namespace {
 // nb adds the keep mask of the last row
 constexpr int kSmemFloats = kAsFloats + kBsFloats + 3 * kRowBuf + kThreads + 4;
 
-enum class Demod { kSSB, kAM };
+enum class Demod { kSSB, kAM, kSAM };
 
 constexpr double kDcPole = 0.995;  // the AM DC blocker's pole (ops/iir.DC_POLE)
 
@@ -84,8 +99,10 @@ __global__ void __launch_bounds__(kThreads, 1) sweep_chain_kernel(
     const float* __restrict__ nb_avg0, const float* __restrict__ nb_mask0,
     float* __restrict__ nb_avg_out, float* __restrict__ nb_mask_out,
     double nb_a, float nb_thresh, const float* __restrict__ dc0,
-    float* __restrict__ dc_out) {
-  constexpr bool kAM = kDemod == Demod::kAM;
+    float* __restrict__ dc_out, const float* __restrict__ pll0,
+    float* __restrict__ pll_out, PllGains gains, Reseed reseed) {
+  constexpr bool kSAM = kDemod == Demod::kSAM;
+  constexpr bool kDsb = kDemod == Demod::kAM || kSAM;  // the complex band-pass and DC blocker
   extern __shared__ __align__(16) float smem[];
   float* As = smem;
   float* Bs = As + kAsFloats;
@@ -111,7 +128,7 @@ __global__ void __launch_bounds__(kThreads, 1) sweep_chain_kernel(
     nb_seg = seg_factors(nb_a, nb_lanes);
   }
   float dc_pf = 0.f, dc_seg = 0.f, dc_lanes[5];
-  if constexpr (kAM) {
+  if constexpr (kDsb) {
     dc_pf = (float)kDcPole;
     dc_seg = seg_factors(kDcPole, dc_lanes);
   }
@@ -127,10 +144,17 @@ __global__ void __launch_bounds__(kThreads, 1) sweep_chain_kernel(
     }
     Ab[tid] = atail_in[t];
   }
+  // SAM: thread 0 runs the channel's PLL, its state in registers across chunks
+  Pll pll{0.f, 0.f, 0.f, 0.f};
+  int next_seed = 0;
+  if (kSAM && tid == 0) {
+    pll.phase = pll0[c];
+    pll.freq = pll0[gridDim.x + c];
+  }
   if (tid == 0) {
     env_c[0] = env0[c];
     if constexpr (kNB) env_c[1] = nb_avg0[c];
-    if constexpr (kAM) {
+    if constexpr (kDsb) {
       env_c[2] = dc0[2 * c];
       env_c[3] = dc0[2 * c + 1];
     }
@@ -213,7 +237,41 @@ __global__ void __launch_bounds__(kThreads, 1) sweep_chain_kernel(
     // 4*lane+j and 128+4*lane+j: zr and zi of one sample.
     {
       const int lane = tid & 31;
-      if constexpr (kAM) {
+      if constexpr (kSAM) {
+        float acc[8][8];
+        chunk_gemm<256>(Mr, Mi, w_band, 512, As, Bs, acc);
+        // the mixed rows' last row becomes row 0 now: zi overwrites the Q rows
+        if (tid < kBlk) {
+          Mr[tid] = Mr[rows * kLd + tid];
+          Mi[tid] = Mi[rows * kLd + tid];
+        }
+        __syncthreads();
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int o = (warp * 8 + i + 1) * kLd + lane * 4 + j;
+            Ab[o] = acc[i][j];
+            Mi[o] = acc[i][4 + j];
+          }
+        __syncthreads();
+        // 2a. the PLL over the chunk in time order: vr over zr in place
+        if (tid == 0) {
+          for (int r = 0; r < rows; ++r) {
+            float* a = Ab + (r + 1) * kLd;
+            const float* b = Mi + (r + 1) * kLd;
+            const int pos0 = (row0 + r) * kBlk;
+#pragma unroll 4
+            for (int k = 0; k < kBlk; ++k) {
+              if (pos0 + k == next_seed) {
+                pll.reseed();
+                next_seed = reseed.next(next_seed);
+              }
+              a[k] = pll.step(a[k], b[k], gains);
+            }
+          }
+        }
+      } else if constexpr (kDsb) {
         float acc[8][8];
         chunk_gemm<256>(Mr, Mi, w_band, 512, As, Bs, acc);
 #pragma unroll
@@ -236,7 +294,7 @@ __global__ void __launch_bounds__(kThreads, 1) sweep_chain_kernel(
     // 2b. am: DC blocker in place, y = (env - env_prev) + pole*y, the
     // blanker's segmented decaying-sum scan. Each thread reads the envelope
     // just before its segment before any thread overwrites one.
-    if constexpr (kAM) {
+    if constexpr (kDsb) {
       const int r = tid % kRows, quarter = tid / kRows;
       const int s = r * kSegsPerRow + quarter;
       float* a = Ab + (r + 1) * kLd + quarter * kSegLen;
@@ -296,10 +354,13 @@ __global__ void __launch_bounds__(kThreads, 1) sweep_chain_kernel(
       store_rows<256, kEmitR ? 2 : 1>(acc, out_l, out_r, base, row0, rows, out_gain);
     }
 
-    // 5. this chunk's last row becomes the next chunk's row 0
+    // 5. this chunk's last row becomes the next chunk's row 0 (SAM moved
+    // the mixed rows' in step 2)
     if (tid < kBlk) {
-      Mr[tid] = Mr[rows * kLd + tid];
-      Mi[tid] = Mi[rows * kLd + tid];
+      if constexpr (!kSAM) {
+        Mr[tid] = Mr[rows * kLd + tid];
+        Mi[tid] = Mi[rows * kLd + tid];
+      }
       Ab[tid] = Ab[rows * kLd + tid];
     }
     __syncthreads();
@@ -310,11 +371,15 @@ __global__ void __launch_bounds__(kThreads, 1) sweep_chain_kernel(
     if (tid < kBlk) nb_mask_out[(size_t)c * kBlk + tid] = keep_row[tid];
     if (tid == 0) nb_avg_out[c] = env_c[1];
   }
-  if constexpr (kAM) {
+  if constexpr (kDsb) {
     if (tid == 0) {
       dc_out[2 * c] = env_c[2];
       dc_out[2 * c + 1] = env_c[3];
     }
+  }
+  if (kSAM && tid == 0) {
+    pll_out[c] = pll.phase;
+    pll_out[gridDim.x + c] = pll.freq;
   }
 }
 
@@ -327,7 +392,8 @@ int launch(const float* xr, const float* xi, const long long* inc,
            float target, float max_gain, int agc_enabled, float out_gain,
            float g_i, float g_q, const float* nb_avg0, const float* nb_mask0,
            float* nb_avg_out, float* nb_mask_out, double nb_a, float nb_thresh,
-           const float* dc0, float* dc_out, void* stream) {
+           const float* dc0, float* dc_out, void* stream, const float* pll0 = nullptr,
+           float* pll_out = nullptr, PllGains gains = {}, Reseed reseed = {}) {
   const int smem = (kSmemFloats + (kNB ? kBlk : 0)) * (int)sizeof(float);
   cudaError_t err = cudaSetDevice(device);
   if (err == cudaSuccess)
@@ -338,7 +404,7 @@ int launch(const float* xr, const float* xi, const long long* inc,
       xr, xi, inc, phase0, w_band, w_pbt, tail_r, tail_i, atail_in, env0, out_l,
       out_r, atail_out, env_out, n, release, target, max_gain, agc_enabled,
       out_gain, g_i, g_q, nb_avg0, nb_mask0, nb_avg_out, nb_mask_out, nb_a,
-      nb_thresh, dc0, dc_out);
+      nb_thresh, dc0, dc_out, pll0, pll_out, gains, reseed);
   return (int)cudaGetLastError();
 }
 
@@ -431,4 +497,45 @@ extern "C" int sweep_chain_ssb_mono(
       nullptr, atail_out, env_out, channels, n, device, release, target,
       max_gain, agc_enabled, out_gain, g_i, g_q, nullptr, nullptr, nullptr,
       nullptr, 0.0, 0.f, nullptr, nullptr, stream);
+}
+
+// The SAM chain: as sweep_chain_am, plus the PLL carry pll0 (2,C) in and
+// pll_out (2,C) out, [phase row | freq row]; the loop gains kp, ki, max_freq;
+// the oscillator re-seeds every `period` samples before position `split` and
+// every `period2` samples from `split` on (sam_pll.cuh, Reseed).
+extern "C" int sweep_chain_sam(
+    const float* xr, const float* xi, const long long* inc,
+    const long long* phase0, const float* w_sb, const float* w_pbt,
+    const float* tail_r, const float* tail_i, const float* atail_in,
+    const float* env0, const float* dc0, const float* pll0, float* out_l,
+    float* out_r, float* atail_out, float* env_out, float* dc_out, float* pll_out,
+    int channels, int n, int device, double release, float target, float max_gain,
+    int agc_enabled, float out_gain, float g_i, float g_q, float kp, float ki,
+    float max_freq, int period, int split, int period2, void* stream) {
+  return launch<Demod::kSAM, false>(
+      xr, xi, inc, phase0, w_sb, w_pbt, tail_r, tail_i, atail_in, env0, out_l,
+      out_r, atail_out, env_out, channels, n, device, release, target, max_gain,
+      agc_enabled, out_gain, g_i, g_q, nullptr, nullptr, nullptr, nullptr, 0.0,
+      0.f, dc0, dc_out, stream, pll0, pll_out, {kp, ki, max_freq},
+      {period, split, period2});
+}
+
+// The SAM chain with the noise blanker (its carries as in sweep_chain_ssb_nb).
+extern "C" int sweep_chain_sam_nb(
+    const float* xr, const float* xi, const long long* inc,
+    const long long* phase0, const float* w_sb, const float* w_pbt,
+    const float* tail_r, const float* tail_i, const float* atail_in,
+    const float* env0, const float* dc0, const float* pll0, float* out_l,
+    float* out_r, float* atail_out, float* env_out, float* dc_out, float* pll_out,
+    const float* nb_avg0, const float* nb_mask0, float* nb_avg_out,
+    float* nb_mask_out, int channels, int n, int device, double release,
+    float target, float max_gain, int agc_enabled, float out_gain, float g_i,
+    float g_q, double nb_a, float nb_thresh, float kp, float ki, float max_freq,
+    int period, int split, int period2, void* stream) {
+  return launch<Demod::kSAM, true>(
+      xr, xi, inc, phase0, w_sb, w_pbt, tail_r, tail_i, atail_in, env0, out_l,
+      out_r, atail_out, env_out, channels, n, device, release, target, max_gain,
+      agc_enabled, out_gain, g_i, g_q, nb_avg0, nb_mask0, nb_avg_out,
+      nb_mask_out, nb_a, nb_thresh, dc0, dc_out, stream, pll0, pll_out,
+      {kp, ki, max_freq}, {period, split, period2});
 }

@@ -21,14 +21,20 @@ envelope, DC blocker, AGC, PBT), with or without the blanker, in ONE kernel
 launch per segment (ops/sweep.sweep_am_chain); its ``FusedAMBankState``
 adds the DC blocker's carry ``am_dc``.
 
+``FusedSAMBank`` (:581-848) runs synchronous AM: staged (``fold=False``) on
+the PLL kernel K5 and K2b, folded on K6 (one launch per segment, up to 128
+channels, the blanker included) or, for wider banks, on K7, which runs
+several channels' PLLs side by side; its ``FusedSAMBankState`` carries the
+PLL and the DC blocker.
+
 ``FusedNRBank`` (:217-579) adds a noise-reduction stage to the SSB modes:
 ``fold=True`` (the default) runs spectral NR folded into ONE kernel launch
 per segment (ops/sweep_spec.sweep_spec_chain, K4); ``fold=False`` stages it:
 the DNR (lms) route runs the sweep kernel without R, then the LMS kernel,
 the notch route runs mix + demod, the LMS kernel, the AGC and PBT, and the
 spectral route runs the sweep kernel, then the plain-PyTorch spectral
-subtraction. The routes that run the JAX package's lanes kernel (K6) raise
-``NotImplementedError``.
+subtraction. The routes that run the JAX package's lanes kernel (K6) with
+an NR stage raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -41,14 +47,16 @@ import torch
 from radiodsp_sdr_rx_tpu_torch.models.config import DemodMode, ReceiverConfig
 from radiodsp_sdr_rx_tpu_torch.models.receiver import LMS_MAX_CHANNELS, build_params
 from radiodsp_sdr_rx_tpu_torch.ops import agc as agc_ops
-from radiodsp_sdr_rx_tpu_torch.ops import lms_bank, nco, planar, staged
+from radiodsp_sdr_rx_tpu_torch.ops import lms_bank, nco, planar, sam, sam_wide, staged
+from radiodsp_sdr_rx_tpu_torch.ops.iir import dc_blocker
 from radiodsp_sdr_rx_tpu_torch.ops.lms import LMS_DELAY, LMS_TAPS
 from radiodsp_sdr_rx_tpu_torch.ops.spectral_sub import spectral_matmul_ops
-from radiodsp_sdr_rx_tpu_torch.ops.sweep import sweep_am_chain, sweep_full_chain
+from radiodsp_sdr_rx_tpu_torch.ops.sweep import sweep_am_chain, sweep_full_chain, sweep_sam_chain
 from radiodsp_sdr_rx_tpu_torch.ops.sweep_spec import sweep_spec_chain
 from radiodsp_sdr_rx_tpu_torch.utils.convert import params_from_numpy, resolve_device, split_iq
 
 _BLOCK = 128
+_LANES = 128   # the JAX SAM PLL's lane width (pallas_sam.LANES)
 
 
 class FusedBankState(NamedTuple):
@@ -255,6 +263,192 @@ class FusedAMBank:
         return self.process_planar(*split_iq(iq, self.n_channels), state)
 
 
+class FusedSAMBankState(NamedTuple):
+    """Carry of the SAM bank; fields and meaning as the JAX
+    ``FusedSAMBankState``. DDS words are int64 in [0, 2^32). The PLL planes
+    are padded to the JAX bank's lanes (128, or a multiple of 128 with
+    ``fold=True``); the padded entries pass through unchanged (the JAX PLL
+    keeps them at 0 on their zero input).
+
+    ``sb_tail`` differs by backend, so a state of one is not valid for the
+    other: ``fold=True`` stores the RAW input's last block [re|im], which the
+    kernel re-scales and re-mixes; ``fold=False`` stores the MIXED stream's
+    last block.
+    """
+
+    nco_phase: torch.Tensor   # (C,) int64 DDS phase words
+    sb_tail: torch.Tensor     # (C, 256) f32 input last block [re|im] (see above)
+    audio_tail: torch.Tensor  # (C, 128) f32 PBT framing tail (post-AGC audio)
+    agc_env: torch.Tensor     # (C,) f32
+    nb_avg: torch.Tensor      # (C,) f32 noise-blanker running average
+    nb_mask: torch.Tensor     # (C, 128) f32 noise-blanker keep mask of the last block
+    sam_phase: torch.Tensor   # (lanes,) f32 PLL phase
+    sam_freq: torch.Tensor    # (lanes,) f32 PLL frequency
+    sam_dc: torch.Tensor      # (C, 2) f32 DC-blocker carry
+
+
+class FusedSAMBank:
+    """Many-channel synchronous-AM receiver (``fused.py:587-848`` of the JAX
+    package), three routes:
+
+      - ``fold=False`` (staged): input gains, the DDS mix and the complex
+        band-pass in plain PyTorch, the PLL on K5 (``ops/sam.sam_pll_run``),
+        the DC blocker and the AGC in plain PyTorch, PBT on K2b
+        (``staged.pbt_filter``) with the output gain: one launch of each per
+        segment; up to 128 channels, no blanker.
+      - ``fold=True`` up to 128 channels, or whenever the lane groups
+        (channels padded to 128) have no divisor among 8, 4, 2, or
+        ``wide_groups=1``: the whole chain, the blanker folded in when the
+        config asks for it, in ONE launch of K6 per segment
+        (``ops/sweep.sweep_sam_chain``).
+      - ``fold=True`` otherwise: the same chain on K7
+        (``ops/sam_wide.sweep_sam_wide``), ``groups`` = the JAX bank's
+        ``g_wide`` (8, 4 or 2; ``wide_groups`` overrides it), one launch per
+        segment.
+
+    Every route re-seeds the PLL's oscillator as its JAX twin does: every
+    ``sam_chunk`` samples (4,096 by default) staged; folded, per JAX kernel
+    call, the ``max_kernel_seg`` sub-segments and their remainder, every
+    ``lanes_chunk(., sam_chunk)`` samples on K6 and every
+    ``even_chunks(., min(sam_chunk, 256))`` on K7 (``sam.reseed_schedule``).
+    The port runs each segment in one launch all the same. The JAX
+    ``ValueError``s stay: mode not SAM, NR on, the blanker with
+    ``fold=False``, more than 128 channels with ``fold=False``. ``mute`` is
+    not read, as in every JAX fused bank. ``device=None`` means the CUDA card
+    and raises without one; pass ``device="cpu"`` to run the plain PyTorch
+    versions.
+    """
+
+    def __init__(self, config: ReceiverConfig, freqs_hz, sam_chunk: int | None = None,
+                 max_kernel_seg: int = 1 << 16, fold: bool = True,
+                 wide_groups: int | None = None, device=None):
+        if sam_chunk is None:
+            sam_chunk = 1024 if fold else 4096
+        if config.mode != DemodMode.SAM:
+            raise ValueError("FusedSAMBank covers SAM; use FusedAMBank or ReceiverBank")
+        if config.nr.kind != "off":
+            raise ValueError("SAM + NR runs on FusedNRBank")
+        if config.noise_blanker and not fold:
+            raise ValueError("the noise blanker folds into the kernels (fold=True); the "
+                             "staged oracle is ReceiverBank")
+        if len(freqs_hz) > _LANES and not fold:
+            raise ValueError(f"FusedSAMBank supports <= {_LANES} channels on the staged "
+                             "path (fold=True lifts the ceiling)")
+        c = len(freqs_hz)
+        self.lanes = max(_LANES, -(-c // _LANES) * _LANES) if fold else _LANES
+        groups = 1
+        if fold:
+            groups = max(g for g in (8, 4, 2, 1) if (self.lanes // _LANES) % g == 0)
+            if wide_groups is not None:
+                if (self.lanes // _LANES) % wide_groups:
+                    raise ValueError(f"wide_groups {wide_groups} does not divide "
+                                     f"{self.lanes // _LANES} lane groups")
+                groups = wide_groups
+        self.groups = groups
+        self.route = "staged" if not fold else "wide" if groups > 1 else "lanes"
+        self.config = config
+        self.fold = fold
+        self.sam_chunk = int(sam_chunk)
+        self.max_kernel_seg = int(max_kernel_seg)
+        self.device = resolve_device(device)
+        self.n_channels = c
+        self.params = p = params_from_numpy(build_params(config)._asdict(), self.device)
+        self.agc_params = agc_ops.AGCParams(
+            release=p.agc_release, target=p.agc_target,
+            max_gain=p.agc_max_gain, enabled=p.agc_enabled)
+        # the staged route's input gains, multiplied in f32 as the JAX bank does
+        self.gain_i = np.float32(p.input_gain)
+        self.gain_q = self.gain_i * np.float32(p.iq_gain_balance)
+        self.incs = _phase_incs(config, freqs_hz, self.device)
+
+    def init_state(self) -> FusedSAMBankState:
+        c, dev = self.n_channels, self.device
+        return FusedSAMBankState(
+            nco_phase=torch.zeros(c, dtype=torch.int64, device=dev),
+            sb_tail=torch.zeros(c, 2 * _BLOCK, device=dev),
+            audio_tail=torch.zeros(c, _BLOCK, device=dev),
+            agc_env=torch.full((c,), 1e-6, device=dev),
+            nb_avg=torch.zeros(c, device=dev),
+            nb_mask=torch.ones(c, _BLOCK, device=dev),
+            sam_phase=torch.zeros(self.lanes, device=dev),
+            sam_freq=torch.zeros(self.lanes, device=dev),
+            sam_dc=torch.zeros(c, 2, device=dev),
+        )
+
+    def reseed_schedule(self, n: int) -> sam.Reseed:
+        """Where the folded routes re-seed the PLL in a segment of n samples:
+        as the JAX bank's kernel calls do (``sam.reseed_schedule``)."""
+        wide = self.route == "wide"
+        return sam.reseed_schedule(n, min(self.sam_chunk, 256) if wide else self.sam_chunk,
+                                   self.max_kernel_seg, wide)
+
+    def chain_args(self, xr: torch.Tensor, xi: torch.Tensor, state: FusedSAMBankState,
+                   reseed: sam.Reseed | None = None) -> tuple:
+        """The positional arguments of ``sweep_sam_chain`` (route "lanes") or
+        ``sweep_sam_wide`` (route "wide") for one segment (``fold=True``);
+        ``reseed`` defaults to this segment's ``reseed_schedule``."""
+        p, cfg, c = self.params, self.config, self.n_channels
+        pll0 = torch.stack([state.sam_phase[:c], state.sam_freq[:c]])
+        args = (xr, xi, self.incs, state.nco_phase, p.w_sideband, p.w_pbt,
+                state.sb_tail[:, :_BLOCK].contiguous(), state.sb_tail[:, _BLOCK:].contiguous(),
+                state.audio_tail, state.agc_env, state.sam_dc, pll0,
+                p.agc_release, p.agc_target, p.agc_max_gain, p.agc_enabled,
+                p.output_gain, p.input_gain, cfg.iq_gain_balance,
+                bool(cfg.noise_blanker), float(cfg.nb_threshold_db),
+                float(cfg.nb_tau_samples), state.nb_avg, state.nb_mask)
+        if reseed is None:
+            reseed = self.reseed_schedule(xr.shape[-1])
+        groups = (self.groups,) if self.route == "wide" else ()
+        return args + groups + (reseed, 100.0, cfg.sample_rate)
+
+    def pll_args(self, xr: torch.Tensor, xi: torch.Tensor,
+                 state: FusedSAMBankState) -> tuple:
+        """The staged route's front end (input gains, DDS mix, band-pass) on
+        one segment: the positional arguments of ``sam_pll_run``, then the
+        mixed last block (the next ``sb_tail``)."""
+        c = self.n_channels
+        xr, xi = xr * float(self.gain_i), xi * float(self.gain_q)
+        xr, xi, _ = planar.nco_mix_planar(xr, xi, state.nco_phase, self.incs)
+        zr, zi, tr, ti = planar.overlap_save_filter_planar(
+            xr, xi, self.params.w_sideband, state.sb_tail[:, :_BLOCK], state.sb_tail[:, _BLOCK:])
+        return ((zr.contiguous(), zi.contiguous(), state.sam_phase[:c], state.sam_freq[:c],
+                 100.0, self.config.sample_rate, self.sam_chunk),
+                torch.cat([tr, ti], dim=-1))
+
+    def _padded(self, pll, state: FusedSAMBankState) -> dict:
+        c = self.n_channels
+        return dict(sam_phase=torch.cat([pll[0], state.sam_phase[c:]]),
+                    sam_freq=torch.cat([pll[1], state.sam_freq[c:]]))
+
+    def process_planar(self, xr, xi, state: FusedSAMBankState):
+        """One segment of planar f32 IQ, (C, n) each with n a multiple of 128.
+        Returns ({"audio_l", "audio_r"}, next state)."""
+        xr, xi = _planar(xr, xi, self.device)
+        phase = nco.advance_phase(state.nco_phase, xr.shape[-1], self.incs)
+        if not self.fold:
+            pll_args, sb_tail = self.pll_args(xr, xi, state)
+            vr, ph, fr = sam.sam_pll_run(*pll_args)
+            audio, dc = dc_blocker(vr, state.sam_dc)
+            audio, env = agc_ops.agc_run(audio, self.agc_params, state.agc_env)
+            l, r = staged.pbt_filter(audio, self.params.w_pbt, state.audio_tail,
+                                     self.params.output_gain)
+            return {"audio_l": l, "audio_r": r}, state._replace(
+                nco_phase=phase, sb_tail=sb_tail, audio_tail=audio[:, -_BLOCK:].contiguous(),
+                agc_env=env, sam_dc=dc, **self._padded((ph, fr), state))
+        run = sam_wide.sweep_sam_wide if self.route == "wide" else sweep_sam_chain
+        l, r, atail, env, dc, pll, *nb_carry = run(*self.chain_args(xr, xi, state))
+        new_state = state._replace(
+            nco_phase=phase, sb_tail=torch.cat([xr[:, -_BLOCK:], xi[:, -_BLOCK:]], dim=-1),
+            audio_tail=atail, agc_env=env, sam_dc=dc, **self._padded(pll, state))
+        if nb_carry:
+            new_state = new_state._replace(nb_avg=nb_carry[0], nb_mask=nb_carry[1])
+        return {"audio_l": l, "audio_r": r}, new_state
+
+    def process(self, iq, state: FusedSAMBankState):
+        """Complex IQ at the host boundary: (C, n), or (n,) for every channel."""
+        return self.process_planar(*split_iq(iq, self.n_channels), state)
+
+
 class FusedNRBankState(NamedTuple):
     """Carry of the NR bank; fields, shapes and meaning as the JAX
     ``FusedNRBankState``, with the leading channel axis. DDS words are int64
@@ -305,9 +499,9 @@ class FusedNRBank:
 
     ``fold=False`` scales the input before any kernel, so every kernel of
     that route runs with unit input gain and balance. ``fold=True`` with DNR
-    or notch, AM/SAM with NR, and any NR with the blanker run the JAX
-    package's lanes kernel (K6), which the port does not have yet: they
-    raise ``NotImplementedError``. The JAX ``ValueError``s stay: NR off, the
+    or notch, AM/SAM with NR, and any NR with the blanker run instantiations
+    of the JAX package's lanes kernel (K6) that the port does not have yet:
+    they raise ``NotImplementedError``. The JAX ``ValueError``s stay: NR off, the
     blanker or AM/SAM with ``fold=False``, more than 128 channels with
     ``fold=False``. ``device=None`` means the CUDA card and raises without
     one; pass ``device="cpu"`` to run the plain PyTorch versions.

@@ -7,11 +7,12 @@ fields keep the JAX names.
 ``ReceiverBank`` is the many-channel reference chain: every stage of
 ``rx_chain_batched`` (:310-460) on (C, n) planes, plain PyTorch as the JAX
 chain is XLA, except the adaptive LMS stages, which run the K3 kernel on the
-card (``ops/lms_bank.py``). It covers the SSB modes and AM, NR off / notch /
+card (``ops/lms_bank.py``). It covers the SSB modes, AM and SAM (the exact
+PLL of ``planar.demod_sam_planar``, no kernel, as in JAX), NR off / notch /
 lms (DNR1-4), spectral NR (SPEC1-4), the noise blanker, ``quantize_output``
-and ``mute``. SAM and the conv-first variants raise ``NotImplementedError``
-naming their ROADMAP item; their state fields are carried unchanged, so a
-JAX state converts both ways (``utils/convert.py``). The single-channel
+and ``mute``. The conv-first variants raise ``NotImplementedError`` naming
+their ROADMAP item; their state fields are carried unchanged, so a JAX state
+converts both ways (``utils/convert.py``). The single-channel
 ``Receiver`` and the per-channel ``rx_chain`` come with ROADMAP item 7.
 """
 
@@ -144,9 +145,7 @@ LMS_MAX_CHANNELS = 128   # the JAX bank's LMS lane width (pallas_lms.LANES)
 def check_ported(mode: DemodMode, conv_first: bool = False,
                  conv_inline_denoise: bool = False, fft_length: int = 256) -> None:
     """Raise NotImplementedError for a stage the port does not have yet."""
-    if mode == DemodMode.SAM:
-        raise NotImplementedError("SAM comes with ROADMAP item 5 (the SAM PLL on K5)")
-    if mode not in _SSB_MODES + (DemodMode.AM,):
+    if mode not in _SSB_MODES + (DemodMode.AM, DemodMode.SAM):
         raise ValueError(f"unsupported mode {mode}")
     if conv_first or conv_inline_denoise:
         raise NotImplementedError("the conv-first variants come with ROADMAP item 7")
@@ -166,11 +165,13 @@ def _run_lms(audio, state: lms.LMSState, mu, mode: str):
 def rx_chain_batched(params: ReceiverParams, state: ReceiverState, xr, xi, *,
                      mode: DemodMode, nr: NRMode, noise_blanker: bool,
                      quantize_output: bool, fft_length: int = 256,
-                     conv_first: bool = False, conv_inline_denoise: bool = False):
+                     sample_rate: float = 44117.64706, conv_first: bool = False,
+                     conv_inline_denoise: bool = False):
     """One segment of the bank chain on (C, n) f32 planes, n a multiple of
     128; ``params.nco_inc`` holds the (C,) DDS increments. Stage for stage
     the JAX ``rx_chain_batched``: input gain and IQ balance, [noise blanker],
-    DDS mix, band-pass + SSB demod or band-pass + AM envelope + DC blocker,
+    DDS mix, band-pass + SSB demod, or band-pass + AM envelope or SAM PLL
+    (at ``sample_rate``) + DC blocker,
     [LMS notch], AGC, PBT, [LMS denoise, x1.1 makeup, R <- L, or spectral
     subtraction with the split DFT], output gain (0 when muted), [q15 round
     trip]. Every product is full fp32, the JAX chain's default
@@ -187,11 +188,15 @@ def rx_chain_batched(params: ReceiverParams, state: ReceiverState, xr, xi, *,
 
     xr, xi, nco_phase = planar.nco_mix_planar(xr, xi, state.nco_phase, params.nco_inc)
 
-    am_dc = state.am_dc
-    if mode == DemodMode.AM:
+    am_dc, sam_state = state.am_dc, state.sam
+    if mode in (DemodMode.AM, DemodMode.SAM):
         zr, zi, sb_tail_r, sb_tail_i = planar.overlap_save_filter_planar(
             xr, xi, params.w_sideband, state.sb_tail_r, state.sb_tail_i)
-        audio, am_dc = planar.demod_am_planar(zr, zi, am_dc)
+        if mode == DemodMode.AM:
+            audio, am_dc = planar.demod_am_planar(zr, zi, am_dc)
+        else:
+            audio, sam_state = planar.demod_sam_planar(zr, zi, sam_state,
+                                                       sample_rate=sample_rate)
     else:
         audio, sb_tail_r, sb_tail_i = planar.ssb_filter_demod_planar(
             xr, xi, params.w_ssb, state.sb_tail_r, state.sb_tail_i)
@@ -228,7 +233,8 @@ def rx_chain_batched(params: ReceiverParams, state: ReceiverState, xr, xi, *,
     new_state = state._replace(
         nco_phase=nco_phase, sb_tail_r=sb_tail_r, sb_tail_i=sb_tail_i,
         audio_tail=audio_tail, agc_env=agc_env, nb_avg=nb_avg, am_dc=am_dc,
-        lms=lms_state, nfloor=nfloor, spec_tail_l=spec_tail_l, spec_tail_r=spec_tail_r)
+        sam=sam_state, lms=lms_state, nfloor=nfloor, spec_tail_l=spec_tail_l,
+        spec_tail_r=spec_tail_r)
     return {"audio_l": audio_l, "audio_r": audio_r}, new_state
 
 
@@ -259,7 +265,7 @@ class ReceiverBank:
         self.statics = dict(
             mode=config.mode, nr=config.nr, noise_blanker=config.noise_blanker,
             quantize_output=config.quantize_output, fft_length=config.fft_length,
-            conv_first=config.conv_first,
+            sample_rate=config.sample_rate, conv_first=config.conv_first,
             conv_inline_denoise=config.conv_inline_denoise)
 
     def init_state(self) -> ReceiverState:

@@ -9,8 +9,9 @@ products run in full fp32 (``chain_common.matmul_fp32``), the JAX chain's
 ``Precision.HIGHEST``. The mix and the overlap-save framing are
 ``ops/chain_common.py``'s, the pieces the fused kernels' plain versions use,
 so the reference chain and the kernels frame and mix the stream the same
-way. The SAM PLL (``demod_sam_planar``) comes with ROADMAP item 5; its state
-type is here because the reference chain's state carries it.
+way. ``demod_sam_planar`` is the exact SAM PLL (cos, sin, atan2 and the
+phase wrapped by ``torch.remainder``, as ``jnp.mod``), one vectorised step per
+sample over the channels, then the DC blocker.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from radiodsp_sdr_rx_tpu_torch.ops import nco
+from radiodsp_sdr_rx_tpu_torch.ops import nco, sam
 from radiodsp_sdr_rx_tpu_torch.ops.chain_common import (
     BLOCK,
     demod_frames,
@@ -85,6 +86,25 @@ def sam_init_planar(channels: int = 1, device="cpu") -> SAMStatePlanar:
     return SAMStatePlanar(phase=torch.zeros(channels, device=device),
                           freq=torch.zeros(channels, device=device),
                           dc=torch.zeros(channels, 2, device=device))
+
+
+def demod_sam_planar(zr, zi, state: SAMStatePlanar, bw_hz: float = 100.0,
+                     sample_rate: float = 44117.64706):
+    """Synchronous AM of (C, n) band-passed IQ: the second-order carrier PLL
+    (``ops/planar.py:154-184`` of the JAX package), its in-phase product
+    through the DC blocker. Returns (audio, state')."""
+    kp, ki, max_freq = sam.pll_gains(bw_hz, sample_rate)
+    two_pi = 2.0 * np.pi
+    phase, freq = state.phase, state.freq
+    vr = torch.empty_like(zr)
+    for t in range(zr.shape[-1]):
+        cr, ci = torch.cos(phase), torch.sin(phase)
+        vr[..., t] = zr[..., t] * cr + zi[..., t] * ci
+        err = torch.atan2(zi[..., t] * cr - zr[..., t] * ci, vr[..., t])
+        freq = (freq + ki * err).clamp(-max_freq, max_freq)
+        phase = torch.remainder(phase + freq + kp * err, two_pi)
+    audio, dc = dc_blocker(vr, state.dc)
+    return audio, SAMStatePlanar(phase=phase, freq=freq, dc=dc)
 
 
 def iq_gain_balance_planar(xr, xi, gain):

@@ -2,7 +2,9 @@
 
 ``params_from_numpy`` and ``state_from_numpy`` take the fields of the JAX
 package's ``ReceiverParams`` and of its bank states (``FusedBankState``,
-``FusedAMBankState``, ``FusedNRBankState``, the nested ``ReceiverState``) as numpy arrays (a dict,
+``FusedAMBankState``, ``FusedNRBankState``, ``FusedSAMBankState`` with its
+PLL planes padded to the JAX bank's lanes, the nested ``ReceiverState`` with
+its ``sam`` PLL state) as numpy arrays (a dict,
 e.g. ``state._asdict()``; nested states as NamedTuples or dicts) and return
 the port's; ``state_to_numpy`` goes back, nested states as dicts. Both
 packages then compute from the same operators and carries. DDS words are
@@ -64,12 +66,14 @@ def _state_types():
         FusedAMBankState,
         FusedBankState,
         FusedNRBankState,
+        FusedSAMBankState,
     )
     from radiodsp_sdr_rx_tpu_torch.models.receiver import ReceiverState
     from radiodsp_sdr_rx_tpu_torch.ops.lms import LMSState
     from radiodsp_sdr_rx_tpu_torch.ops.planar import SAMStatePlanar
 
-    return (FusedBankState, FusedAMBankState, FusedNRBankState, ReceiverState), {
+    return (FusedBankState, FusedAMBankState, FusedNRBankState, FusedSAMBankState,
+            ReceiverState), {
         "lms": LMSState, "sam": SAMStatePlanar}
 
 
@@ -79,8 +83,8 @@ def _fields(v) -> Mapping:
 
 def state_from_numpy(d: Mapping, device):
     """The fields of a JAX bank state -> the port's state of the same fields
-    (``FusedBankState``, ``FusedAMBankState``, ``FusedNRBankState`` or
-    ``ReceiverState``)."""
+    (``FusedBankState``, ``FusedAMBankState``, ``FusedNRBankState``,
+    ``FusedSAMBankState`` or ``ReceiverState``)."""
     tops, nested = _state_types()
     d = _fields(d)
     cls = next((t for t in tops if set(t._fields) == set(d)), None)

@@ -10,12 +10,17 @@ import pytest
 from radiodsp_sdr_rx_tpu_torch.utils import build
 
 
-@pytest.mark.parametrize("name", ["sweep_chain", "staged"])
+HEADERS = {"sweep_chain": ["chain_common.cuh", "sam_pll.cuh"], "staged": ["chain_common.cuh"],
+           "sam": ["sam_pll.cuh"], "sam_wide": ["chain_common.cuh", "sam_pll.cuh"]}
+
+
+@pytest.mark.parametrize("name", ["sweep_chain", "staged", "sam", "sam_wide"])
 def test_sources_follow_includes(name):
-    assert [p.name for p in build.sources(name)] == [f"{name}.cu", "chain_common.cuh"]
+    assert [p.name for p in build.sources(name)] == [f"{name}.cu", *HEADERS[name]]
 
 
-@pytest.mark.parametrize("edited", ["staged.cu", "chain_common.cuh", "sweep_chain.cu"])
+@pytest.mark.parametrize("edited", ["staged.cu", "chain_common.cuh", "sweep_chain.cu",
+                                    "sam_pll.cuh"])
 def test_artifact_changes_with_each_source(tmp_path, monkeypatch, edited):
     csrc = tmp_path / "csrc"
     shutil.copytree(build.CSRC, csrc)

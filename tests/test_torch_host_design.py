@@ -20,7 +20,7 @@ from radiodsp_sdr_rx_tpu_torch.ops import fir_design as tfir
 from radiodsp_sdr_rx_tpu_torch.ops import nco as tnco
 from radiodsp_sdr_rx_tpu_torch.ops import windows as twin
 
-MODES = ["USB", "LSB", "CW", "CW_NARROW", "RTTY"]
+MODES = ["USB", "LSB", "CW", "CW_NARROW", "RTTY", "SAM"]
 AGC_MODES = ["OFF", "FAST", "MEDIUM", "SLOW"]
 FS = 44117.64706
 

@@ -8,7 +8,10 @@ taken in another order, and the AGC gain of up to 316 amplifies rounding.
 The LMS kernel is held to 2e-4, the JAX twin bound (tests/test_pallas_lms.py:
 35): its 96-tap sums run in another order and the adaptation carries that.
 The NR bank's staged routes are held to the port's ReceiverBank at 2e-3
-(docs/CHIP_PARITY.md).
+(docs/CHIP_PARITY.md). The SAM kernels (K5 sam_pll, K6 sweep_chain_sam and
+sweep_chain_sam_nb, K7 sam_wide and sam_wide_nb) run on a locked-carrier
+scene, the PLL being chaotic on noise, at 1e-4, with the plain PLL's
+per-sample loop kept to a few thousand samples.
 """
 
 import numpy as np
@@ -16,9 +19,11 @@ import pytest
 import torch
 
 from radiodsp_sdr_rx_tpu_torch.models.config import AGCMode, DemodMode, NRMode, ReceiverConfig
-from radiodsp_sdr_rx_tpu_torch.models.fused import FusedAMBank, FusedNRBank, FusedSSBBank
+from radiodsp_sdr_rx_tpu_torch.models.fused import (
+    FusedAMBank, FusedNRBank, FusedSAMBank, FusedSSBBank)
 from radiodsp_sdr_rx_tpu_torch.models.receiver import ReceiverBank
-from radiodsp_sdr_rx_tpu_torch.ops import agc, lms, lms_bank, staged, sweep, sweep_spec
+from radiodsp_sdr_rx_tpu_torch.ops import (
+    agc, lms, lms_bank, sam, sam_wide, staged, sweep, sweep_spec)
 
 pytestmark = pytest.mark.cuda
 ATOL = 1e-4
@@ -322,6 +327,145 @@ def test_nr_bank_staged_routes(cuda_device, nr, launches):
         torch.cuda.synchronize()
         after = counts()
         assert {k: after[k] - before[k] for k in after} == {k: launches.get(k, 0) for k in after}
+        want, st_ref = ref_bank.process_planar(xr, xi, st_ref)
+        for key in ("audio_l", "audio_r"):
+            np.testing.assert_allclose(out[key].cpu().numpy(), want[key].cpu().numpy(),
+                                       atol=2e-3, rtol=0)
+
+
+SAM_CENTER = 7_050_000.0
+FS = 44117.64706
+
+
+def _locked(channels, n, gen, device, spacing=1_000.0, baseband=False):
+    """Row k an AM carrier (depth 0.4, a 400-500 Hz tone) within 50 Hz of
+    channel k's mix (k*spacing; 0 for baseband), plus 0.02-sigma noise."""
+    t = torch.arange(n, device=device, dtype=torch.float64) / FS
+    k = torch.arange(channels, device=device, dtype=torch.float64)[:, None]
+    r = torch.rand((channels, 3), generator=gen, device=device, dtype=torch.float64)
+    f = (0.0 if baseband else k * spacing) + (r[:, :1] - 0.5) * 100.0
+    env = 1.0 + 0.4 * torch.sin(2 * torch.pi * (400.0 + 100.0 * r[:, 1:2]) * t)
+    ang = 2 * torch.pi * f * t + 2 * torch.pi * r[:, 2:3]
+    noise = torch.randn((2, channels, n), generator=gen, device=device) * 0.02
+    return ((env * torch.cos(ang)).float() + noise[0]).contiguous(), \
+        ((env * torch.sin(ang)).float() + noise[1]).contiguous()
+
+
+def _phase_close(got, ref):
+    d = (got - ref).abs() % (2 * torch.pi)
+    assert float(torch.minimum(d, 2 * torch.pi - d).max()) <= ATOL
+
+
+@pytest.mark.parametrize("channels, n, chunk", [(8, 2048, 4096), (37, 1000, 4096),
+                                                (130, 2048, 512)])
+def test_sam_pll_kernel_matches_plain_over_two_segments(cuda_device, channels, n, chunk):
+    """K5 against sam_pll_run_plain: vr, phase, freq; a ragged last tile
+    (n = 1000) and a partial last block of 32 channels (37, 130) included."""
+    gen = torch.Generator(device=cuda_device).manual_seed(channels)
+    zr, zi = _locked(channels, 2 * n, gen, cuda_device, baseband=True)
+    ph = torch.rand(channels, generator=gen, device=cuda_device) * 6.28
+    fr = torch.zeros(channels, device=cuda_device)
+    for seg in range(2):
+        args = (zr[:, seg * n:(seg + 1) * n].contiguous(), zi[:, seg * n:(seg + 1) * n].contiguous(),
+                ph, fr, 100.0, FS, chunk)
+        ref = sam.sam_pll_run_plain(*args)
+        before = sam.LAUNCHES
+        got = sam.sam_pll_run(*args)
+        torch.cuda.synchronize()
+        assert sam.LAUNCHES == before + 1
+        _close((got[0], got[2]), (ref[0], ref[2]))
+        _phase_close(got[1], ref[1])
+        ph, fr = got[1], got[2]
+
+
+def _sam_bank(channels, agc_mode=AGCMode.MEDIUM, **kw):
+    nb = kw.pop("noise_blanker", False)
+    cfg = ReceiverConfig(mode=DemodMode.SAM, vfo_freq=7_060_000.0,
+                         capture_center_freq=SAM_CENTER, agc=agc_mode, noise_blanker=nb)
+    return FusedSAMBank(cfg, [SAM_CENTER + 1_000.0 * k for k in range(channels)], **kw)
+
+
+def _sam_counts():
+    return (sam.LAUNCHES, staged.LAUNCHES_PBT, sweep.LAUNCHES_SAM, sweep.LAUNCHES_SAM_NB,
+            sam_wide.LAUNCHES, sam_wide.LAUNCHES_NB)
+
+
+SAM_SHAPES = [
+    (8, 2048, AGCMode.MEDIUM),   # a partial 64-row chunk
+    (3, 2176, AGCMode.FAST),     # 17 rows, re-seeded every 128 samples
+    (4, 256, AGCMode.OFF),       # two rows, AGC off
+]
+
+
+SAM_CASES = ([(None, nb, *shape) for nb in (False, True) for shape in SAM_SHAPES]
+             + [(8, False, *SAM_SHAPES[0]), (8, True, *SAM_SHAPES[1]),
+                (4, False, *SAM_SHAPES[1]), (2, True, *SAM_SHAPES[2]),
+                (2, False, 5, 2048, AGCMode.MEDIUM)])
+
+
+@pytest.mark.parametrize("groups, nb, channels, n, agc_mode", SAM_CASES)
+def test_sam_chain_kernels_match_plain_over_two_segments(cuda_device, groups, nb, channels, n,
+                                                         agc_mode):
+    """K6 (groups None) and K7 (2, 4, 8 channels a block; the channel counts
+    are not multiples of every G) against the plain chain on the route's
+    re-seed schedule, every output and carry, over two threaded segments; the
+    blanker on impulses far above the threshold, one on each segment's last
+    sample."""
+    bank = _sam_bank(channels, agc_mode, noise_blanker=nb)
+    gen = torch.Generator(device=cuda_device).manual_seed(n + channels)
+    xr, xi = _locked(channels, n, gen, cuda_device)
+    if nb:
+        for pos in sorted({n // 5, n // 2 + 3, n - 1}):
+            xr[:, pos] = 8.0
+            xi[:, pos] = 8.0
+    state = bank.init_state()._replace(
+        nb_avg=torch.full((channels,), float(torch.hypot(xr, xi).mean()), device=cuda_device))
+    for _ in range(2):
+        args = bank.chain_args(xr, xi, state)
+        if groups is None:
+            ref = sweep.sweep_sam_chain_plain(*args)
+            before = (sweep.LAUNCHES_SAM, sweep.LAUNCHES_SAM_NB)
+            got = sweep.sweep_sam_chain(*args)
+            torch.cuda.synchronize()
+            assert (sweep.LAUNCHES_SAM, sweep.LAUNCHES_SAM_NB) == (before[0] + (not nb),
+                                                                  before[1] + nb)
+        else:
+            wide = args[:24] + (groups, sam.reseed_schedule(n, 256, wide=True)) + args[-2:]
+            ref = sam_wide.sweep_sam_wide_plain(*wide)
+            before = (sam_wide.LAUNCHES, sam_wide.LAUNCHES_NB)
+            got = sam_wide.sweep_sam_wide(*wide)
+            torch.cuda.synchronize()
+            assert (sam_wide.LAUNCHES, sam_wide.LAUNCHES_NB) == (before[0] + (not nb),
+                                                                before[1] + nb)
+        assert len(got) == len(ref) == (8 if nb else 6)
+        _close(got[:5] + got[6:], ref[:5] + ref[6:])
+        _close(got[5][1:], ref[5][1:])
+        _phase_close(got[5][0], ref[5][0])
+        if nb:
+            assert float(got[7][:, -1].max()) == 0.0
+        out, state = bank.process_planar(xr, xi, state)
+        if groups is None:   # the bank's route is the kernel just launched
+            assert torch.equal(out["audio_l"], got[0])
+
+
+@pytest.mark.parametrize("fold, channels, counts", [
+    (False, 8, (1, 1, 0, 0, 0, 0)),      # K5 + K2b
+    (True, 8, (0, 0, 1, 0, 0, 0)),       # K6
+    (True, 200, (0, 0, 0, 0, 1, 0)),     # K7, G = 2
+])
+def test_sam_bank_routes_launch_once_per_segment(cuda_device, fold, channels, counts):
+    """Each FusedSAMBank route: its kernels, one launch each per segment and no
+    other, and the port's ReceiverBank(SAM) within 2e-3."""
+    bank = _sam_bank(channels, fold=fold)
+    ref_bank = ReceiverBank(bank.config, [SAM_CENTER + 1_000.0 * k for k in range(channels)])
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    xr, xi = _locked(channels, 4096, gen, cuda_device)
+    st, st_ref = bank.init_state(), ref_bank.init_state()
+    for _ in range(2):
+        before = _sam_counts()
+        out, st = bank.process_planar(xr, xi, st)
+        torch.cuda.synchronize()
+        assert tuple(a - b for a, b in zip(_sam_counts(), before)) == counts
         want, st_ref = ref_bank.process_planar(xr, xi, st_ref)
         for key in ("audio_l", "audio_r"):
             np.testing.assert_allclose(out[key].cpu().numpy(), want[key].cpu().numpy(),

@@ -40,6 +40,8 @@ def test_port_has_modules():
             "radiodsp_sdr_rx_tpu_torch/ops/lms_bank.py",
             "radiodsp_sdr_rx_tpu_torch/ops/spectral_sub.py",
             "radiodsp_sdr_rx_tpu_torch/ops/sweep_spec.py",
+            "radiodsp_sdr_rx_tpu_torch/ops/sam.py",
+            "radiodsp_sdr_rx_tpu_torch/ops/sam_wide.py",
             "radiodsp_sdr_rx_tpu_torch/models/receiver.py",
             "radiodsp_sdr_rx_tpu_torch/models/fused.py"} <= names
 

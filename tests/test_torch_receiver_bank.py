@@ -11,8 +11,8 @@ run in another order, and the AGC gain amplifies that). The measured max is
 (3.05e-5) with ``quantize_output``, where a sample that rounding puts on
 the other side of a truncation boundary lands one step away.
 The planar stages are held to their JAX functions at the same bound, the
-q15 round trip bit for bit. SAM and the conv-first variants raise
-NotImplementedError.
+q15 round trip bit for bit. The conv-first variants raise
+NotImplementedError; SAM is held in tests/test_torch_sam.py.
 """
 
 import functools
@@ -259,7 +259,7 @@ def test_q15_round_trip_matches_jax_bit_for_bit():
 
 
 @pytest.mark.parametrize("cfg_kw", [
-    {"mode": tcfg.DemodMode.SAM},
+    {"fft_length": 1024},
     {"conv_first": True},
     {"conv_first": True, "conv_inline_denoise": True},
     {"fft_length": 512},
