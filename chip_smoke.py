@@ -28,6 +28,14 @@ banks against the port's reference chain, and times them:
     stage plain PyTorch, beside ``ReceiverBank`` at config4 (no kernel); at
     config7 ``fold=False`` on sweep_chain_ssb_mono + lms_nr, and at config3
     ``fold=False`` on mix_demod + lms_nr + pbt, 1 launch each per segment;
+  - the folded NR bank on the lanes kernel's NR instantiations, 1
+    launch/segment: bench_full.py's config3 (CW + notch, lanes_ssb_notch),
+    config7 (USB + DNR2, lanes_ssb_denoise) and config8 (AM + DNR2,
+    lanes_am_denoise) at 128 channels x 2^19, and the other fourteen
+    routes (every demod x NR x blanker) at 128 channels x 2^17; each kernel
+    against its plain chain on a prefix (LMS_PREFIX samples, SAM_PREFIX
+    with SAM), each bank against ``ReceiverBank``, configs 3 and 7 folded
+    against staged;
   - cross-path parity: the fused SSB, AM and NR banks against
     ``ReceiverBank`` on the same input, at the docs/CHIP_PARITY.md bound;
   - the SAM bank, ``FusedSAMBank``, on locked-carrier scenes (every channel
@@ -75,6 +83,7 @@ N_CHANNELS = 128     # bench.py:38
 N_SAM = 128          # bench_full.py config6_sam_128ch
 N_SAM_WIDE = 1024    # bench_full.py config10_sam_1024ch
 SEG_WIDE = 1 << 17   # config10's segment (bench_full.py seg_override)
+SEG_NR = 1 << 17     # the NR routes beside configs 3, 7 and 8 (a cut, PERF.md section 4)
 SAM_PREFIX = 2048    # samples of the per-sample plain PLL held to the kernels
 N_AM = 64            # bench_full.py config1_am_64ch
 N_SPEC = 64          # bench_full.py config4_spec_nr_64ch
@@ -93,7 +102,8 @@ SPEC_FLOPS_PER_SAMPLE = 2 * (512 * 128 + 256 * 256 + 512 * 512 + 512 * 256) // 1
 # the PLL step: the two products, the atan2 (a divide counted as one), the
 # loop update, the base oscillator's two Horner chains, the rotation
 PLL_FLOPS_PER_SAMPLE = 72
-LIBRARIES = ("sweep_chain", "staged", "lms", "sweep_spec", "sam", "sam_wide")
+LIBRARIES = ("sweep_chain", "staged", "lms", "sweep_spec", "sam", "sam_wide", "sweep_denoise",
+             "sweep_notch")
 
 
 def say(msg: str) -> None:
@@ -151,24 +161,34 @@ def tone_scene(c, n, gen):
     return 0.3 * torch.sin(2 * torch.pi * f * t) + noise((c, n), gen)
 
 
+def kernel_of(demod: int, nb: bool, nr: int, stereo: bool) -> str:
+    """The reported name of an instantiation of csrc/sweep_chain.cuh's kernel."""
+    d = ("ssb", "am", "sam")[demod]
+    if nr == 0:
+        return f"sweep_chain_{d}{'_nb' if nb else ''}{'' if stereo else '_mono'}"
+    if (d, nr, nb) == ("ssb", 3, False):
+        return "sweep_spec_chain"
+    return f"lanes_{d}_{('denoise', 'notch', 'spectral')[nr - 1]}{'_nb' if nb else ''}"
+
+
 def ptxas_summary(log: str):
     """(kernel, registers, stack and spills) per entry function of a build
-    log, the sweep kernel's instantiations (demod x blanker x R output) and
-    the wide SAM kernel's (channels a block x blanker) by entry point."""
+    log, the chain kernel's instantiations (demod x blanker x NR stage x R
+    output) and the wide SAM kernel's (channels a block x blanker) by entry
+    point."""
     out = []
     for block in log.split("Compiling entry function")[1:]:
         mangled = block.split("'")[1]
         if "sweep_chain_kernel" in mangled:
-            demod, nb, stereo = re.search(r"DemodE(\d)ELb(\d)ELb(\d)E", mangled).groups()
-            kname = "sweep_chain_" + ("ssb", "am", "sam")[int(demod)] + (
-                "_nb" if nb == "1" else "") + ("" if stereo == "1" else "_mono")
+            demod, nb, nr, stereo = re.search(r"DemodE(\d)ELb(\d)EL\w*?NrE(\d)ELb(\d)E",
+                                              mangled).groups()
+            kname = kernel_of(int(demod), nb == "1", int(nr), stereo == "1")
         elif "sam_wide_kernel" in mangled:
             g, nb = re.search(r"sam_wide_kernelILi(\d)ELb(\d)E", mangled).groups()
             kname = f"sam_wide{'_nb' if nb == '1' else ''} (G={g})"
         else:
             kname = next(k for fn, k in (("mix_demod_kernel", "mix_demod"), ("pbt_kernel", "pbt"),
                                          ("lms_kernel", "lms_nr"),
-                                         ("sweep_spec_kernel", "sweep_spec_chain"),
                                          ("sam_pll_kernel", "sam_pll"))
                          if fn in mangled)
         lines = block.splitlines()
@@ -177,15 +197,15 @@ def ptxas_summary(log: str):
     return out
 
 
-def floor_margins(spec_args, sweep, sweep_spec):
-    """Per 128-sample frame (C, rows) of the plain K4 on these arguments: the
-    number of bins within FLIP_MARGIN of the floor, and the floor."""
-    (xr, xi, inc, ph, w_ssb, w_pbt, w_fwd, _, tr, ti, atail, env0, nfl0, stl, st_r,
-     level, release, target, max_gain, enabled, _, in_gain, balance) = spec_args
-    l, r, _, _ = sweep.sweep_full_chain_plain(xr, xi, inc, ph, w_ssb, w_pbt, tr, ti, atail,
-                                              env0, release, target, max_gain, enabled, 1.0,
-                                              in_gain, balance)
-    _, _, mag, nfloor = sweep_spec.spectral_floor(l, r, w_fwd, nfl0, stl, st_r, level)
+def floor_margins(args, sweep):
+    """Per 128-sample frame (C, rows) of the plain spectral chain on these
+    ``lanes.sweep_lanes_chain`` arguments: the number of bins within
+    FLIP_MARGIN of the floor, and the floor."""
+    *chain, dc0, sam_a, _, spec = args
+    chain[14] = 1.0   # the spectral stage sees [l | r] before the output gain
+    l, r = sweep.chain_plain(*chain, dc0, sam=sam_a)[:2]
+    _, _, mag, nfloor = sweep.spectral_floor(l, r, spec.w_fwd, spec.nfloor0, spec.tail_l,
+                                             spec.tail_r, spec.nr_level)
     nf = nfloor.clamp(min=0.0)
     return ((mag - nf[..., None]).abs() <= FLIP_MARGIN * nf[..., None]).sum(-1), nf
 
@@ -258,7 +278,7 @@ def main() -> None:
         FusedAMBank, FusedNRBank, FusedSAMBank, FusedSSBBank)
     from radiodsp_sdr_rx_tpu_torch.models.receiver import ReceiverBank
     from radiodsp_sdr_rx_tpu_torch.ops import (
-        agc, iir, lms, lms_bank, planar, sam, sam_wide, staged, sweep, sweep_spec)
+        agc, iir, lanes, lms, lms_bank, planar, sam, sam_wide, staged, sweep, sweep_spec)
     from radiodsp_sdr_rx_tpu_torch.utils import build
 
     torch.backends.cuda.matmul.allow_tf32 = False   # the plain versions in full fp32
@@ -272,6 +292,7 @@ def main() -> None:
         sweep_spec.LAUNCHES = 0
         sam.LAUNCHES = sweep.LAUNCHES_SAM = sweep.LAUNCHES_SAM_NB = 0
         sam_wide.LAUNCHES = sam_wide.LAUNCHES_NB = 0
+        lanes.LAUNCHES.update(dict.fromkeys(lanes.LAUNCHES, 0))
 
     def counts() -> dict:
         return {"sweep_chain_ssb": sweep.LAUNCHES, "sweep_chain_ssb_nb": sweep.LAUNCHES_NB,
@@ -280,7 +301,8 @@ def main() -> None:
                 "lms_nr": lms_bank.LAUNCHES, "sweep_chain_ssb_mono": sweep.LAUNCHES_MONO,
                 "sweep_spec_chain": sweep_spec.LAUNCHES, "sam_pll": sam.LAUNCHES,
                 "sweep_chain_sam": sweep.LAUNCHES_SAM, "sweep_chain_sam_nb": sweep.LAUNCHES_SAM_NB,
-                "sam_wide": sam_wide.LAUNCHES, "sam_wide_nb": sam_wide.LAUNCHES_NB}
+                "sam_wide": sam_wide.LAUNCHES, "sam_wide_nb": sam_wide.LAUNCHES_NB,
+                **lanes.LAUNCHES}
 
     def only(**launched) -> dict:
         """The counts of a path that launched these kernels and no other."""
@@ -436,7 +458,7 @@ def main() -> None:
             xr[:, 3000:3400] *= 30.0
             args = small_nr.spec_args(xr, xi, state)
             ref = sweep_spec.sweep_spec_chain_plain(*args)
-            near, nf = floor_margins(args, sweep, sweep_spec)
+            near, nf = floor_margins(sweep_spec.lanes_args(*args), sweep)
             out, state = small_nr.process_planar(xr, xi, state)
             torch.cuda.synchronize()
             d_lr, n_near, n_moved, ok = spectral_diff((out["audio_l"], out["audio_r"]), ref[:2],
@@ -647,7 +669,7 @@ def main() -> None:
           f"launches and no other, counted {launched}")
     args = bank4.spec_args(xr4, xi4, s4_1)
     ref = sweep_spec.sweep_spec_chain_plain(*args)
-    near, nf = floor_margins(args, sweep, sweep_spec)
+    near, nf = floor_margins(sweep_spec.lanes_args(*args), sweep)
     d_lr, n_near, n_moved, ok = spectral_diff((out_1["audio_l"], out_1["audio_r"]), ref[:2],
                                               near, nf, bank4.params.output_gain, TOL)
     d = max(d_lr, max_diff((s4_2.audio_tail, s4_2.agc_env, s4_2.nfloor, s4_2.spec_tail_l,
@@ -686,7 +708,8 @@ def main() -> None:
     # the bins near the floor found by the plain K4 on the same segments
     st, spec_near = bank4.init_state(), []
     for _ in range(2):
-        spec_near.append(floor_margins(bank4.spec_args(xr4, xi4, st), sweep, sweep_spec))
+        spec_near.append(floor_margins(sweep_spec.lanes_args(*bank4.spec_args(xr4, xi4, st)),
+                                       sweep))
         _, st = bank4.process_planar(xr4, xi4, st)
     parity = {}
     for label, fused_bank, ref_bank, x_r, x_i, near in (
@@ -918,6 +941,175 @@ def main() -> None:
               f"{TOL_PARITY:g}")
     del out_f, out_r
 
+    # 4i. the folded NR banks on the lanes kernel's NR instantiations (K6):
+    # bench_full.py config3 (CW_NARROW + notch), config7 (USB + DNR2) and
+    # config8 (AM + DNR2) at full width, 128 ch x 2^19, SEGMENTS checked and
+    # REPS timed; the other fourteen routes at 128 ch x SEG_NR (a cut of the
+    # segment, PERF.md section 4), two threaded segments. The plain LMS and
+    # PLL are host-bound per-sample loops, so each kernel is held to its plain
+    # chain on a prefix (LMS_PREFIX samples, SAM_PREFIX with SAM; the whole
+    # segment for AM and SSB spectral): as two threaded segments of half the
+    # prefix, every carry compared, and as the full run's segment 1 on its
+    # first samples (the chain is causal). Spectral NR is compared frame by
+    # frame (spectral_diff). Each bank against the port's ReceiverBank (SAM on
+    # the prefix, the exact PLL being per-sample plain PyTorch)
+    cfg8 = cfg_am.with_(agc=AGCMode.MEDIUM, nr=NRMode.DNR2)
+    freqs_c = freqs10[:N_CHANNELS]   # 7.05 MHz + k kHz, the AM and SAM routes' channels
+    nr_ends, nr_plain_prefix = {}, {}
+
+    def lanes_diff(out, st, ref, c, out_gain, near=None):
+        """Max |kernel - plain| over a segment's audio (frame by frame for
+        spectral NR, with near = floor_margins) and, with st, every carry the
+        plain version returns (the PLL phase wrap-aware); and whether every
+        frame is within its flip bound."""
+        got = [out["audio_l"]] + ([out["audio_r"]] if ref.audio_r is not None else [])
+        want = [ref.audio_l] + ([ref.audio_r] if ref.audio_r is not None else [])
+        ok = True
+        if near is None:
+            d = max_diff(got, want)
+        else:
+            d, _, _, ok = spectral_diff(got, want, *near, out_gain, TOL)
+        if st is None:
+            return d, ok
+        pairs = [(st.audio_tail, ref.audio_tail), (st.agc_env, ref.agc_env)]
+        pairs += [(st.dc, ref.dc)] if ref.dc is not None else []
+        pairs += [(st.pll[1, :c], ref.pll[1])] if ref.pll is not None else []
+        pairs += [(getattr(st, k)[:c], getattr(ref, k)) for k in (
+            "lms_weights", "lms_window", "lms_delay") if getattr(ref, k) is not None]
+        pairs += [(getattr(st, k), getattr(ref, k)) for k in (
+            "nfloor", "spec_tail_l", "spec_tail_r", "nb_avg", "nb_mask")
+            if getattr(ref, k) is not None]
+        d = max(d, max_diff(*zip(*pairs)))
+        if ref.pll is not None:
+            d = max(d, phase_diff(st.pll[0, :c], ref.pll[0]))
+        return d, ok
+
+    def nr_route_checks(bank, xr, xi, state0, label, seg_len):
+        """Drive the route (launch counts: 1 of its kernel per segment and no
+        other), then hold the kernel to the plain chain on the prefix, and the
+        bank to ReceiverBank. Returns the state after the drive."""
+        kname, c = bank.kernel, xr.shape[0]
+        spectral = bank.nr == "spectral"
+        prefix = SAM_PREFIX if bank.demod == "sam" else seg_len if spectral else LMS_PREFIX
+        tol = TOL if spectral else TOL_LMS
+        pre = prefix // 2
+        st, d_two, ok = state0, 0.0, True
+        for h in range(2):
+            x_r, x_i = xr[:, h * pre:(h + 1) * pre].contiguous(), xi[:, h * pre:(h + 1) * pre].contiguous()
+            args = bank.lanes_args(x_r, x_i, st)
+            ref = lanes.sweep_lanes_chain_plain(*args)
+            near = floor_margins(args, sweep) if spectral else None
+            out, st = bank.process_planar(x_r, x_i, st)
+            torch.cuda.synchronize()
+            d, seg_ok = lanes_diff(out, st, ref, c, bank.params.output_gain, near)
+            d_two, ok = max(d_two, d), ok and seg_ok
+        launched, s_1, out_1, _, s_end = drive(bank, xr, xi, state0, label, channels=c,
+                                               seg_len=seg_len)
+        check(launched == only(**{kname: SEGMENTS}), f"expected {SEGMENTS} {kname} launches "
+              f"and no other, counted {launched}")
+        args = bank.lanes_args(xr[:, :prefix].contiguous(), xi[:, :prefix].contiguous(), s_1)
+        ref, ms = timed(lambda: lanes.sweep_lanes_chain_plain(*args))
+        nr_plain_prefix[kname] = (ms, prefix)
+        near = floor_margins(args, sweep) if spectral else None
+        d_full, seg_ok = lanes_diff({k: v[:, :prefix] for k, v in out_1.items()}, None, ref, c,
+                                    bank.params.output_gain, near)
+        ok = ok and seg_ok
+        same_r = (out_1["audio_r"] is out_1["audio_l"]) == (bank.nr == "denoise")
+        say(f"check {kname} full width ({c} ch x {seg_len}), segment 1: max |kernel - plain| "
+            f"over the audio on the first {prefix} samples = {d_full:.3e}; over the audio and "
+            f"every carry, {prefix} samples as two threaded segments = {d_two:.3e} (tolerance "
+            f"{tol:g}{', frame by frame, all within the flip bound: ' + str(ok) if spectral else ''}"
+            f"); R {'is L' if bank.nr == 'denoise' else 'its own'}: {same_r}; rms(L) = "
+            f"{float(out_1['audio_l'].square().mean().sqrt()):.4e}")
+        check(max(d_full, d_two) <= tol and ok and same_r, f"{kname} disagrees with the plain "
+              f"version: {max(d_full, d_two):.3e} > {tol:g}, a frame outside its flip bound, "
+              f"or R")
+        if bank.config.noise_blanker:
+            check(float(s_end.nb_mask[:, -1].max()) == 0.0,
+                  "the impulse on the segment's last sample was not blanked")
+        err[kname] = max(err[kname], d_full, d_two)
+        # the bank against ReceiverBank: two full segments, SAM the prefix as two
+        rb = ReceiverBank(bank.config, bank_freqs[kname])
+        st_f, st_r = state0, rb.init_state()._replace(nb_avg=state0.nb_avg.clone())
+        span = pre if bank.demod == "sam" else seg_len
+        worst, ok = 0.0, True
+        for h in range(2):
+            x_r = xr[:, h * span:(h + 1) * span].contiguous() if span < seg_len else xr
+            x_i = xi[:, h * span:(h + 1) * span].contiguous() if span < seg_len else xi
+            near = floor_margins(bank.lanes_args(x_r, x_i, st_f), sweep) if spectral else None
+            out_f, st_f = bank.process_planar(x_r, x_i, st_f)
+            out_r, st_r = rb.process_planar(x_r, x_i, st_r)
+            got, want = (out_f["audio_l"], out_f["audio_r"]), (out_r["audio_l"], out_r["audio_r"])
+            if near is None:
+                worst = max(worst, max_diff(got, want))
+            else:
+                d, _, _, seg_ok = spectral_diff(got, want, *near, bank.params.output_gain,
+                                                TOL_PARITY)
+                worst, ok = max(worst, d), ok and seg_ok
+        parity[f"{kname} vs ReceiverBank"] = worst
+        say(f"parity FusedNRBank {label} ({kname}) vs ReceiverBank, {c} ch x "
+            f"{span if span < seg_len else seg_len}, 2 threaded segments: max abs diff over "
+            f"L, R = {worst:.3e} (bound {TOL_PARITY:g}{', frame by frame' if spectral else ''})")
+        check(worst <= TOL_PARITY and ok, f"{kname}: {worst:.3e} > {TOL_PARITY:g}")
+        nr_ends[kname] = (bank, xr, xi, s_end)
+        return s_end
+
+    # the full-width configurations on the main path's noise (config3, config7)
+    # and the AM path's kind (config8)
+    bank_freqs = {}
+    xr8, xi8 = noise((N_CHANNELS, SEG_LEN), gen), noise((N_CHANNELS, SEG_LEN), gen)
+    for label, c_nr, fq, x_r, x_i in (("config3 notch", cfg3, freqs3, xr, xi),
+                                      ("config7 DNR2", cfg7, freqs, xr, xi),
+                                      ("config8 AM + DNR2", cfg8, freqs_c, xr8, xi8)):
+        b = FusedNRBank(c_nr, fq)
+        bank_freqs[b.kernel] = fq
+        nr_route_checks(b, x_r, x_i, b.init_state(), f"{label} fold=True", SEG_LEN)
+
+    # folded against staged over two full segments: the same recurrences
+    for label, kname, staged_label in (("config3 notch", "lanes_ssb_notch", "config3 notch fold=False"),
+                                       ("config7 DNR2", "lanes_ssb_denoise", "config7 DNR2 fold=False")):
+        b_f, b_s = nr_ends[kname][0], ends[staged_label][0]
+        s_f, s_s, worst = b_f.init_state(), b_s.init_state(), 0.0
+        for _ in range(2):
+            o_f, s_f = b_f.process_planar(xr, xi, s_f)
+            o_s, s_s = b_s.process_planar(xr, xi, s_s)
+            worst = max(worst, max_diff((o_f["audio_l"], o_f["audio_r"]),
+                                        (o_s["audio_l"], o_s["audio_r"])))
+        say(f"parity {label} fold=True ({kname}) vs fold=False, {N_CHANNELS} ch x {SEG_LEN}, "
+            f"2 threaded segments: max abs diff over L, R = {worst:.3e} (bound {TOL_BACKENDS:g})")
+        check(worst <= TOL_BACKENDS, f"{label}: folded and staged disagree: {worst:.3e}")
+        del o_f, o_s
+
+    # the other fourteen routes at 128 ch x SEG_NR: the blanker on the decisive
+    # impulse scene, SAM on locked carriers, AM and SSB on noise
+    xr_nrb, xi_nrb, mean_nrb = nb_scene(N_CHANNELS, SEG_NR, gen)
+    xr_s, xi_s, _ = locked_scene(N_CHANNELS, SEG_NR, gen, nco10[:N_CHANNELS])
+    xr_snb, xi_snb, mean_snb = locked_scene(N_CHANNELS, SEG_NR, gen, nco10[:N_CHANNELS],
+                                            impulses=True)
+    xr_n, xi_n = xr8[:, :SEG_NR].contiguous(), xi8[:, :SEG_NR].contiguous()
+    short = [(cfg7.with_(nr=NRMode.DNR2), freqs), (cfg3, freqs3), (cfg.with_(nr=NRMode.SPEC2), freqs)]
+    short = [(c.with_(noise_blanker=True), fq) for c, fq in short]
+    for mode_cfg in (cfg8.with_(mode=DemodMode.AM), cfg8.with_(mode=DemodMode.SAM)):
+        for nr_mode in (NRMode.DNR2, NRMode.NOTCH, NRMode.SPEC2):
+            for nb in (False, True):
+                short.append((mode_cfg.with_(nr=nr_mode, noise_blanker=nb), freqs_c))
+    for c_nr, fq in short:
+        b = FusedNRBank(c_nr, fq)
+        if b.kernel in nr_ends:
+            continue
+        bank_freqs[b.kernel] = fq
+        nb = c_nr.noise_blanker
+        if b.demod == "sam":
+            x_r, x_i, mean = (xr_snb, xi_snb, mean_snb) if nb else (xr_s, xi_s, None)
+        else:
+            x_r, x_i, mean = (xr_nrb, xi_nrb, mean_nrb) if nb else (xr_n, xi_n, None)
+        st0 = b.init_state()
+        if nb:
+            st0 = st0._replace(nb_avg=torch.full((N_CHANNELS,), mean, device="cuda"))
+        nr_route_checks(b, x_r, x_i, st0, f"{c_nr.mode.name} + {c_nr.nr.name}"
+                        f"{' + blanker' if nb else ''} fold=True", SEG_NR)
+    check(sorted(nr_ends) == sorted(lanes.KERNELS), f"routes driven {sorted(nr_ends)}")
+
     # 5. timing (CUDA events, after warm-up)
     samples = N_CHANNELS * SEG_LEN
     rows = samples // 128
@@ -1110,6 +1302,54 @@ def main() -> None:
             samples=samples_k, steps=n)
         path_ms[label] = time_ms(lambda: b.process_planar(x_r, x_i, st), REPS)
     del args, sam_ends, xr6, xi6, xr6nb, xi6nb, xr10, xi10, xr10nb, xi10nb
+    # the NR chain kernels: configs 3, 7 and 8 at full width, the other routes
+    # at 128 ch x SEG_NR. plain_ms scales the plain chain's time on its checked
+    # prefix (the per-sample LMS and PLL loops are host-bound) to the segment;
+    # the library yardstick is the products the kernel computes, as fp32
+    # torch.matmul; the bound adds the LMS's and the PLL's operations to the
+    # products'
+    lib_nr_ms = {}
+    w_fwd, w_inv = bank4.w_spec
+    for kname, (b, x_r, x_i, st) in nr_ends.items():
+        c, n = x_r.shape
+        samples_k, rows_k = c * n, c * n // 128
+        dsb, spectral, denoise = b.demod != "ssb", b.nr == "spectral", b.nr == "denoise"
+        w_band = b.params.w_sideband if dsb else b.params.w_ssb
+        w_p = b.params.w_pbt[:, :128].contiguous() if denoise else b.params.w_pbt
+        key = (n, dsb, denoise, spectral)
+        if key not in lib_nr_ms:
+            f1 = torch.randn((rows_k, 512), generator=gen, device="cuda")
+            f2 = torch.randn((rows_k, 256), generator=gen, device="cuda")
+            prods = [(f1, w_band), (f2, w_p)] + ([(f1, w_fwd), (f1, w_inv)] if spectral else [])
+            lib_nr_ms[key] = time_ms(lambda: [torch.matmul(a, w) for a, w in prods], REPS)
+            del f1, f2, prods
+        per_sample = ((6 if b.demod == "am" else 0)
+                      + (PLL_FLOPS_PER_SAMPLE + DC_FLOPS_PER_SAMPLE if b.demod == "sam" else 0)
+                      + (NB_FLOPS_PER_SAMPLE if b.config.noise_blanker else 0)
+                      + (0 if spectral else LMS_FLOPS_PER_SAMPLE))
+        flops = (rows_k * 2 * (512 * w_band.shape[1] + 256 * w_p.shape[1])
+                 + (rows_k * 2 * (512 * 512 + 512 * 256) if spectral else 0)
+                 + per_sample * samples_k)
+        nbytes = ((8 + (4 if denoise else 8)) * samples_k
+                  + 4 * (512 * w_band.shape[1] + 256 * w_p.shape[1])
+                  + (4 * (512 * 512 + 512 * 256) if spectral else 0)
+                  + c * (2 * 8 + 4 * 128 * 4 + 2 * 4)
+                  + (c * 2 * (96 + 96 + 128) * 4 if not spectral else c * 2 * (4 + 2 * 128 * 4))
+                  + (c * 2 * 2 * 4 if dsb else 0) + (c * 2 * 2 * 4 if b.demod == "sam" else 0)
+                  + (c * (2 * 4 + 2 * 128 * 4) if b.config.noise_blanker else 0))
+        b_ms, b_by = bound(flops, nbytes)
+        args = b.lanes_args(x_r, x_i, st)
+        plain_ms, prefix = nr_plain_prefix[kname]
+        timing[kname] = dict(
+            ms=time_ms(lambda: lanes.sweep_lanes_chain(*args), REPS),
+            plain_ms=plain_ms * (n / prefix), bound_ms=b_ms, bound_by=b_by,
+            library_ms=lib_nr_ms[key], flops=flops, samples=samples_k,
+            **({"plain_from": prefix} if prefix < n else {}),
+            **({} if spectral and b.demod != "sam" else {"steps": n}))
+        path_ms[f"NR {b.config.mode.name} + {b.config.nr.name}"
+                f"{' + blanker' if b.config.noise_blanker else ''} fold=True ({c} ch x {n})"] = \
+            time_ms(lambda: b.process_planar(x_r, x_i, st), REPS)
+    del args, nr_ends
     clocks = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm", "--format=csv,noheader,nounits"],
         capture_output=True, text=True, timeout=60, check=True).stdout.split("\n")[0]
@@ -1119,7 +1359,7 @@ def main() -> None:
         library = "none (no single PyTorch call)" if tm["library_ms"] is None else \
             f"{tm['library_ms']:.3f} ms"
         step = "" if "steps" not in tm else (
-            f", PLL step {tm['ms'] * 1e6 / tm['steps']:.2f} ns = "
+            f", {tm['ms'] * 1e6 / tm['steps']:.2f} ns per dependent step = "
             f"{tm['ms'] * 1e-3 / tm['steps'] * sm_max * 1e6:.1f} cycles at {sm_max:.0f} MHz")
         say(f"timing {kname}: kernel {tm['ms']:.3f} ms/segment "
             f"({tm['samples'] / tm['ms'] / 1e3:.1f} "
@@ -1158,7 +1398,9 @@ def main() -> None:
                "sweep_chain_sam": ("sweep_chain.cu", "pallas_chain_lanes.py:98"),
                "sweep_chain_sam_nb": ("sweep_chain.cu", "pallas_chain_lanes.py:98"),
                "sam_wide": ("sam_wide.cu", "pallas_sam_wide.py:49"),
-               "sam_wide_nb": ("sam_wide.cu", "pallas_sam_wide.py:49")}
+               "sam_wide_nb": ("sam_wide.cu", "pallas_sam_wide.py:49"),
+               **{k: (f"{sweep.LIBRARIES[k.split('_')[2]]}.cu", "pallas_chain_lanes.py:98")
+                  for k in lanes.KERNELS}}
     print(json.dumps({"kernels": [{
         "name": kname, "route": "cuda",
         "source": f"radiodsp_sdr_rx_tpu_torch/csrc/{src}",

@@ -23,32 +23,21 @@
 // update) times 2^19.
 //
 // What the design does about it: one warp per channel and one block per
-// warp, so each channel's chain runs on an SM sub-partition of its own. Lane
-// l holds the weights l, l+32 and l+64 in registers. The inputs sit in a
-// ring of 128 floats in shared memory (x[m] at slot m mod 128), filled 32 at
-// a time: at the start of each 32-sample tile every lane stores one input,
-// which overwrites only samples older than any window of the tile, so the
-// steps themselves need no barrier and their window loads depend on nothing
-// the chain computes. Dot product and energy reduce together in one float2
-// butterfly (__shfl_xor_sync), after which every lane holds the same y and
-// energy (an xor butterfly adds each pair in both lanes, and a+b == b+a).
-// Only the dot, the butterfly, e, the scale and the update are on the chain:
-// the energy and its reciprocal depend on the input alone. Desired samples
-// and outputs move 32 at a time, coalesced, the former broadcast with
-// __shfl_sync. The segment is walked in one launch; the delay line's next
-// state (the segment's last 128 inputs) is the wrapper's slice.
+// warp, so each channel's chain runs on an SM sub-partition of its own. The
+// step itself (the weights in registers, the 128-float input ring, the float2
+// butterfly) is lms_step.cuh's, which the folded chains (sweep_chain.cuh)
+// run too. Desired samples and outputs move 32 at a time, coalesced, the
+// former broadcast with __shfl_sync. The segment is walked in one launch; the
+// delay line's next state (the segment's last 128 inputs) is the wrapper's
+// slice.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "lms_step.cuh"
 
 namespace {
 
-constexpr int kTaps = 96;               // ops/lms.LMS_TAPS
-constexpr int kDelay = 128;             // ops/lms.LMS_DELAY
-constexpr int kPer = kTaps / 32;        // weights per lane
-constexpr int kRing = 128;              // input ring, a power of two >= kTaps + 32
-constexpr float kEps = 1.1920929e-7f;   // CMSIS DELTA of arm_lms_norm_f32
-constexpr unsigned kFull = 0xffffffffu;
+using lms::kDelay;
+using lms::kRing;
+using lms::kTaps;
 
 __global__ void __launch_bounds__(32) lms_kernel(
     const float* __restrict__ x, const float* __restrict__ w_in,
@@ -62,14 +51,8 @@ __global__ void __launch_bounds__(32) lms_kernel(
   float* oc = out + (size_t)c * n;
   const bool fst = *first != 0;
 
-  float w[kPer];
-#pragma unroll
-  for (int k = 0; k < kPer; ++k) {
-    const int j = lane + 32 * k;
-    w[k] = w_in[c * kTaps + j];
-    ring[(j - kTaps) & (kRing - 1)] = win_in[c * kTaps + j];   // win[j] = x[j - 96]
-  }
-
+  lms::Warp lw;
+  lw.load(w_in + c * kTaps, win_in + c * kTaps, ring);
   for (int t0 = 0; t0 < n; t0 += 32) {
     const int m = t0 + lane;
     float dv = 0.f;
@@ -80,42 +63,11 @@ __global__ void __launch_bounds__(32) lms_kernel(
       ring[m & (kRing - 1)] = xv;   // replaces x[m - 128], older than every window here
     }
     __syncwarp();
-    const int steps = min(32, n - t0);
-    float o = 0.f;
-#pragma unroll 8
-    for (int s = 0; s < steps; ++s) {
-      const int t = t0 + s;
-      // win[j] = x[t - 95 + j]
-      float v[kPer];
-#pragma unroll
-      for (int k = 0; k < kPer; ++k) v[k] = ring[(t - kTaps + 1 + lane + 32 * k) & (kRing - 1)];
-      const float dn = __shfl_sync(kFull, dv, s);
-      float y = w[0] * v[0], q = v[0] * v[0];
-#pragma unroll
-      for (int k = 1; k < kPer; ++k) {
-        y = fmaf(w[k], v[k], y);
-        q = fmaf(v[k], v[k], q);
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        y += __shfl_xor_sync(kFull, y, off);
-        q += __shfl_xor_sync(kFull, q, off);
-      }
-      const float e = dn - y;
-      const float g = (mu * e) * __frcp_rn(q + kEps);
-#pragma unroll
-      for (int k = 0; k < kPer; ++k) w[k] = fmaf(g, v[k], w[k]);
-      if (lane == s) o = notch ? e : y;
-    }
+    const float o = lw.tile(ring, t0, min(32, n - t0), dv, mu, notch);
     if (m < n) oc[m] = o;
   }
   __syncwarp();
-#pragma unroll
-  for (int k = 0; k < kPer; ++k) {
-    const int j = lane + 32 * k;
-    w_out[c * kTaps + j] = w[k];
-    win_out[c * kTaps + j] = ring[(n - kTaps + j) & (kRing - 1)];
-  }
+  lw.store(w_out + c * kTaps, win_out + c * kTaps, ring, n);
 }
 
 }  // namespace

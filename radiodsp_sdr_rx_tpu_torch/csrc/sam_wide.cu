@@ -32,6 +32,7 @@
 // and each thread re-runs its segment from the true carry. Channels past the
 // end read zeros and store nothing.
 
+#include "chain_args.cuh"
 #include "chain_common.cuh"
 #include "sam_pll.cuh"
 
@@ -348,78 +349,39 @@ __global__ void __launch_bounds__(kThreads, 1) sam_wide_kernel(
 }
 
 template <int G, bool kNB>
-cudaError_t launch(const float* xr, const float* xi, const long long* inc,
-                   const long long* phase0, const float* w_sb, const float* w_pbt,
-                   const float* tail_r, const float* tail_i, const float* atail_in,
-                   const float* env0, const float* dc0, const float* pll0, float* out_l,
-                   float* out_r, float* atail_out, float* env_out, float* dc_out,
-                   float* pll_out, const float* nb_avg0, const float* nb_mask0,
-                   float* nb_avg_out, float* nb_mask_out, int channels, int n,
-                   double release, float target, float max_gain, int agc_enabled,
-                   float out_gain, float g_i, float g_q, double nb_a, float nb_thresh,
-                   PllGains gains, Reseed reseed, cudaStream_t stream) {
+cudaError_t launch(const ChainArgs& a, int channels, cudaStream_t stream) {
   const int smem = smem_floats<G>(kNB) * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(sam_wide_kernel<G, kNB>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   sam_wide_kernel<G, kNB><<<(channels + G - 1) / G, kThreads, smem, stream>>>(
-      xr, xi, inc, phase0, w_sb, w_pbt, tail_r, tail_i, atail_in, env0, dc0, pll0, out_l,
-      out_r, atail_out, env_out, dc_out, pll_out, channels, n, release, target, max_gain,
-      agc_enabled, out_gain, g_i, g_q, nb_avg0, nb_mask0, nb_avg_out, nb_mask_out, nb_a,
-      nb_thresh, gains, reseed);
+      a.xr, a.xi, a.inc, a.phase0, a.w_band, a.w_pbt, a.tail_r, a.tail_i, a.atail_in, a.env0,
+      a.dc0, a.pll0, a.out_l, a.out_r, a.atail_out, a.env_out, a.dc_out, a.pll_out, channels,
+      a.n, a.release, a.target, a.max_gain, a.agc_enabled, a.out_gain, a.g_i, a.g_q,
+      a.nb_avg0, a.nb_mask0, a.nb_avg_out, a.nb_mask_out, a.nb_a, a.nb_thresh, a.gains,
+      a.reseed);
   return cudaGetLastError();
 }
 
-template <bool kNB, typename... Args>
-int dispatch(int groups, int device, Args... args) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  switch (groups) {
-    case 2: return (int)launch<2, kNB>(args...);
-    case 4: return (int)launch<4, kNB>(args...);
-    case 8: return (int)launch<8, kNB>(args...);
-    default: return (int)cudaErrorInvalidValue;
-  }
+template <int G>
+cudaError_t launch_nb(const ChainArgs& a, int nb, int channels, cudaStream_t stream) {
+  return nb ? launch<G, true>(a, channels, stream) : launch<G, false>(a, channels, stream);
 }
 
 }  // namespace
 
-// K7 on `stream` of CUDA device `device`, `groups` (2, 4 or 8) channels per
-// block; arguments as sweep_chain_sam (sweep_chain.cu). Returns the
-// cudaError_t of the launch (0 on success).
-extern "C" int sam_wide(
-    const float* xr, const float* xi, const long long* inc,
-    const long long* phase0, const float* w_sb, const float* w_pbt,
-    const float* tail_r, const float* tail_i, const float* atail_in,
-    const float* env0, const float* dc0, const float* pll0, float* out_l,
-    float* out_r, float* atail_out, float* env_out, float* dc_out, float* pll_out,
-    int channels, int n, int device, int groups, double release, float target,
-    float max_gain, int agc_enabled, float out_gain, float g_i, float g_q, float kp,
-    float ki, float max_freq, int period, int split, int period2, void* stream) {
-  return dispatch<false>(groups, device, xr, xi, inc, phase0, w_sb, w_pbt, tail_r, tail_i,
-                         atail_in, env0, dc0, pll0, out_l, out_r, atail_out, env_out, dc_out,
-                         pll_out, nullptr, nullptr, nullptr, nullptr, channels, n, release,
-                         target, max_gain, agc_enabled, out_gain, g_i, g_q, 0.0, 0.f,
-                         PllGains{kp, ki, max_freq}, Reseed{period, split, period2},
-                         (cudaStream_t)stream);
-}
-
-// K7 with the noise blanker (its carries as in sweep_chain_sam_nb).
-extern "C" int sam_wide_nb(
-    const float* xr, const float* xi, const long long* inc,
-    const long long* phase0, const float* w_sb, const float* w_pbt,
-    const float* tail_r, const float* tail_i, const float* atail_in,
-    const float* env0, const float* dc0, const float* pll0, float* out_l,
-    float* out_r, float* atail_out, float* env_out, float* dc_out, float* pll_out,
-    const float* nb_avg0, const float* nb_mask0, float* nb_avg_out,
-    float* nb_mask_out, int channels, int n, int device, int groups, double release,
-    float target, float max_gain, int agc_enabled, float out_gain, float g_i,
-    float g_q, double nb_a, float nb_thresh, float kp, float ki, float max_freq,
-    int period, int split, int period2, void* stream) {
-  return dispatch<true>(groups, device, xr, xi, inc, phase0, w_sb, w_pbt, tail_r, tail_i,
-                        atail_in, env0, dc0, pll0, out_l, out_r, atail_out, env_out, dc_out,
-                        pll_out, nb_avg0, nb_mask0, nb_avg_out, nb_mask_out, channels, n,
-                        release, target, max_gain, agc_enabled, out_gain, g_i, g_q, nb_a,
-                        nb_thresh, PllGains{kp, ki, max_freq},
-                        Reseed{period, split, period2}, (cudaStream_t)stream);
+// chain_args.cuh's entry, with `groups` (2, 4 or 8) channels per block; the
+// arguments as sweep_chain.cu's SAM chain takes them.
+extern "C" int launch_chain(const void* args, int groups, int nb, int channels, int device,
+                            void* stream) {
+  const ChainArgs& a = *static_cast<const ChainArgs*>(args);
+  const cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  switch (groups) {
+    case 2: return (int)launch_nb<2>(a, nb, channels, s);
+    case 4: return (int)launch_nb<4>(a, nb, channels, s);
+    case 8: return (int)launch_nb<8>(a, nb, channels, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

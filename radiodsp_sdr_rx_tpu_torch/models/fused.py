@@ -27,14 +27,15 @@ channels, the blanker included) or, for wider banks, on K7, which runs
 several channels' PLLs side by side; its ``FusedSAMBankState`` carries the
 PLL and the DC blocker.
 
-``FusedNRBank`` (:217-579) adds a noise-reduction stage to the SSB modes:
-``fold=True`` (the default) runs spectral NR folded into ONE kernel launch
-per segment (ops/sweep_spec.sweep_spec_chain, K4); ``fold=False`` stages it:
-the DNR (lms) route runs the sweep kernel without R, then the LMS kernel,
-the notch route runs mix + demod, the LMS kernel, the AGC and PBT, and the
-spectral route runs the sweep kernel, then the plain-PyTorch spectral
-subtraction. The routes that run the JAX package's lanes kernel (K6) with
-an NR stage raise ``NotImplementedError``.
+``FusedNRBank`` (:217-579) adds a noise-reduction stage to every mode:
+``fold=True`` (the default) runs the whole chain with its NR stage folded
+into ONE kernel launch per segment, SSB + spectral NR without the blanker
+on K4 (ops/sweep_spec.sweep_spec_chain), every other route on the NR
+instantiations of the lanes kernel K6 (ops/lanes.sweep_lanes_chain);
+``fold=False`` stages the SSB modes: the DNR (lms) route runs the sweep
+kernel without R, then the LMS kernel, the notch route runs mix + demod, the
+LMS kernel, the AGC and PBT, and the spectral route runs the sweep kernel,
+then the plain-PyTorch spectral subtraction.
 """
 
 from __future__ import annotations
@@ -47,16 +48,24 @@ import torch
 from radiodsp_sdr_rx_tpu_torch.models.config import DemodMode, ReceiverConfig
 from radiodsp_sdr_rx_tpu_torch.models.receiver import LMS_MAX_CHANNELS, build_params
 from radiodsp_sdr_rx_tpu_torch.ops import agc as agc_ops
-from radiodsp_sdr_rx_tpu_torch.ops import lms_bank, nco, planar, sam, sam_wide, staged
+from radiodsp_sdr_rx_tpu_torch.ops import lanes, lms_bank, nco, planar, sam, sam_wide, staged
 from radiodsp_sdr_rx_tpu_torch.ops.iir import dc_blocker
 from radiodsp_sdr_rx_tpu_torch.ops.lms import LMS_DELAY, LMS_TAPS
 from radiodsp_sdr_rx_tpu_torch.ops.spectral_sub import spectral_matmul_ops
-from radiodsp_sdr_rx_tpu_torch.ops.sweep import sweep_am_chain, sweep_full_chain, sweep_sam_chain
+from radiodsp_sdr_rx_tpu_torch.ops.sweep import (
+    LmsArgs,
+    SamArgs,
+    SpecArgs,
+    sweep_am_chain,
+    sweep_full_chain,
+    sweep_sam_chain,
+)
 from radiodsp_sdr_rx_tpu_torch.ops.sweep_spec import sweep_spec_chain
 from radiodsp_sdr_rx_tpu_torch.utils.convert import params_from_numpy, resolve_device, split_iq
 
 _BLOCK = 128
 _LANES = 128   # the JAX SAM PLL's lane width (pallas_sam.LANES)
+_JAX_DUMMY_TAPS = 8   # the JAX lanes wrapper's LMS taps off the LMS stages (pallas_chain_lanes.py:847)
 
 
 class FusedBankState(NamedTuple):
@@ -452,11 +461,12 @@ class FusedSAMBank:
 class FusedNRBankState(NamedTuple):
     """Carry of the NR bank; fields, shapes and meaning as the JAX
     ``FusedNRBankState``, with the leading channel axis. DDS words are int64
-    in [0, 2^32). The LMS rows stay padded to the JAX bank's 128 lanes; the
-    padded rows carry zeros, which the LMS keeps at zero. ``lms_first`` is one
-    bool for the whole bank, as in JAX. ``dc``, ``pll``, ``nb_avg`` and
-    ``nb_mask`` belong to the lanes-kernel routes (ROADMAP item 6) and are
-    carried unchanged.
+    in [0, 2^32). The LMS rows and the PLL planes are padded to the JAX
+    bank's lanes (128, or on the lanes routes the channels rounded up to a
+    multiple of 128); the padded rows carry zeros, which the LMS and the PLL
+    keep at zero. ``lms_first`` is one bool for the whole bank, as in JAX.
+    ``dc``, ``pll``, ``nb_avg`` and ``nb_mask`` belong to the lanes routes;
+    the other routes carry them unchanged.
 
     ``sb_tail`` differs by route, so a state of one route is not valid for
     the other: ``fold=True`` stores the RAW input's last block [re|im], which
@@ -469,42 +479,55 @@ class FusedNRBankState(NamedTuple):
     sb_tail: torch.Tensor      # (C, 256) f32 input last block [re|im] (see above)
     audio_tail: torch.Tensor   # (C, 128) f32 PBT framing tail (post-AGC audio)
     agc_env: torch.Tensor      # (C,) f32
-    lms_weights: torch.Tensor  # (128, 96) f32, rows past C zero
-    lms_window: torch.Tensor   # (128, 96) f32
-    lms_delay: torch.Tensor    # (128, 128) f32
+    lms_weights: torch.Tensor  # (lanes, 96) f32, rows past C zero ((lanes, 8) zeros
+    lms_window: torch.Tensor   # (lanes, 96) f32   after a lanes route without LMS)
+    lms_delay: torch.Tensor    # (lanes, 128) f32
     lms_first: torch.Tensor    # () bool, the reference's first-block quirk
     nfloor: torch.Tensor       # (C,) f32 spectral-subtraction noise floor
     spec_tail_l: torch.Tensor  # (C, 128) f32 spectral-subtraction frame carries
     spec_tail_r: torch.Tensor  # (C, 128) f32
     dc: torch.Tensor           # (C, 2) f32 AM/SAM DC-blocker carry
-    pll: torch.Tensor          # (2, 128) f32 SAM PLL [phase | freq]
+    pll: torch.Tensor          # (2, lanes) f32 SAM PLL [phase | freq]
     nb_avg: torch.Tensor       # (C,) f32 noise-blanker running average
     nb_mask: torch.Tensor      # (C, 128) f32 noise-blanker keep mask of the last block
 
 
 class FusedNRBank:
-    """Many-channel SSB receiver (USB/LSB/CW/RTTY) with a noise-reduction
-    stage; the output gain comes after the NR stage, as in ``rx_chain``.
+    """Many-channel receiver with a noise-reduction stage (``fused.py:217-579``
+    of the JAX package); the output gain comes after the NR stage, as in
+    ``rx_chain``. Routes (``route``):
 
-      - ``fold=True``, spectral NR (SPEC1-4), no blanker: the whole chain in
-        ONE launch of K4 per segment (``ops/sweep_spec.sweep_spec_chain``).
-      - ``fold=False``, DNR1-4: the sweep kernel without R, with unit output
-        gain (``sweep_full_chain(emit_r=False)``), the LMS kernel in denoise
-        mode (``ops/lms_bank``), x1.1 makeup, R <- L, output gain.
-      - ``fold=False``, notch: mix + demod (``staged.fused_mix_filter_demod``),
-        the LMS kernel in notch mode, the AGC (``agc.agc_run``), PBT with the
-        output gain (``staged.pbt_filter``).
-      - ``fold=False``, spectral: the sweep kernel with unit output gain,
-        then ``planar.spectral_subtract_planar``, output gain.
+      - "spec": ``fold=True``, an SSB mode, spectral NR (SPEC1-4), no
+        blanker: the whole chain in ONE launch of K4 per segment
+        (``ops/sweep_spec.sweep_spec_chain``).
+      - "lanes": ``fold=True``, every other mode x NR x blanker: the whole
+        chain in ONE launch per segment of the lanes kernel's instantiation
+        (``ops/lanes.sweep_lanes_chain``; ``kernel`` names it), as the JAX
+        bank's ``fn_lanes``: DNR (the LMS prediction of L after PBT, x1.1,
+        R <- L), notch (the LMS error before the AGC) or spectral NR after
+        any demod, AM and SAM on the complex band-pass (``w_sideband``),
+        the blanker folded in. Unused carries come back as the JAX kernel
+        returns them: the LMS rows and ``pll`` zero off their stages (the
+        weights and window then (lanes, 8), the JAX wrapper's dummy taps),
+        ``dc`` zero on SSB; ``nfloor``, the spectral tails and the blanker's
+        carries pass through when their stage is off; ``lms_first`` turns
+        False. SAM re-seeds its PLL every ``sam.even_chunks(n, 1024)``
+        samples, the JAX bank's chunk for SAM with NR.
+      - "staged": ``fold=False``, SSB modes only. DNR1-4: the sweep kernel
+        without R, with unit output gain (``sweep_full_chain(emit_r=False)``),
+        the LMS kernel in denoise mode (``ops/lms_bank``), x1.1 makeup,
+        R <- L, output gain. Notch: mix + demod
+        (``staged.fused_mix_filter_demod``), the LMS kernel in notch mode,
+        the AGC (``agc.agc_run``), PBT with the output gain
+        (``staged.pbt_filter``). Spectral: the sweep kernel with unit output
+        gain, then ``planar.spectral_subtract_planar``, output gain. It
+        scales the input before any kernel, so every kernel of that route
+        runs with unit input gain and balance.
 
-    ``fold=False`` scales the input before any kernel, so every kernel of
-    that route runs with unit input gain and balance. ``fold=True`` with DNR
-    or notch, AM/SAM with NR, and any NR with the blanker run instantiations
-    of the JAX package's lanes kernel (K6) that the port does not have yet:
-    they raise ``NotImplementedError``. The JAX ``ValueError``s stay: NR off, the
-    blanker or AM/SAM with ``fold=False``, more than 128 channels with
-    ``fold=False``. ``device=None`` means the CUDA card and raises without
-    one; pass ``device="cpu"`` to run the plain PyTorch versions.
+    The JAX ``ValueError``s stay: NR off, the blanker or AM/SAM with
+    ``fold=False``, more than 128 channels with ``fold=False``.
+    ``device=None`` means the CUDA card and raises without one; pass
+    ``device="cpu"`` to run the plain PyTorch versions.
     """
 
     def __init__(self, config: ReceiverConfig, freqs_hz, fold: bool = True, device=None):
@@ -514,22 +537,29 @@ class FusedNRBank:
         if config.noise_blanker and not fold:
             raise ValueError("the noise blanker folds into the lanes kernel (fold=True); "
                              "the staged oracle is ReceiverBank")
-        ssb = config.mode not in (DemodMode.AM, DemodMode.SAM)
-        if not ssb and not fold:
+        self.demod = {DemodMode.AM: "am", DemodMode.SAM: "sam"}.get(config.mode, "ssb")
+        if self.demod != "ssb" and not fold:
             raise ValueError("AM/SAM + NR run on the folded lanes kernel (fold=True); "
                              "the staged oracle is ReceiverBank")
         if len(freqs_hz) > LMS_MAX_CHANNELS and not fold:
             raise ValueError(f"FusedNRBank supports <= {LMS_MAX_CHANNELS} channels on the "
                              "staged path (fold=True lifts the ceiling)")
-        if fold and (kind != "spectral" or not ssb or config.noise_blanker):
-            raise NotImplementedError(
-                "this FusedNRBank route runs the lanes kernel K6 (DNR or notch folded, "
-                "AM/SAM with NR, NR with the blanker), which comes with ROADMAP item 6; "
-                "fold=False stages DNR and notch for the SSB modes")
+        c = len(freqs_hz)
+        self.nr = {"lms": "denoise", "notch": "notch", "spectral": "spectral"}[kind]
+        if not fold:
+            self.route, self.kernel = "staged", None
+        elif kind == "spectral" and self.demod == "ssb" and not config.noise_blanker:
+            self.route, self.kernel = "spec", "sweep_spec_chain"
+        else:
+            self.route = "lanes"
+            self.kernel = lanes.kernel_name(self.demod, self.nr, bool(config.noise_blanker))
+        # the JAX lanes kernel grids over 128-channel lane groups: its LMS and
+        # PLL carries have the channels rounded up
+        self.lanes = max(_LANES, -(-c // _LANES) * _LANES) if self.route == "lanes" \
+            else LMS_MAX_CHANNELS
         self.config = config
-        self.fold = fold
         self.device = resolve_device(device)
-        self.n_channels = len(freqs_hz)
+        self.n_channels = c
         self.params = p = params_from_numpy(build_params(config)._asdict(), self.device)
         self.agc_params = agc_ops.AGCParams(
             release=p.agc_release, target=p.agc_target,
@@ -538,12 +568,12 @@ class FusedNRBank:
         self.gain_i = np.float32(p.input_gain)
         self.gain_q = self.gain_i * np.float32(p.iq_gain_balance)
         self.incs = _phase_incs(config, freqs_hz, self.device)
-        if fold:
+        if fold and kind == "spectral":
             self.w_spec = tuple(torch.as_tensor(w, device=self.device)
                                 for w in spectral_matmul_ops(config.fft_length))
 
     def init_state(self) -> FusedNRBankState:
-        c, lanes, dev = self.n_channels, LMS_MAX_CHANNELS, self.device
+        c, lanes, dev = self.n_channels, self.lanes, self.device
         return FusedNRBankState(
             nco_phase=torch.zeros(c, dtype=torch.int64, device=dev),
             sb_tail=torch.zeros(c, 2 * _BLOCK, device=dev),
@@ -565,7 +595,7 @@ class FusedNRBank:
     def spec_args(self, xr: torch.Tensor, xi: torch.Tensor,
                   state: FusedNRBankState) -> tuple:
         """The positional arguments of ``sweep_spec_chain`` for one segment
-        (``fold=True``)."""
+        (route "spec")."""
         p, cfg = self.params, self.config
         return (xr, xi, self.incs, state.nco_phase, p.w_ssb, p.w_pbt, *self.w_spec,
                 state.sb_tail[:, :_BLOCK].contiguous(), state.sb_tail[:, _BLOCK:].contiguous(),
@@ -618,20 +648,79 @@ class FusedNRBank:
         upd.update(nfloor=nfloor, spec_tail_l=spec_l, spec_tail_r=spec_r)
         return {"audio_l": l * og, "audio_r": r * og}, upd
 
+    def lanes_args(self, xr: torch.Tensor, xi: torch.Tensor,
+                   state: FusedNRBankState) -> tuple:
+        """The positional arguments of ``lanes.sweep_lanes_chain`` for one
+        segment (route "lanes")."""
+        p, cfg, c = self.params, self.config, self.n_channels
+        dsb = self.demod != "ssb"
+        sam_a = lms_a = spec_a = None
+        if self.demod == "sam":
+            # the JAX bank's chunk for SAM with NR, 1024 samples: one re-seed
+            # per chunk, and no halving of an odd chunk count
+            sam_a = SamArgs(state.pll[:, :c].contiguous(), sam.pll_gains(100.0, cfg.sample_rate),
+                            sam.reseed_schedule(xr.shape[-1], 1024, wide=True))
+        if self.nr == "spectral":
+            spec_a = SpecArgs(*self.w_spec, state.nfloor, state.spec_tail_l, state.spec_tail_r,
+                              p.nr_level)
+        else:
+            lms_a = LmsArgs(state.lms_weights[:c], state.lms_window[:c], state.lms_delay[:c],
+                            state.lms_first, p.lms_mu, self.nr)
+        return (xr, xi, self.incs, state.nco_phase, p.w_sideband if dsb else p.w_ssb, p.w_pbt,
+                state.sb_tail[:, :_BLOCK].contiguous(), state.sb_tail[:, _BLOCK:].contiguous(),
+                state.audio_tail, state.agc_env, p.agc_release, p.agc_target, p.agc_max_gain,
+                p.agc_enabled, p.output_gain, p.input_gain, cfg.iq_gain_balance,
+                bool(cfg.noise_blanker), float(cfg.nb_threshold_db), float(cfg.nb_tau_samples),
+                state.nb_avg, state.nb_mask, state.dc if dsb else None, sam_a, lms_a, spec_a)
+
+    def _lanes(self, xr, xi, state: FusedNRBankState):
+        out = lanes.sweep_lanes_chain(*self.lanes_args(xr, xi, state))
+
+        def padded(new, like):
+            """new (C, ...) in the first rows of zeros shaped as ``like``
+            (lanes, ...): zeros for the padded rows, all zeros where the
+            stage did not run (new None)."""
+            full = torch.zeros_like(like)
+            if new is not None:
+                full[:new.shape[0]] = new
+            return full
+
+        pll_t = padded(None if out.pll is None else out.pll.T, state.pll.T)
+        # off the LMS stages the JAX wrapper returns its dummy weights and
+        # window, (lanes, 8) zeros
+        taps = state.lms_weights if out.lms_weights is not None else \
+            state.lms_weights.new_empty((self.lanes, _JAX_DUMMY_TAPS))
+        upd = dict(audio_tail=out.audio_tail, agc_env=out.agc_env,
+                   lms_weights=padded(out.lms_weights, taps),
+                   lms_window=padded(out.lms_window, taps),
+                   lms_delay=padded(out.lms_delay, state.lms_delay),
+                   lms_first=torch.zeros_like(state.lms_first),
+                   dc=padded(out.dc, state.dc), pll=pll_t.T.contiguous())
+        if out.nfloor is not None:
+            upd.update(nfloor=out.nfloor, spec_tail_l=out.spec_tail_l,
+                       spec_tail_r=out.spec_tail_r)
+        if out.nb_avg is not None:
+            upd.update(nb_avg=out.nb_avg, nb_mask=out.nb_mask)
+        r = out.audio_l if self.nr == "denoise" else out.audio_r   # mono copy R<-L
+        return {"audio_l": out.audio_l, "audio_r": r}, upd
+
     def process_planar(self, xr, xi, state: FusedNRBankState):
         """One segment of planar f32 IQ, (C, n) each with n a multiple of 128.
         Returns ({"audio_l", "audio_r"}, next state)."""
         xr, xi = _planar(xr, xi, self.device)
         phase = nco.advance_phase(state.nco_phase, xr.shape[-1], self.incs)
-        if not self.fold:
+        if self.route == "staged":
             out, upd = self._staged(xr, xi, state)
             return out, state._replace(nco_phase=phase, **upd)
+        raw_tail = torch.cat([xr[:, -_BLOCK:], xi[:, -_BLOCK:]], dim=-1)
+        if self.route == "lanes":
+            out, upd = self._lanes(xr, xi, state)
+            return out, state._replace(nco_phase=phase, sb_tail=raw_tail, **upd)
         l, r, atail, env, nfloor, spec_l, spec_r = sweep_spec_chain(
             *self.spec_args(xr, xi, state))
         return {"audio_l": l, "audio_r": r}, state._replace(
-            nco_phase=phase, sb_tail=torch.cat([xr[:, -_BLOCK:], xi[:, -_BLOCK:]], dim=-1),
-            audio_tail=atail, agc_env=env, nfloor=nfloor, spec_tail_l=spec_l,
-            spec_tail_r=spec_r)
+            nco_phase=phase, sb_tail=raw_tail, audio_tail=atail, agc_env=env, nfloor=nfloor,
+            spec_tail_l=spec_l, spec_tail_r=spec_r)
 
     def process(self, iq, state: FusedNRBankState):
         """Complex IQ at the host boundary: (C, n), or (n,) for every channel."""

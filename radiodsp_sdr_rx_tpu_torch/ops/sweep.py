@@ -38,7 +38,11 @@ for CPU tensors they run ``sweep_full_chain_plain`` / ``sweep_am_chain_plain``
 ``sweep_chain_ssb_mono`` neither computes R into the output nor stores it.
 ``LAUNCHES``, ``LAUNCHES_NB``, ``LAUNCHES_AM``, ``LAUNCHES_AM_NB``,
 ``LAUNCHES_MONO``, ``LAUNCHES_SAM`` and ``LAUNCHES_SAM_NB`` count the seven
-kernels' launches. The JAX wrappers' TPU tiling knobs (``block_c``,
+kernels' launches. ``launch_chain`` launches every source of the chain
+(these seven; ``ops/lanes.py``'s NR stages, whose plain versions
+``chain_plain`` also computes from ``LmsArgs`` and ``SpecArgs``; K7 of
+``ops/sam_wide.py``) through one C entry that takes a ``ChainArgs``
+(``csrc/chain_args.cuh``). The JAX wrappers' TPU tiling knobs (``block_c``,
 ``chunk_t``, ``interpret``) have no meaning here and are not taken.
 """
 
@@ -51,6 +55,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from radiodsp_sdr_rx_tpu_torch.ops import lms_bank
 from radiodsp_sdr_rx_tpu_torch.ops import sam as sam_ops
 from radiodsp_sdr_rx_tpu_torch.ops.chain_common import (
     BLOCK,
@@ -59,10 +64,18 @@ from radiodsp_sdr_rx_tpu_torch.ops.chain_common import (
     check_tensors,
     demod_frames,
     iir_rows,
+    matmul_fp32,
     mix,
     pbt_frames,
 )
 from radiodsp_sdr_rx_tpu_torch.ops.iir import DC_POLE
+from radiodsp_sdr_rx_tpu_torch.ops.lms import LMS_DELAY, LMS_TAPS
+from radiodsp_sdr_rx_tpu_torch.ops.spectral_sub import (
+    UNDER_FLOOR_GAIN,
+    VAD_END_BIN,
+    VAD_START_BIN,
+    floor_track,
+)
 from radiodsp_sdr_rx_tpu_torch.utils import build
 
 LAUNCHES = 0        # sweep_chain_ssb
@@ -200,20 +213,112 @@ class SamArgs(NamedTuple):
     reseed: sam_ops.Reseed
 
 
+class LmsArgs(NamedTuple):
+    """An LMS stage's carries and constants (``ops/lms_bank.lms_nr_run_bank``)."""
+
+    weights: torch.Tensor   # (C, 96)
+    window: torch.Tensor    # (C, 96)
+    delay: torch.Tensor     # (C, 128)
+    first: torch.Tensor     # () bool: the reference's first-block quirk
+    mu: float
+    mode: str               # "denoise" (after PBT, out y) or "notch" (before the AGC, out e)
+
+
+class SpecArgs(NamedTuple):
+    """The spectral stage's operators, carries and level."""
+
+    w_fwd: torch.Tensor     # (512, 512) spectral_sub.spectral_matmul_ops forward DFT
+    w_inv: torch.Tensor     # (512, 256) its right-half inverse
+    nfloor0: torch.Tensor   # (C,) noise-floor carry (zeros at stream start)
+    tail_l: torch.Tensor    # (C, 128) the previous post-PBT block of l
+    tail_r: torch.Tensor    # (C, 128) ... and of r
+    nr_level: float         # subtraction strength (20/30/40/50 for SPEC1-4)
+
+
+def nr_gain(nr_level) -> float:
+    """The per-frame floor multiplier level * 1.5 / 150 as an f32 value: the
+    mean over the VAD band divides its 151-bin sum by 150, the reference's
+    own off-by-one (RDSP_convolutional_spec.h:200)."""
+    return float(np.float32(float(nr_level) * 1.5 / float(VAD_END_BIN - VAD_START_BIN)))
+
+
+def spectral_floor(l, r, w_spec_fwd, nfloor0, spec_tail_l, spec_tail_r, nr_level):
+    """The spectral stage's spectrum and floor for the post-PBT l, r (C, n),
+    as the plain version computes them: (sr, si, mag), each (C, rows, 256),
+    and the floor per row (C, rows), unclamped. ``chip_smoke.py`` reads the
+    distance of each bin from the floor here: a bin within rounding of it
+    takes the scale 0.2 or about 0 depending on the summation order."""
+    c, n = l.shape
+    l3, r3 = l.view(c, n // BLOCK, BLOCK), r.view(c, n // BLOCK, BLOCK)
+    prev_l = torch.cat([spec_tail_l[:, None], l3[:, :-1]], dim=1)
+    prev_r = torch.cat([spec_tail_r[:, None], r3[:, :-1]], dim=1)
+    spec = matmul_fp32(torch.cat([prev_l, l3, prev_r, r3], dim=-1), w_spec_fwd)
+    del prev_l, prev_r
+    sr, si = spec[..., :2 * BLOCK], spec[..., 2 * BLOCK:]
+    mag = torch.sqrt(sr * sr + si * si)
+    floor_est = mag[..., VAD_START_BIN:VAD_END_BIN + 1].sum(-1) * nr_gain(nr_level)
+    return sr, si, mag, floor_track(floor_est, nfloor0)
+
+
+def spectral_plain(l, r, spec: SpecArgs):
+    """The spectral stage on the post-PBT l, r (C, n), the floor a doubling
+    scan across rows from its carry. Returns (l', r', nfloor', tail_l',
+    tail_r')."""
+    c, n = l.shape
+    sr, si, mag, nfloor = spectral_floor(l, r, spec.w_fwd, spec.nfloor0, spec.tail_l,
+                                         spec.tail_r, spec.nr_level)
+    nf = nfloor.clamp(min=0.0)[..., None]
+    scale = torch.where(mag <= nf, UNDER_FLOOR_GAIN, 1.0 - nf / mag.clamp(min=1e-20))
+    del mag
+    y = matmul_fp32(torch.cat([sr * scale, si * scale], dim=-1), spec.w_inv)
+    del sr, si, scale
+    return (y[..., :BLOCK].reshape(c, n), y[..., BLOCK:].reshape(c, n),
+            nfloor[:, -1].contiguous(), l[:, -BLOCK:].contiguous(), r[:, -BLOCK:].contiguous())
+
+
+def _check_nr(xr, lms: LmsArgs | None, spec: SpecArgs | None):
+    if lms is not None and spec is not None:
+        raise ValueError("one NR stage: an LmsArgs (denoise, notch) or a SpecArgs (spectral)")
+    c = xr.shape[0]
+    f32 = torch.float32
+    if lms is not None:
+        if lms.mode not in lms_bank.MODES:
+            raise ValueError(f"LMS mode must be one of {lms_bank.MODES}, got {lms.mode!r}")
+        check_tensors({"lms weights": (lms.weights, (c, LMS_TAPS), f32),
+                       "lms window": (lms.window, (c, LMS_TAPS), f32),
+                       "lms delay": (lms.delay, (c, LMS_DELAY), f32),
+                       "lms first": (lms.first, (), torch.bool)}, xr.device)
+    if spec is not None:
+        check_tensors({"w_spec_fwd": (spec.w_fwd, (512, 512), f32),
+                       "w_spec_inv": (spec.w_inv, (512, 256), f32),
+                       "nfloor0": (spec.nfloor0, (c,), f32),
+                       "spec_tail_l": (spec.tail_l, (c, BLOCK), f32),
+                       "spec_tail_r": (spec.tail_r, (c, BLOCK), f32)}, xr.device)
+
+
 def chain_plain(xr, xi, inc, phase0, w, w_pbt, tail_r, tail_i, audio_tail,
                 env0, agc_release, agc_target, agc_max_gain, agc_enabled,
                 out_gain, in_gain, iq_balance, nb, nb_thresh_db, nb_tau,
-                nb_avg0, nb_mask0, dc0=None, emit_r=True, sam: SamArgs | None = None):
+                nb_avg0, nb_mask0, dc0=None, emit_r=True, sam: SamArgs | None = None,
+                lms: LmsArgs | None = None, spec: SpecArgs | None = None):
     """The plain chain, SSB, (``dc0`` given) AM or (``sam`` given too) SAM,
-    vectorised over the whole segment but for the SAM PLL (one step per
-    sample, ``sam.pll_loop``): the AGC, the blanker's average and the DC
-    blocker run as the TPU kernel's doubling scans (within a 128-sample row,
-    then across rows) plus the row carry. Both products are full fp32
-    (``chain_common.matmul_fp32``), as the kernels compute them; without
-    ``emit_r`` R is computed and dropped, so L is the emit_r=True L."""
+    vectorised over the whole segment but for the SAM PLL and the LMS (one
+    step per sample, ``sam.pll_loop`` and ``lms_bank.lms_nr_run_bank_plain``):
+    the AGC, the blanker's average and the DC blocker run as the TPU kernel's
+    doubling scans (within a 128-sample row, then across rows) plus the row
+    carry. Every product is full fp32 (``chain_common.matmul_fp32``), as the
+    kernels compute them; without ``emit_r`` R is computed and dropped, so L
+    is the emit_r=True L. With ``lms`` in notch mode the LMS error replaces
+    the audio before the AGC; in denoise mode the LMS prediction of L, times
+    1.1, is L, and R is not returned. With ``spec`` the spectral stage runs
+    on [L|R] before the output gain. Returns (L, R, audio_tail', env'), then
+    dc' (AM, SAM), pll' (SAM), the LMS's weights', window', delay', the
+    spectral stage's nfloor', tail_l', tail_r', and the blanker's nb_avg',
+    nb_mask', each where its stage ran."""
     check_chain_args(xr, xi, inc, phase0, w, w_pbt, tail_r, tail_i, audio_tail,
                 env0, agc_release, nb, nb_tau, nb_avg0, nb_mask0, dc0, emit_r,
                 None if sam is None else sam.pll0)
+    _check_nr(xr, lms, spec)
     c, n = xr.shape
     g_i = float(np.float32(in_gain))
     g_q = float(np.float32(in_gain * iq_balance))
@@ -240,6 +345,10 @@ def chain_plain(xr, xi, inc, phase0, w, w_pbt, tail_r, tail_i, audio_tail,
     else:
         audio = y
     del y
+    nr_out = ()
+    if lms is not None and lms.mode == "notch":
+        e, *nr_out = lms_bank.lms_nr_run_bank_plain(audio.reshape(c, n), *lms)
+        audio = e.view(audio.shape)
 
     run_e = _env_lanes(audio.abs(), agc_release)
     seq_e = torch.cat([env0[:, None], run_e[:, :-1, -1]], dim=1)
@@ -252,14 +361,21 @@ def chain_plain(xr, xi, inc, phase0, w, w_pbt, tail_r, tail_i, audio_tail,
         audio = audio * gain
 
     lr = pbt_frames(audio, audio_tail, w_pbt)
+    l, r = lr[..., :BLOCK].reshape(c, n), lr[..., BLOCK:].reshape(c, n)
+    del lr
+    if lms is not None and lms.mode == "denoise":
+        l, *nr_out = lms_bank.lms_nr_run_bank_plain(l, *lms)
+        l, emit_r = l * float(np.float32(1.1)), False   # makeup (RDSP_convolutional.h:334)
+    elif spec is not None:
+        l, r, *nr_out = spectral_plain(l, r, spec)
     og = float(np.float32(out_gain))
-    audio_l = (lr[..., :BLOCK] * og).reshape(c, n)
-    audio_r = (lr[..., BLOCK:] * og).reshape(c, n) if emit_r else None
-    out = (audio_l, audio_r, audio[:, -1].contiguous(), envl[:, -1, -1].contiguous())
+    out = (l * og, r * og if emit_r else None, audio[:, -1].contiguous(),
+           envl[:, -1, -1].contiguous())
     if dc0 is not None:
         out += (dc,)
     if sam is not None:
         out += (pll,)
+    out += tuple(nr_out)
     return out + (nb_avg, nb_mask) if nb else out
 
 
@@ -289,30 +405,26 @@ def sweep_am_chain_plain(xr, xi, inc, phase0, w_sb, w_pbt, tail_r, tail_i,
                        nb_thresh_db, nb_tau, nb_avg0, nb_mask0, dc0)
 
 
-_PTR, _I32, _F32, _F64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_double
-_ARGTYPES = {  # the extern "C" launchers of csrc/sweep_chain.cu
-    "sweep_chain_ssb": [_PTR] * 14 + [_I32] * 3 + [_F64] + [_F32] * 2 + [_I32]
-                       + [_F32] * 3 + [_PTR],
-    "sweep_chain_ssb_nb": [_PTR] * 18 + [_I32] * 3 + [_F64] + [_F32] * 2 + [_I32]
-                          + [_F32] * 3 + [_F64, _F32, _PTR],
-    "sweep_chain_am": [_PTR] * 16 + [_I32] * 3 + [_F64] + [_F32] * 2 + [_I32]
-                      + [_F32] * 3 + [_PTR],
-    "sweep_chain_am_nb": [_PTR] * 20 + [_I32] * 3 + [_F64] + [_F32] * 2 + [_I32]
-                         + [_F32] * 3 + [_F64, _F32, _PTR],
-    "sweep_chain_ssb_mono": [_PTR] * 13 + [_I32] * 3 + [_F64] + [_F32] * 2 + [_I32]
-                            + [_F32] * 3 + [_PTR],
-    "sweep_chain_sam": [_PTR] * 18 + [_I32] * 3 + [_F64] + [_F32] * 2 + [_I32]
-                       + [_F32] * 6 + [_I32] * 3 + [_PTR],
-    "sweep_chain_sam_nb": [_PTR] * 22 + [_I32] * 3 + [_F64] + [_F32] * 2 + [_I32]
-                          + [_F32] * 3 + [_F64] + [_F32] * 4 + [_I32] * 3 + [_PTR],
-    # csrc/sam_wide.cu: the same with the groups after the device
-    "sam_wide": [_PTR] * 18 + [_I32] * 4 + [_F64] + [_F32] * 2 + [_I32]
-                + [_F32] * 6 + [_I32] * 3 + [_PTR],
-    "sam_wide_nb": [_PTR] * 22 + [_I32] * 4 + [_F64] + [_F32] * 2 + [_I32]
-                   + [_F32] * 3 + [_F64] + [_F32] * 4 + [_I32] * 3 + [_PTR],
-}
+class _ChainArgs(ctypes.Structure):
+    """``ChainArgs`` of csrc/chain_args.cuh, field for field."""
+
+    _fields_ = [(name, ctypes.c_void_p) for name in (
+        "xr", "xi", "inc", "phase0", "w_band", "w_pbt", "tail_r", "tail_i", "atail_in",
+        "env0", "out_l", "out_r", "atail_out", "env_out", "nb_avg0", "nb_mask0",
+        "nb_avg_out", "nb_mask_out", "dc0", "dc_out", "pll0", "pll_out", "lms_w0",
+        "lms_win0", "lms_delay0", "lms_first", "lms_w_out", "lms_win_out", "lms_delay_out",
+        "w_fwd", "w_inv", "nfl0", "stl0", "str0", "nfl_out", "stl_out", "str_out")] + [
+        ("release", ctypes.c_double), ("nb_a", ctypes.c_double), ("n", ctypes.c_int),
+        ("agc_enabled", ctypes.c_int)] + [(name, ctypes.c_float) for name in (
+            "target", "max_gain", "out_gain", "g_i", "g_q", "nb_thresh", "mu", "nr_gain",
+            "kp", "ki", "max_freq")] + [(name, ctypes.c_int) for name in (
+                "period", "split", "period2")]
 
 
+# the sources of csrc/sweep_chain.cuh's instantiations, by NR stage
+LIBRARIES = {None: "sweep_chain", "denoise": "sweep_denoise", "notch": "sweep_notch",
+             "spectral": "sweep_spec"}
+_DEMODS = ("ssb", "am", "sam")
 _COUNTERS = {"sweep_chain_ssb": "LAUNCHES", "sweep_chain_ssb_nb": "LAUNCHES_NB",
              "sweep_chain_am": "LAUNCHES_AM", "sweep_chain_am_nb": "LAUNCHES_AM_NB",
              "sweep_chain_ssb_mono": "LAUNCHES_MONO", "sweep_chain_sam": "LAUNCHES_SAM",
@@ -323,55 +435,90 @@ def launch_chain(xr, xi, inc, phase0, w, w_pbt, tail_r, tail_i, audio_tail,
                  env0, agc_release, agc_target, agc_max_gain, agc_enabled,
                  out_gain, in_gain, iq_balance, nb, nb_thresh_db, nb_tau,
                  nb_avg0, nb_mask0, dc0=None, emit_r=True, sam: SamArgs | None = None,
+                 lms: LmsArgs | None = None, spec: SpecArgs | None = None,
                  groups: int | None = None):
-    """Check, allocate the outputs and launch one of the seven kernels of
-    ``csrc/sweep_chain.cu``, or with ``groups`` the SAM chain of
-    ``csrc/sam_wide.cu`` (its caller counts that launch); returns the outputs
-    in the order of the plain version's return."""
+    """Check, allocate the outputs and launch one instantiation of
+    ``csrc/sweep_chain.cuh``'s kernel (the source by NR stage, ``LIBRARIES``)
+    or, with ``groups``, the SAM chain of ``csrc/sam_wide.cu``; every source
+    takes a ``ChainArgs``. Counts the launches of ``sweep_chain.cu``'s seven
+    kernels; the other callers count their own. Returns the outputs in the
+    order of ``chain_plain``'s return."""
     if xr.device.type != "cuda":
         raise ValueError(f"the sweep chain runs on cuda or cpu, not {xr.device}")
-    am = dc0 is not None
-    check_chain_args(xr, xi, inc, phase0, w, w_pbt, tail_r, tail_i, audio_tail,
-                env0, agc_release, nb, nb_tau, nb_avg0, nb_mask0, dc0, emit_r,
-                None if sam is None else sam.pll0)
-    ins = (xr, xi, inc, phase0, w, w_pbt, tail_r, tail_i, audio_tail, env0)
-    ins += (dc0,) if am else ()
-    ins += (sam.pll0,) if sam else ()
-    nb_ins = (nb_avg0, nb_mask0) if nb else ()
-    check_launch("the sweep chain", ins + nb_ins)
-    c, n = xr.shape
-    outs = (torch.empty_like(xr), torch.empty_like(xr) if emit_r else None,
-            torch.empty_like(audio_tail), torch.empty_like(env0))
-    outs += (torch.empty_like(dc0),) if am else ()
-    outs += (torch.empty_like(sam.pll0),) if sam else ()
-    nb_outs = (torch.empty_like(nb_avg0), torch.empty_like(nb_mask0)) if nb else ()
-    agc = (float(agc_release), float(np.float32(agc_target)),
-           float(np.float32(agc_max_gain)), int(bool(agc_enabled)),
-           float(np.float32(out_gain)), float(np.float32(in_gain)),
-           float(np.float32(in_gain * iq_balance)))
-    nb_args = ()
+    check_chain_args(xr, xi, inc, phase0, w, w_pbt, tail_r, tail_i, audio_tail, env0,
+                     agc_release, nb, nb_tau, nb_avg0, nb_mask0, dc0, emit_r,
+                     None if sam is None else sam.pll0)
+    _check_nr(xr, lms, spec)
+    emit_r = emit_r and (lms is None or lms.mode != "denoise")
+    ins = dict(xr=xr, xi=xi, inc=inc, phase0=phase0, w_band=w, w_pbt=w_pbt, tail_r=tail_r,
+               tail_i=tail_i, atail_in=audio_tail, env0=env0)
     if nb:
-        thresh, a = nb_constants(nb_thresh_db, nb_tau)
-        nb_args = (a, float(np.float32(thresh)))
-    demod = "sam" if sam else "am" if am else "ssb"
-    name = f"sweep_chain_{demod}{'_nb' if nb else ''}{'' if emit_r else '_mono'}"
-    lib, dims = "sweep_chain", (c, n, xr.device.index or 0)
-    pll_consts = ()
-    if sam:
-        pll_consts = (*sam.gains, *sam.reseed)
-        if groups is not None:
-            lib, name, dims = "sam_wide", f"sam_wide{'_nb' if nb else ''}", dims + (groups,)
-    fn = getattr(build.load_library(lib), name)
-    fn.argtypes = _ARGTYPES[name]
+        ins.update(nb_avg0=nb_avg0, nb_mask0=nb_mask0)
+    if dc0 is not None:
+        ins.update(dc0=dc0)
+    if sam is not None:
+        ins.update(pll0=sam.pll0)
+    if lms is not None:
+        ins.update(lms_w0=lms.weights, lms_win0=lms.window, lms_delay0=lms.delay)
+    if spec is not None:
+        # columns [sr 0..255 | si 0..255] -> two (512, 256) passes [sr | si] of
+        # bins 0..127 and of bins 128..255
+        ins.update(w_fwd=spec.w_fwd.view(512, 2, 2, BLOCK).permute(2, 0, 1, 3).contiguous(),
+                   w_inv=spec.w_inv, nfl0=spec.nfloor0, stl0=spec.tail_l, str0=spec.tail_r)
+    check_launch("the sweep chain", ins.values())
+    if lms is not None:
+        ins.update(lms_first=lms.first.to(torch.uint8).reshape(1))
+    outs = dict(out_l=torch.empty_like(xr), out_r=torch.empty_like(xr) if emit_r else None,
+                atail_out=torch.empty_like(audio_tail), env_out=torch.empty_like(env0))
+    if dc0 is not None:
+        outs.update(dc_out=torch.empty_like(dc0))
+    if sam is not None:
+        outs.update(pll_out=torch.empty_like(sam.pll0))
+    if lms is not None:
+        outs.update(lms_w_out=torch.empty_like(lms.weights),
+                    lms_win_out=torch.empty_like(lms.window),
+                    lms_delay_out=torch.empty_like(lms.delay))
+    if spec is not None:
+        outs.update(nfl_out=torch.empty_like(spec.nfloor0), stl_out=torch.empty_like(spec.tail_l),
+                    str_out=torch.empty_like(spec.tail_r))
+    if nb:
+        outs.update(nb_avg_out=torch.empty_like(nb_avg0), nb_mask_out=torch.empty_like(nb_mask0))
+    args = _ChainArgs(**{k: t.data_ptr() for k, t in {**ins, **outs}.items() if t is not None})
+    c, n = xr.shape
+    args.n, args.release, args.agc_enabled = n, float(agc_release), int(bool(agc_enabled))
+    args.target, args.max_gain = float(np.float32(agc_target)), float(np.float32(agc_max_gain))
+    args.out_gain = float(np.float32(out_gain))
+    args.g_i = float(np.float32(in_gain))
+    args.g_q = float(np.float32(in_gain * iq_balance))
+    if nb:
+        thresh, args.nb_a = nb_constants(nb_thresh_db, nb_tau)
+        args.nb_thresh = float(np.float32(thresh))
+    if sam is not None:
+        args.kp, args.ki, args.max_freq = sam.gains
+        args.period, args.split, args.period2 = sam.reseed
+    if lms is not None:
+        args.mu = float(np.float32(lms.mu))
+    if spec is not None:
+        args.nr_gain = nr_gain(spec.nr_level)
+    nr = "spectral" if spec is not None else None if lms is None else lms.mode
+    demod = "sam" if sam else "am" if dc0 is not None else "ssb"
+    lib = "sam_wide" if groups is not None else LIBRARIES[nr]
+    fn = build.load_library(lib).launch_chain
+    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    stream = torch.cuda.current_stream(xr.device).cuda_stream
-    err = fn(*(t.data_ptr() for t in ins + outs + nb_ins + nb_outs if t is not None), *dims,
-             *agc, *nb_args, *pll_consts, stream)
+    err = fn(ctypes.addressof(args), _DEMODS.index(demod) if groups is None else groups,
+             int(bool(nb)), c, xr.device.index or 0,
+             torch.cuda.current_stream(xr.device).cuda_stream)
     if err:
-        raise RuntimeError(f"{name} launch failed: cudaError {err}")
-    if name in _COUNTERS:   # sam_wide's caller counts its launches
+        raise RuntimeError(f"{lib} launch failed: cudaError {err}")
+    name = f"sweep_chain_{demod}{'_nb' if nb else ''}{'' if emit_r else '_mono'}"
+    if lib == "sweep_chain":
         globals()[_COUNTERS[name]] += 1
-    return outs + nb_outs
+    tail = [outs.get(k) for k in ("dc_out", "pll_out", "lms_w_out", "lms_win_out",
+                                  "lms_delay_out", "nfl_out", "stl_out", "str_out",
+                                  "nb_avg_out", "nb_mask_out")]
+    return (outs["out_l"], outs["out_r"], outs["atail_out"], outs["env_out"],
+            *(t for t in tail if t is not None))
 
 
 def sweep_full_chain(xr, xi, inc, phase0, w_ssb, w_pbt, tail_r, tail_i,

@@ -10,24 +10,29 @@ import pytest
 from radiodsp_sdr_rx_tpu_torch.utils import build
 
 
-HEADERS = {"sweep_chain": ["chain_common.cuh", "sam_pll.cuh"], "staged": ["chain_common.cuh"],
-           "sam": ["sam_pll.cuh"], "sam_wide": ["chain_common.cuh", "sam_pll.cuh"]}
+CHAIN = ["sweep_chain.cuh", "chain_args.cuh", "chain_common.cuh", "lms_step.cuh", "sam_pll.cuh"]
+HEADERS = {"sweep_chain": CHAIN, "sweep_denoise": CHAIN, "sweep_notch": CHAIN,
+           "sweep_spec": CHAIN, "staged": ["chain_common.cuh"], "lms": ["lms_step.cuh"],
+           "sam": ["sam_pll.cuh"],
+           "sam_wide": ["chain_args.cuh", "chain_common.cuh", "sam_pll.cuh"]}
 
 
-@pytest.mark.parametrize("name", ["sweep_chain", "staged", "sam", "sam_wide"])
+@pytest.mark.parametrize("name", sorted(HEADERS))
 def test_sources_follow_includes(name):
     assert [p.name for p in build.sources(name)] == [f"{name}.cu", *HEADERS[name]]
 
 
 @pytest.mark.parametrize("edited", ["staged.cu", "chain_common.cuh", "sweep_chain.cu",
-                                    "sam_pll.cuh"])
+                                    "sam_pll.cuh", "lms_step.cuh", "sweep_chain.cuh",
+                                    "chain_args.cuh"])
 def test_artifact_changes_with_each_source(tmp_path, monkeypatch, edited):
     csrc = tmp_path / "csrc"
     shutil.copytree(build.CSRC, csrc)
     monkeypatch.setattr(build, "CSRC", csrc)
-    before = {name: build._artifact(name).name for name in ("staged", "sweep_chain")}
+    names = ("staged", "sweep_chain", "lms", "sweep_notch")
+    before = {name: build._artifact(name).name for name in names}
     (csrc / edited).write_text((csrc / edited).read_text() + "\n// edited\n")
-    after = {name: build._artifact(name).name for name in ("staged", "sweep_chain")}
+    after = {name: build._artifact(name).name for name in names}
     for name in before:
         uses = edited in [p.name for p in build.sources(name)]
         assert (before[name] != after[name]) == uses, name

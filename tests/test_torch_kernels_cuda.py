@@ -11,7 +11,10 @@ The NR bank's staged routes are held to the port's ReceiverBank at 2e-3
 (docs/CHIP_PARITY.md). The SAM kernels (K5 sam_pll, K6 sweep_chain_sam and
 sweep_chain_sam_nb, K7 sam_wide and sam_wide_nb) run on a locked-carrier
 scene, the PLL being chaotic on noise, at 1e-4, with the plain PLL's
-per-sample loop kept to a few thousand samples.
+per-sample loop kept to a few thousand samples. The NR instantiations of
+the lanes kernel (ops/lanes.py: LMS denoise and notch, spectral NR, after
+each demod, with and without the blanker) run on the same locked scenes, at
+2e-4 with an LMS stage and 1e-4 with the spectral one.
 """
 
 import numpy as np
@@ -23,7 +26,7 @@ from radiodsp_sdr_rx_tpu_torch.models.fused import (
     FusedAMBank, FusedNRBank, FusedSAMBank, FusedSSBBank)
 from radiodsp_sdr_rx_tpu_torch.models.receiver import ReceiverBank
 from radiodsp_sdr_rx_tpu_torch.ops import (
-    agc, lms, lms_bank, sam, sam_wide, staged, sweep, sweep_spec)
+    agc, lanes, lms, lms_bank, sam, sam_wide, staged, sweep, sweep_spec)
 
 pytestmark = pytest.mark.cuda
 ATOL = 1e-4
@@ -470,3 +473,95 @@ def test_sam_bank_routes_launch_once_per_segment(cuda_device, fold, channels, co
         for key in ("audio_l", "audio_r"):
             np.testing.assert_allclose(out[key].cpu().numpy(), want[key].cpu().numpy(),
                                        atol=2e-3, rtol=0)
+
+
+LANES_ROUTES = [(d, nr, nb) for nr in ("denoise", "notch", "spectral") for d in ("ssb", "am", "sam")
+                for nb in (False, True) if (d, nr, nb) != ("ssb", "spectral", False)]
+
+
+def _lanes_bank(demod, nr, nb, channels, device=None):
+    mode = {"ssb": DemodMode.USB, "am": DemodMode.AM, "sam": DemodMode.SAM}[demod]
+    nr_mode = {"denoise": NRMode.DNR2, "notch": NRMode.NOTCH, "spectral": NRMode.SPEC2}[nr]
+    cfg = ReceiverConfig(mode=mode, vfo_freq=7_060_000.0, capture_center_freq=SAM_CENTER,
+                         agc=AGCMode.MEDIUM, nr=nr_mode, noise_blanker=nb)
+    return FusedNRBank(cfg, [SAM_CENTER + 1_000.0 * k for k in range(channels)], device=device)
+
+
+@pytest.mark.parametrize("demod, nr, nb", LANES_ROUTES)
+def test_nr_chain_kernels_match_plain_over_two_segments(cuda_device, demod, nr, nb):
+    """Each NR instantiation of the lanes kernel against the plain chain,
+    every output and carry (the PLL phase wrap-aware), over two threaded
+    segments, the LMS's first-block quirk in the first; one launch of the
+    route's kernel per call; the bank's route is that kernel, and it is held
+    to the port's ReceiverBank within 2e-3. Locked carriers (the SAM PLL is
+    chaotic on noise; the LMS adapts to the tones), with the blanker
+    impulses far above its threshold, one on the segment's last sample."""
+    channels, n = 4, 2048
+    bank = _lanes_bank(demod, nr, nb, channels, cuda_device)
+    ref_bank = ReceiverBank(bank.config, [SAM_CENTER + 1_000.0 * k for k in range(channels)])
+    assert (bank.route, bank.kernel) == ("lanes", lanes.kernel_name(demod, nr, nb))
+    gen = torch.Generator(device=cuda_device).manual_seed(len(bank.kernel))
+    xr, xi = _locked(channels, n, gen, cuda_device)
+    if nb:
+        for pos in sorted({n // 5, n // 2 + 3, n - 1}):
+            xr[:, pos] = 8.0
+            xi[:, pos] = 8.0
+    warm = torch.full((channels,), float(torch.hypot(xr, xi).mean()), device=cuda_device)
+    state, st_ref = bank.init_state()._replace(nb_avg=warm), ref_bank.init_state()
+    st_ref = st_ref._replace(nb_avg=warm.clone())
+    tol = ATOL if nr == "spectral" else LMS_ATOL
+    for _ in range(2):
+        args = bank.lanes_args(xr, xi, state)
+        ref = lanes.sweep_lanes_chain_plain(*args)
+        before = dict(lanes.LAUNCHES)
+        got = lanes.sweep_lanes_chain(*args)
+        torch.cuda.synchronize()
+        assert {k: v - before[k] for k, v in lanes.LAUNCHES.items() if v != before[k]} == \
+            {bank.kernel: 1}
+        for name, g, r in zip(lanes.LanesOut._fields, got, ref):
+            assert (g is None) == (r is None), name
+            if g is None:
+                continue
+            assert bool(torch.isfinite(g).all()), name
+            if name == "pll":
+                _phase_close(g[0], r[0])
+                g, r = g[1], r[1]
+            np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(), atol=tol, rtol=0,
+                                       err_msg=name)
+        assert (got.audio_r is None) == (nr == "denoise")
+        if nb:
+            assert float(got.nb_mask[:, -1].max()) == 0.0
+        out, state = bank.process_planar(xr, xi, state)
+        assert torch.equal(out["audio_l"], got.audio_l)
+        assert (out["audio_r"] is out["audio_l"]) == (nr == "denoise")
+        want, st_ref = ref_bank.process_planar(xr, xi, st_ref)
+        for key in ("audio_l", "audio_r"):
+            np.testing.assert_allclose(out[key].cpu().numpy(), want[key].cpu().numpy(),
+                                       atol=2e-3, rtol=0)
+
+
+def test_nr_chain_wrapper_rejects_bad_arguments(cuda_device):
+    """The NR chain's wrapper raises on what its kernels do not take: two NR
+    stages or none, a strided input, LMS carries of the wrong shape, an
+    unknown LMS mode, and SSB + spectral without the blanker (K4's route)."""
+    bank = _lanes_bank("am", "notch", False, 4, cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(9)
+    xr, xi = _locked(4, 512, gen, cuda_device)
+    args = bank.lanes_args(xr, xi, bank.init_state())
+    lms_a = args[-2]
+    spec_a = sweep.SpecArgs(torch.zeros((512, 512), device=cuda_device),
+                            torch.zeros((512, 256), device=cuda_device),
+                            torch.zeros(4, device=cuda_device),
+                            torch.zeros((4, 128), device=cuda_device),
+                            torch.zeros((4, 128), device=cuda_device), 30.0)
+    wide = torch.zeros((4, 1024), device=cuda_device)
+    for bad in (args[:-2] + (lms_a, spec_a), args[:-2] + (None, None),
+                (wide[:, ::2], wide[:, ::2]) + args[2:],
+                args[:-2] + (lms_a._replace(weights=lms_a.weights[:, :64]), None),
+                args[:-2] + (lms_a._replace(mode="both"), None)):
+        with pytest.raises(ValueError):
+            lanes.sweep_lanes_chain(*bad)
+    ssb = _lanes_bank("ssb", "spectral", True, 4, cuda_device)
+    ssb_args = ssb.lanes_args(xr, xi, ssb.init_state())
+    with pytest.raises(ValueError, match="sweep_spec"):
+        lanes.sweep_lanes_chain(*ssb_args[:17], False, *ssb_args[18:])

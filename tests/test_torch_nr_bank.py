@@ -200,23 +200,26 @@ def test_cpu_routes_never_launch():
     ({"nr": "SPEC2", "mode": "AM"}, False, 8, ValueError),          # AM staged
     ({"nr": "DNR1", "mode": "SAM"}, False, 8, ValueError),          # SAM staged
     ({"nr": "SPEC2"}, False, 129, ValueError),                      # > 128 channels staged
-    ({"nr": "DNR2"}, True, 8, NotImplementedError),                 # lms folded: K6
-    ({"nr": "NOTCH"}, True, 8, NotImplementedError),                # notch folded: K6
-    ({"nr": "SPEC2", "mode": "AM"}, True, 8, NotImplementedError),  # AM + NR: K6
-    ({"nr": "DNR1", "mode": "SAM"}, True, 8, NotImplementedError),  # SAM + NR: K6
-    ({"nr": "SPEC2", "noise_blanker": True}, True, 8, NotImplementedError),  # NR + NB: K6
+    ({"nr": "DNR2"}, True, 8, "lanes_ssb_denoise"),                 # lms folded: K6
+    ({"nr": "NOTCH"}, True, 8, "lanes_ssb_notch"),                  # notch folded: K6
+    ({"nr": "SPEC2", "mode": "AM"}, True, 8, "lanes_am_spectral"),  # AM + NR: K6
+    ({"nr": "DNR1", "mode": "SAM"}, True, 8, "lanes_sam_denoise"),  # SAM + NR: K6
+    ({"nr": "SPEC2", "noise_blanker": True}, True, 8, "lanes_ssb_spectral_nb"),  # NR + NB: K6
 ])
 def test_rejects_as_jax_or_names_the_lanes_kernel(cfg_kw, fold, n_ch, error):
     """The JAX bank's ValueErrors stay; every route that runs the lanes kernel
-    K6 in JAX raises NotImplementedError naming ROADMAP item 6."""
+    K6 in JAX builds on the port's route "lanes" and names its instantiation."""
     kw = dict(cfg_kw)
     jc, tc = _configs("dnr2")
     nr, mode = kw.pop("nr"), kw.pop("mode", "USB")
     tc = tc.with_(nr=tcfg.NRMode[nr], mode=tcfg.DemodMode[mode], **kw)
     freqs = [7_190_000.0 + 100.0 * k for k in range(n_ch)]
-    with pytest.raises(error, match="ROADMAP item 6" if error is NotImplementedError else None):
+    if isinstance(error, str):
+        bank = FusedNRBank(tc, freqs, fold=fold, device="cpu")
+        assert (bank.route, bank.kernel, bank.lanes) == ("lanes", error, 128)
+        return
+    with pytest.raises(error):
         FusedNRBank(tc, freqs, fold=fold, device="cpu")
-    if error is ValueError:
-        jc = jc.with_(nr=jcfg.NRMode[nr], mode=jcfg.DemodMode[mode], **kw)
-        with pytest.raises(ValueError):
-            JaxFusedNRBank(jc, freqs, fold=fold, interpret=True)
+    jc = jc.with_(nr=jcfg.NRMode[nr], mode=jcfg.DemodMode[mode], **kw)
+    with pytest.raises(ValueError):
+        JaxFusedNRBank(jc, freqs, fold=fold, interpret=True)
