@@ -49,7 +49,19 @@ banks against the port's reference chain, and times them:
     SAM_PREFIX samples (the plain PLL is one host-bound step per sample):
     threaded as two segments, and the full run's first samples; each route
     against ``ReceiverBank(mode=SAM)`` on a prefix; K7 against K6 at
-    1,024 channels over two full segments.
+    1,024 channels over two full segments;
+  - K8, ``sweep_mix_filter_demod`` (mix + band-pass + SSB demod from a
+    stream start), at tools/bench_sweep.py's shapes (128 channels x 2^19):
+    kernel sweep_mix_demod, 1 launch/call, held to its plain version, to
+    mix_demod with a zero tail and across chunk_t, timed as the tool times
+    it (a chain of calls, each on the previous output);
+  - the single-channel ``Receiver``, the model the CLI runs: on the six
+    golden scenes (rebuilt by the port's utils/scenes.py) held to
+    tests/goldens/*.npz, its NOTCH case's LMS on lms_nr; against the same
+    Receiver on the CPU at fft_length 512 (DNR2), with conv_first and with
+    the inline denoise; the I2S-slip repair sequence with hysteresis on a
+    mid-stream slip; and timed per 16,384-sample CLI block (NR off, NOTCH,
+    SPEC2) with its real-time factor.
 
 Every phase prints one flushed line with the seconds elapsed. Any failure
 raises and exits non-zero; without a CUDA card it exits non-zero at once.
@@ -65,7 +77,9 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
+import numpy as np
 import torch
 
 T0 = time.perf_counter()
@@ -91,6 +105,14 @@ SEG_LEN = 1 << 19    # bench.py:39
 SEGMENTS = 3         # threaded segments of each full-width run
 REPS = 10            # timed segments
 LMS_PREFIX = 16384   # samples of the per-sample plain LMS held to the kernel
+TOL_K8_K2A = 2e-5    # K8 vs mix_demod with a zero tail (tests/test_pallas_sweep.py:30)
+TOL_CHUNK = 1e-5     # K8 across chunk_t
+K8_INC = 123456789   # tools/bench_sweep.py's DDS increment
+CLI_BLOCK = 16384    # samples per Receiver call in the CLI (cli.py:389)
+CLI_BLOCKS = 32      # threaded blocks of each timed Receiver run
+PROFILED_BLOCKS = 4  # blocks of each Receiver run traced by the profiler
+FS = 44117.647       # samples per second per channel
+GOLDENS = Path(__file__).resolve().parent / "tests" / "goldens"
 PEAK_BYTES_S = 3.35e12   # H100 SXM device memory
 PEAK_FP32_S = 67e12      # H100 SXM fp32 outside the tensor cores
 NB_FLOPS_PER_SAMPLE = 10  # |x|, the one-pole average, the threshold test
@@ -187,7 +209,8 @@ def ptxas_summary(log: str):
             g, nb = re.search(r"sam_wide_kernelILi(\d)ELb(\d)E", mangled).groups()
             kname = f"sam_wide{'_nb' if nb == '1' else ''} (G={g})"
         else:
-            kname = next(k for fn, k in (("mix_demod_kernel", "mix_demod"), ("pbt_kernel", "pbt"),
+            kname = next(k for fn, k in (("mix_demod_kernelILb0", "sweep_mix_demod"),
+                                         ("mix_demod_kernel", "mix_demod"), ("pbt_kernel", "pbt"),
                                          ("lms_kernel", "lms_nr"),
                                          ("sam_pll_kernel", "sam_pll"))
                          if fn in mangled)
@@ -276,9 +299,12 @@ def main() -> None:
         AGCMode, DemodMode, NRMode, ReceiverConfig)
     from radiodsp_sdr_rx_tpu_torch.models.fused import (
         FusedAMBank, FusedNRBank, FusedSAMBank, FusedSSBBank)
-    from radiodsp_sdr_rx_tpu_torch.models.receiver import ReceiverBank
+    from radiodsp_sdr_rx_tpu_torch.models.receiver import Receiver, ReceiverBank
     from radiodsp_sdr_rx_tpu_torch.ops import (
-        agc, iir, lanes, lms, lms_bank, planar, sam, sam_wide, staged, sweep, sweep_spec)
+        agc, fir_design, iir, lanes, lms, lms_bank, nco, planar, sam, sam_wide, staged, sweep,
+        sweep_spec)
+    from radiodsp_sdr_rx_tpu_torch.ops.operators import ssb_demod_operator
+    from radiodsp_sdr_rx_tpu_torch.utils import scenes, siggen
     from radiodsp_sdr_rx_tpu_torch.utils import build
 
     torch.backends.cuda.matmul.allow_tf32 = False   # the plain versions in full fp32
@@ -293,6 +319,7 @@ def main() -> None:
         sam.LAUNCHES = sweep.LAUNCHES_SAM = sweep.LAUNCHES_SAM_NB = 0
         sam_wide.LAUNCHES = sam_wide.LAUNCHES_NB = 0
         lanes.LAUNCHES.update(dict.fromkeys(lanes.LAUNCHES, 0))
+        sweep.LAUNCHES_SWEEP_MIX = 0
 
     def counts() -> dict:
         return {"sweep_chain_ssb": sweep.LAUNCHES, "sweep_chain_ssb_nb": sweep.LAUNCHES_NB,
@@ -302,7 +329,7 @@ def main() -> None:
                 "sweep_spec_chain": sweep_spec.LAUNCHES, "sam_pll": sam.LAUNCHES,
                 "sweep_chain_sam": sweep.LAUNCHES_SAM, "sweep_chain_sam_nb": sweep.LAUNCHES_SAM_NB,
                 "sam_wide": sam_wide.LAUNCHES, "sam_wide_nb": sam_wide.LAUNCHES_NB,
-                **lanes.LAUNCHES}
+                **lanes.LAUNCHES, "sweep_mix_demod": sweep.LAUNCHES_SWEEP_MIX}
 
     def only(**launched) -> dict:
         """The counts of a path that launched these kernels and no other."""
@@ -1110,6 +1137,156 @@ def main() -> None:
                         f"{' + blanker' if nb else ''} fold=True", SEG_NR)
     check(sorted(nr_ends) == sorted(lanes.KERNELS), f"routes driven {sorted(nr_ends)}")
 
+    # 4k. K8, sweep_mix_filter_demod, at tools/bench_sweep.py's shapes: 128 ch
+    # x 2^19, the SSB operator of a 300-4000 Hz band, DDS increment
+    # 123456789 from phase 0 on the main path's 0.1-sigma noise, driven as the
+    # tool drives it (each call consumes the previous call's output), then
+    # the same input with per-channel increments 1 kHz apart, random phases
+    # and out_gain 1.1. Held to its plain version, to mix_demod with a zero
+    # tail (its function from a stream start), across chunk_t, on an odd
+    # chunk count and a single chunk
+    w_k8 = torch.as_tensor(np.ascontiguousarray(ssb_demod_operator(
+        fir_design.design_filter_mask(300.0, 4000.0, 44117.64706))), device="cuda")
+    inc_k8 = torch.full((N_CHANNELS,), K8_INC, dtype=torch.int64, device="cuda")
+    ph_k8 = torch.zeros(N_CHANNELS, dtype=torch.int64, device="cuda")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    reset_counts()
+    a, b = xr, xi
+    for seg in range(SEGMENTS):
+        o = sweep.sweep_mix_filter_demod(a, b, inc_k8, ph_k8, w_k8)
+        if seg == 0:
+            k8_first = o
+        a, b = o, a
+    torch.cuda.synchronize()
+    launched = counts()
+    for k, v in launched.items():
+        launches[k] += v
+    say(f"K8 path (tools/bench_sweep.py): {N_CHANNELS} ch x {SEG_LEN} samples, {SEGMENTS} "
+        f"chained calls in {time.perf_counter() - t:.3f} s, kernel launches {launched}")
+    check(launched == only(sweep_mix_demod=SEGMENTS), f"expected {SEGMENTS} sweep_mix_demod "
+          f"launches and no other, counted {launched}")
+    check(tuple(o.shape) == (N_CHANNELS, SEG_LEN) and bool(torch.isfinite(o).all()),
+          "K8's output is not finite or has the wrong shape")
+    del a, b, o
+    inc_k8b = torch.tensor([int(nco.freq_to_phase_inc(1000.0 * k, 44117.64706))
+                            for k in range(N_CHANNELS)], dtype=torch.int64, device="cuda")
+    ph_k8b = torch.randint(0, 2**32, (N_CHANNELS,), generator=gen, device="cuda",
+                           dtype=torch.int64)
+    zero_tail = torch.zeros((N_CHANNELS, 256), device="cuda")
+    for label, inc_, ph_, og in (("inc 123456789, gain 1.0", inc_k8, ph_k8, 1.0),
+                                 ("increments 1 kHz apart, gain 1.1", inc_k8b, ph_k8b, 1.1)):
+        got = k8_first if og == 1.0 else sweep.sweep_mix_filter_demod(xr, xi, inc_, ph_, w_k8,
+                                                                       out_gain=og)
+        d = max_diff([got], [sweep.sweep_mix_filter_demod_plain(xr, xi, inc_, ph_, w_k8, og)])
+        d_k2a = max_diff([got], [staged.fused_mix_filter_demod(xr, xi, inc_, ph_, w_k8, zero_tail)
+                                 * float(np.float32(og))])
+        d_chunk = max(max_diff([sweep.sweep_mix_filter_demod(xr, xi, inc_, ph_, w_k8, og,
+                                                             chunk_t=ct)], [got])
+                      for ct in (2048, 8192))
+        torch.cuda.synchronize()
+        say(f"check sweep_mix_demod full width ({label}): max |kernel - plain| = {d:.3e} "
+            f"(tolerance {TOL:g}); max |K8 - mix_demod with a zero tail| = {d_k2a:.3e} "
+            f"(tolerance {TOL_K8_K2A:g}); across chunk_t 2048, 4096, 8192: {d_chunk:.3e} "
+            f"(tolerance {TOL_CHUNK:g}); rms {float(got.square().mean().sqrt()):.4f}")
+        check(d <= TOL and d_k2a <= TOL_K8_K2A and d_chunk <= TOL_CHUNK,
+              f"sweep_mix_demod disagrees ({label}): plain {d:.3e}, mix_demod {d_k2a:.3e}, "
+              f"chunk_t {d_chunk:.3e}")
+        err["sweep_mix_demod"] = max(err["sweep_mix_demod"], d)
+    del got, k8_first, zero_tail
+    x6r, x6i = xr[:, :3 * 2048].contiguous(), xi[:, :3 * 2048].contiguous()
+    want6 = sweep.sweep_mix_filter_demod_plain(x6r, x6i, inc_k8b, ph_k8b, w_k8)
+    d6 = max(max_diff([sweep.sweep_mix_filter_demod(x6r, x6i, inc_k8b, ph_k8b, w_k8,
+                                                    chunk_t=ct)], [want6])
+             for ct in (2048, 3 * 2048))
+    say(f"check sweep_mix_demod on 3 x 2048 samples (an odd chunk count, and one chunk): max "
+        f"|kernel - plain| = {d6:.3e} (tolerance {TOL:g})")
+    check(d6 <= TOL, f"sweep_mix_demod disagrees on an odd chunk count: {d6:.3e}")
+    err["sweep_mix_demod"] = max(err["sweep_mix_demod"], d6)
+    del x6r, x6i, want6
+
+    # 4l. the single-channel Receiver (the model the CLI runs) on the card: the
+    # six golden scenes, rebuilt by the port's utils/scenes.py, one call of
+    # 65,536 samples each, held to tests/goldens/*.npz at 1e-4 x the golden's
+    # peak (tests/test_golden_captures.py); the NOTCH case's LMS on K3
+    for gname, g_cfg, g_iq, _ in scenes.golden_cases():
+        rx = Receiver(g_cfg)
+        st0 = rx.init_state()
+        torch.cuda.synchronize()
+        reset_counts()
+        out, _ = rx.process(g_iq, st0)
+        torch.cuda.synchronize()
+        launched = counts()
+        for k, v in launched.items():
+            launches[k] += v
+        lms_path = g_cfg.nr.kind in ("lms", "notch")
+        check(launched == (only(lms_nr=1) if lms_path else only()),
+              f"Receiver {gname}: launches {launched}")
+        check(all(bool(torch.isfinite(v).all()) and v.shape == (len(g_iq),) for v in out.values()),
+              f"Receiver {gname}: output not finite or of the wrong shape")
+        want = np.load(GOLDENS / f"{gname}.npz")["audio_l"]
+        peak = max(float(np.abs(want).max()), 1e-6)
+        d = float(np.abs(out["audio_l"][:len(want)].cpu().numpy() - want).max())
+        say(f"golden {gname} ({g_cfg.mode.name}, NR {g_cfg.nr.name}"
+            f"{', blanker' if g_cfg.noise_blanker else ''}): Receiver on the card, "
+            f"{len(g_iq)} samples, max |audio - golden| = {d / peak:.3e} x peak (bound 1e-4); "
+            f"launches {dict((k, v) for k, v in launched.items() if v)}")
+        check(d <= 1e-4 * peak, f"Receiver {gname} is off its golden: {d / peak:.3e} x peak")
+
+    # 4m. the Receiver on the card against the Receiver on the CPU, two
+    # threaded segments of CLI_BLOCK samples of the QRM scene: fft_length 512
+    # with DNR2 (K3 on the card), conv_first, conv_first with the inline
+    # denoise and SPEC2; then the I2S re-scoring: a USB voice scene whose Q is
+    # one sample late from the middle of segment 2 of 8, hysteresis 3, the
+    # sequence of locked repairs on both
+    iq_q, truth_q = scenes.qrm_ssb_scene(2 * CLI_BLOCK)
+    cfg_rx = ReceiverConfig(mode=DemodMode.USB, vfo_freq=truth_q["station_freq"],
+                            capture_center_freq=truth_q["center"], agc=AGCMode.MEDIUM)
+    for kw in ({"fft_length": 512, "nr": NRMode.DNR2}, {"conv_first": True},
+               {"conv_first": True, "conv_inline_denoise": True, "nr": NRMode.SPEC2}):
+        c_rx = cfg_rx.with_(**kw)
+        on_card, on_cpu = Receiver(c_rx), Receiver(c_rx, device="cpu")
+        st_c, st_h, d = on_card.init_state(), on_cpu.init_state(), 0.0
+        tol = TOL_LMS if c_rx.nr.kind == "lms" else TOL
+        reset_counts()
+        for seg in range(2):
+            part = iq_q[seg * CLI_BLOCK:(seg + 1) * CLI_BLOCK]
+            out_c, st_c = on_card.process(part, st_c)
+            out_h, st_h = on_cpu.process(part, st_h)
+            d = max(d, max(float((out_c[k].cpu() - out_h[k]).abs().max()) for k in out_c))
+        torch.cuda.synchronize()
+        launched = counts()
+        for k, v in launched.items():
+            launches[k] += v
+        check(launched == (only(lms_nr=2) if c_rx.nr.kind == "lms" else only()),
+              f"Receiver {kw}: launches {launched}")
+        say(f"check Receiver card vs CPU {dict((k, getattr(v, 'name', v)) for k, v in kw.items())}"
+            f", 2 x {CLI_BLOCK}: max |card - cpu| over L, R = {d:.3e} (tolerance {tol:g})")
+        check(d <= tol, f"the Receiver on the card disagrees with the CPU ({kw}): {d:.3e}")
+    seg_i2s, n_i2s = 4096, 8 * 4096
+    iq_v = siggen.ssb_from_audio(siggen.voice_like(n_i2s, FS), 10_000.0, FS, "usb", amp=0.4)
+    iq_v = iq_v + siggen.noise(n_i2s, 0.01)
+    q_late = iq_v.imag.copy()
+    q_late[2 * seg_i2s + 1000:] = q_late[2 * seg_i2s + 999:-1]
+    iq_v = (iq_v.real + 1j * q_late).astype(np.complex64)
+    c_rx = ReceiverConfig(mode=DemodMode.USB, vfo_freq=7_160_000.0,
+                          capture_center_freq=7_150_000.0, auto_iq_repair=True)
+    on_card, on_cpu = Receiver(c_rx), Receiver(c_rx, device="cpu")
+    st_c, st_h, seq_c, seq_h, d = on_card.init_state(), on_cpu.init_state(), [], [], 0.0
+    for k in range(8):
+        part = iq_v[k * seg_i2s:(k + 1) * seg_i2s]
+        out_c, st_c = on_card.process(part, st_c)
+        out_h, st_h = on_cpu.process(part, st_h)
+        seq_c.append(on_card.iq_repair_idx)
+        seq_h.append(on_cpu.iq_repair_idx)
+        d = max(d, float((out_c["audio_l"].cpu() - out_h["audio_l"]).abs().max()))
+    say(f"check Receiver I2S repair, Q one sample late from mid segment 2 of 8, hysteresis "
+        f"{c_rx.iq_repair_hysteresis}: locked repair per segment on the card {seq_c}, on the CPU "
+        f"{seq_h}; max |card - cpu| over L = {d:.3e} (tolerance {TOL:g})")
+    check(seq_c == seq_h and seq_c[-1] == 2 and seq_c[:4] == [0] * 4 and d <= TOL,
+          "the I2S repair sequence on the card differs from the CPU's or from the slip")
+    del iq_v, q_late, out_c, out_h
+
     # 5. timing (CUDA events, after warm-up)
     samples = N_CHANNELS * SEG_LEN
     rows = samples // 128
@@ -1170,6 +1347,57 @@ def main() -> None:
         bound_ms=b_ms, bound_by=b_by, library_ms=lib2_ms, flops=ops2, samples=samples)
     del audio, args
     seg_st_ms = time_ms(lambda: bank_st.process_planar(xr, xi, state_st), REPS)
+
+    def k8_chain():
+        """tools/bench_sweep.py's timing: REPS calls, each on the previous output."""
+        a, b = xr, xi
+        for _ in range(REPS):
+            o = sweep.sweep_mix_filter_demod(a, b, inc_k8, ph_k8, w_k8)
+            a, b = o, a
+
+    b_ms, b_by = bound(ops1, 3 * samples * 4 + 4 * 512 * 128 + N_CHANNELS * 2 * 8)
+    timing["sweep_mix_demod"] = dict(
+        ms=time_ms(k8_chain, 1) / REPS,
+        plain_ms=time_ms(lambda: sweep.sweep_mix_filter_demod_plain(xr, xi, inc_k8, ph_k8, w_k8),
+                         3),
+        bound_ms=b_ms, bound_by=b_by, library_ms=lib1_ms, flops=ops1, samples=samples)
+
+    # the Receiver per CLI block: CLI_BLOCKS threaded blocks of CLI_BLOCK
+    # samples of the QRM scene after one warm-up block, automatic I2S repair
+    # on (the CLI's default: one int read back per block), the host clock
+    # around the run; one channel, so every tensor is (1, n)
+    iq_t, truth_t = scenes.qrm_ssb_scene((CLI_BLOCKS + 1) * CLI_BLOCK)
+    rx_ms, rx_busy = {}, {}
+    for nr_t in (NRMode.OFF, NRMode.NOTCH, NRMode.SPEC2):
+        rx = Receiver(ReceiverConfig(mode=DemodMode.USB, vfo_freq=truth_t["station_freq"],
+                                     capture_center_freq=truth_t["center"], nr=nr_t,
+                                     auto_iq_repair=True))
+        _, st = rx.process(iq_t[:CLI_BLOCK], rx.init_state())
+        torch.cuda.synchronize()
+        reset_counts()
+        t = time.perf_counter()
+        for k in range(1, CLI_BLOCKS + 1):
+            out, st = rx.process(iq_t[k * CLI_BLOCK:(k + 1) * CLI_BLOCK], st)
+        torch.cuda.synchronize()
+        rx_ms[nr_t.name] = (time.perf_counter() - t) * 1e3 / CLI_BLOCKS
+        launched = counts()
+        for k, v in launched.items():
+            launches[k] += v
+        check(launched == (only(lms_nr=CLI_BLOCKS) if nr_t == NRMode.NOTCH else only()),
+              f"Receiver {nr_t.name} timing run: launches {launched}")
+        check(bool(torch.isfinite(out["audio_l"]).all()), "Receiver output not finite")
+        # the device's busy time in the same blocks, from a profiler trace of
+        # PROFILED_BLOCKS more: the kernels' and copies' summed durations
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for k in range(1, PROFILED_BLOCKS + 1):
+                out, st = rx.process(iq_t[k * CLI_BLOCK:(k + 1) * CLI_BLOCK], st)
+            torch.cuda.synchronize()
+        device_ops = [e for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA]
+        rx_busy[nr_t.name] = (sum(e.time_range.elapsed_us() for e in device_ops) / 1e3
+                              / PROFILED_BLOCKS, len(device_ops) / PROFILED_BLOCKS)
+    del iq_t, out
 
     # the AM kernels at config1's shape; the library yardstick is the same two
     # products as fp32 torch.matmul
@@ -1369,6 +1597,13 @@ def main() -> None:
                f"segment)" if "plain_from" in tm else "")
             + f", library {library}, bound "
             f"{tm['bound_ms']:.3f} ms ({tm['bound_by']})")
+    block_s = CLI_BLOCK / FS
+    say(f"timing Receiver (1 channel, {CLI_BLOCKS} threaded CLI blocks of {CLI_BLOCK} samples, "
+        f"automatic I2S repair on): "
+        + ", ".join(f"NR {k} {v:.3f} ms per block (real-time factor {block_s * 1e3 / v:.1f}; "
+                    f"device busy {rx_busy[k][0]:.3f} ms in {rx_busy[k][1]:.0f} kernels and "
+                    f"copies per block by the profiler, idle "
+                    f"{100 * (1 - rx_busy[k][0] / v):.0f}%)" for k, v in rx_ms.items()))
     say(f"timing paths: FusedSSBBank.process_planar per segment: sweep {seg_ms:.3f} ms, "
         f"staged {seg_st_ms:.3f} ms (of which agc_run {agc_ms:.3f} ms), noise blanker "
         f"{seg_nb_ms:.3f} ms; "
@@ -1400,7 +1635,8 @@ def main() -> None:
                "sam_wide": ("sam_wide.cu", "pallas_sam_wide.py:49"),
                "sam_wide_nb": ("sam_wide.cu", "pallas_sam_wide.py:49"),
                **{k: (f"{sweep.LIBRARIES[k.split('_')[2]]}.cu", "pallas_chain_lanes.py:98")
-                  for k in lanes.KERNELS}}
+                  for k in lanes.KERNELS},
+               "sweep_mix_demod": ("staged.cu", "pallas_sweep.py:59")}
     print(json.dumps({"kernels": [{
         "name": kname, "route": "cuda",
         "source": f"radiodsp_sdr_rx_tpu_torch/csrc/{src}",

@@ -15,11 +15,15 @@ Layers, from the entry point down:
                    FusedSAMBank: staged (the PLL kernel, then PBT), or
                    folded into one launch per segment, up to 128 channels
                    on the lanes chain, wider banks on the wide chain
-  models/receiver.py  ReceiverBank: the reference bank chain, plain PyTorch
-                   stages (ops/planar.py with the exact SAM PLL, ops/iir.py,
-                   ops/agc.py, ops/qformat.py) and the LMS stages on a kernel
+  models/receiver.py  Receiver: the single-channel receiver the CLI runs
+                   (I/Q swap, I2S-slip repair with hysteresis, ops/
+                   preprocessor.py); ReceiverBank: the reference bank chain;
+                   both plain PyTorch stages (ops/planar.py with the exact
+                   SAM PLL and the conv-first stages, ops/iir.py, ops/agc.py,
+                   ops/qformat.py), any fft_length, the LMS stages on a kernel
   ops/sweep.py     sweep_full_chain, sweep_am_chain, sweep_sam_chain: kernel
-                   wrappers, plain versions, launch counts
+                   wrappers, plain versions, launch counts; sweep_mix_filter_
+                   demod: mix + band-pass + SSB demod from a stream start (K8)
   ops/sam.py       sam_pll_run: the SAM PLL kernel (K5); the PLL step and
                    re-seed schedule the SAM chains share
   ops/sam_wide.py  sweep_sam_wide: the SAM chain for wide banks (K7)
@@ -29,6 +33,9 @@ Layers, from the entry point down:
   ops/staged.py    fused_mix_filter_demod, pbt_filter: the staged kernels
   ops/lms_bank.py  lms_nr_run_bank: the LMS kernel (ops/lms.py: its state)
   ops/agc.py       agc_run: the staged backend's and ReceiverBank's AGC
+  ops/noise_blanker.py, ops/fastconv.py  the complex-IQ blanker and
+                   overlap-save filters (the FFT form a cross-check)
+  utils/siggen.py, utils/scenes.py  synthetic signals and band scenes
   ops/chain_common.py  the mix, framings and argument checks the plain
                    versions, wrappers and the reference chain share
   csrc/*.cu        the kernels (shared device code in csrc/chain_common.cuh
@@ -53,8 +60,9 @@ from radiodsp_sdr_rx_tpu_torch.models.fused import (
     FusedSAMBankState,
     FusedSSBBank,
 )
-from radiodsp_sdr_rx_tpu_torch.models.receiver import ReceiverBank, ReceiverState
+from radiodsp_sdr_rx_tpu_torch.models.receiver import Receiver, ReceiverBank, ReceiverState
 
 __all__ = ["AGCMode", "DemodMode", "FusedAMBank", "FusedAMBankState", "FusedBankState",
            "FusedNRBank", "FusedNRBankState", "FusedSAMBank", "FusedSAMBankState",
-           "FusedSSBBank", "NRMode", "ReceiverBank", "ReceiverConfig", "ReceiverState"]
+           "FusedSSBBank", "NRMode", "Receiver", "ReceiverBank", "ReceiverConfig",
+           "ReceiverState"]

@@ -9,11 +9,20 @@
 // mixed stream; row -1 is the carried tail (C, 256) [re|im], already scaled
 // and not yet mixed, which is mixed at positions -128..-1.
 //
+// sweep_mix_demod replaces _sweep_kernel (radiodsp_sdr_rx_tpu/ops/
+// pallas_sweep.py:59, wrapper sweep_mix_filter_demod :147): the same mix and
+// product from a stream start, so row -1 is zeros and nothing is carried in
+// or out, no input gains, and the audio stored times out_gain. The TPU kernel
+// walks each channel block's whole time axis to keep its framing tail in
+// VMEM; here the stream is in device memory, so each chunk reads the row
+// before it straight from the stream and K2a's (channel, chunk) grid serves.
+// It is mix_demod_kernel instantiated without the tail load.
+//
 // pbt replaces _pbt_kernel (pallas_kernels.py:177, wrapper pbt_filter :189):
 // frames [row r-1 | row r] of the audio, (rows,256) @ w_pbt(256,256) ->
 // [L|R], output gain; row -1 is the carried audio tail (C, 128).
 //
-// What bounds them on an H100: mix_demod reads 8 B and writes 4 B per
+// What bounds them on an H100: mix_demod (and sweep_mix_demod) reads 8 B and writes 4 B per
 // sample and does 1,024 flops per 128 samples of the product; pbt reads 4 B
 // and writes 8 B and does the same 1,024. At 128 channels x 2^19 samples
 // each is 68.7 GFLOP (1.03 ms at the 67 TFLOP/s fp32 rate outside the tensor
@@ -34,11 +43,15 @@ namespace {
 constexpr int kMixSmemFloats = kAsFloats + kBsFloats + 2 * kRowBuf;
 constexpr int kPbtSmemFloats = kAsFloats + kBsFloats + kRowBuf;
 
+// kTail: mix_demod, row -1 of chunk 0 the carried tail, input gains, the
+// audio stored as it is. Else sweep_mix_demod: row -1 zeros (the tail load
+// compiled out), no input gains, the audio stored times out_gain.
+template <bool kTail>
 __global__ void __launch_bounds__(kThreads) mix_demod_kernel(
     const float* __restrict__ xr, const float* __restrict__ xi,
     const long long* __restrict__ inc, const long long* __restrict__ phase0,
     const float* __restrict__ w_ssb, const float* __restrict__ tail,
-    float* __restrict__ audio, int n, float g_i, float g_q) {
+    float* __restrict__ audio, int n, float g_i, float g_q, float out_gain) {
   extern __shared__ __align__(16) float smem[];
   float* As = smem;
   float* Bs = As + kAsFloats;
@@ -57,11 +70,13 @@ __global__ void __launch_bounds__(kThreads) mix_demod_kernel(
     const int r = e / kBlk, j = e % kBlk;
     const int pos = (row0 + r - 1) * kBlk + j;
     float vr = 0.f, vi = 0.f;
-    if (pos < 0) {  // the carried tail: scaled already
-      mix(tail[(size_t)c * 2 * kBlk + j], tail[(size_t)c * 2 * kBlk + kBlk + j],
-          ph0 + (uint32_t)pos * dph, 1.f, 1.f, vr, vi);
+    if (pos < 0) {  // the carried tail, scaled already; zeros at a stream start
+      if constexpr (kTail)
+        mix(tail[(size_t)c * 2 * kBlk + j], tail[(size_t)c * 2 * kBlk + kBlk + j],
+            ph0 + (uint32_t)pos * dph, 1.f, 1.f, vr, vi);
     } else if (r <= rows) {
-      mix(xr[base + pos], xi[base + pos], ph0 + (uint32_t)pos * dph, g_i, g_q, vr, vi);
+      mix(xr[base + pos], xi[base + pos], ph0 + (uint32_t)pos * dph, kTail ? g_i : 1.f,
+          kTail ? g_q : 1.f, vr, vi);
     }
     Mr[r * kLd + j] = vr;
     Mi[r * kLd + j] = vi;
@@ -70,7 +85,7 @@ __global__ void __launch_bounds__(kThreads) mix_demod_kernel(
 
   float acc[8][4];
   chunk_gemm<128>(Mr, Mi, w_ssb, 512, As, Bs, acc);
-  store_rows<128>(acc, audio, nullptr, base, row0, rows, 1.f);
+  store_rows<128>(acc, audio, nullptr, base, row0, rows, kTail ? 1.f : out_gain);
 }
 
 __global__ void __launch_bounds__(kThreads) pbt_kernel(
@@ -126,10 +141,22 @@ extern "C" int mix_demod(const float* xr, const float* xi, const long long* inc,
                          const float* tail, float* audio, int channels, int n,
                          int device, float g_i, float g_q, void* stream) {
   const int smem = kMixSmemFloats * (int)sizeof(float);
-  const int err = prepare((const void*)mix_demod_kernel, smem, device);
+  const int err = prepare(reinterpret_cast<const void*>(&mix_demod_kernel<true>), smem, device);
   if (err) return err;
-  mix_demod_kernel<<<grid(channels, n), kThreads, smem, (cudaStream_t)stream>>>(
-      xr, xi, inc, phase0, w_ssb, tail, audio, n, g_i, g_q);
+  mix_demod_kernel<true><<<grid(channels, n), kThreads, smem, (cudaStream_t)stream>>>(
+      xr, xi, inc, phase0, w_ssb, tail, audio, n, g_i, g_q, 1.f);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int sweep_mix_demod(const float* xr, const float* xi, const long long* inc,
+                               const long long* phase0, const float* w_ssb, float* audio,
+                               int channels, int n, int device, float out_gain,
+                               void* stream) {
+  const int smem = kMixSmemFloats * (int)sizeof(float);
+  const int err = prepare(reinterpret_cast<const void*>(&mix_demod_kernel<false>), smem, device);
+  if (err) return err;
+  mix_demod_kernel<false><<<grid(channels, n), kThreads, smem, (cudaStream_t)stream>>>(
+      xr, xi, inc, phase0, w_ssb, nullptr, audio, n, 1.f, 1.f, out_gain);
   return (int)cudaGetLastError();
 }
 

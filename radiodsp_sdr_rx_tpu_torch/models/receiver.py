@@ -4,16 +4,23 @@
 package does, so the two packages compute from bit-equal operators. The
 fields keep the JAX names.
 
-``ReceiverBank`` is the many-channel reference chain: every stage of
-``rx_chain_batched`` (:310-460) on (C, n) planes, plain PyTorch as the JAX
-chain is XLA, except the adaptive LMS stages, which run the K3 kernel on the
-card (``ops/lms_bank.py``). It covers the SSB modes, AM and SAM (the exact
-PLL of ``planar.demod_sam_planar``, no kernel, as in JAX), NR off / notch /
-lms (DNR1-4), spectral NR (SPEC1-4), the noise blanker, ``quantize_output``
-and ``mute``. The conv-first variants raise ``NotImplementedError`` naming
-their ROADMAP item; their state fields are carried unchanged, so a JAX state
-converts both ways (``utils/convert.py``). The single-channel
-``Receiver`` and the per-channel ``rx_chain`` come with ROADMAP item 7.
+``rx_chain_batched`` (:310-460) is the reference chain on (C, n) planes,
+plain PyTorch as the JAX chain is XLA, except the adaptive LMS stages, which
+run the K3 kernel on the card (``ops/lms_bank.py``). It covers every
+configuration the JAX chain takes: the SSB modes, AM and SAM (the exact PLL
+of ``planar.demod_sam_planar``, no kernel, as in JAX), NR off / notch / lms
+(DNR1-4) / spectral (SPEC1-4), the noise blanker, the conv-first variants
+(the audio band-pass, or the inline spectral denoise, on the mixed IQ before
+the demod, and no PBT), ``quantize_output``, ``mute`` and any
+``fft_length``. ``ReceiverBank`` runs it for many channels.
+
+``rx_chain`` (:141-307) is the per-channel chain of the JAX package, (n,)
+planes and a state without the channel axis; it runs ``rx_chain_batched`` on
+a (1, n) view. ``Receiver`` (:473-573) is the single-channel receiver the
+CLI builds: the manual I/Q swap and the automatic I2S-slip repair
+(``ops/preprocessor.py``), re-scored on every segment's first 2^15 samples
+with hysteresis, in front of ``rx_chain``. On the card the slip is scored
+there and one int per segment comes back to the host.
 """
 
 from __future__ import annotations
@@ -25,7 +32,7 @@ import torch
 
 from radiodsp_sdr_rx_tpu_torch.models.config import DemodMode, NRMode, ReceiverConfig
 from radiodsp_sdr_rx_tpu_torch.ops import agc as agc_ops
-from radiodsp_sdr_rx_tpu_torch.ops import fir_design, lms, nco, planar
+from radiodsp_sdr_rx_tpu_torch.ops import fir_design, lms, nco, planar, preprocessor
 from radiodsp_sdr_rx_tpu_torch.ops.operators import pbt_operator, ssb_demod_operator
 from radiodsp_sdr_rx_tpu_torch.ops.qformat import quantize_q15
 from radiodsp_sdr_rx_tpu_torch.utils.convert import params_from_numpy, resolve_device, split_iq
@@ -98,15 +105,16 @@ def build_params(config: ReceiverConfig) -> ReceiverParams:
 
 
 class ReceiverState(NamedTuple):
-    """All carried DSP state of a bank, field for field the JAX
-    ``ReceiverState`` with the leading channel axis of the JAX bank's
-    stacked state. DDS words are int64 in [0, 2^32)."""
+    """All carried DSP state, field for field the JAX ``ReceiverState``: a
+    bank's with the leading channel axis of the JAX bank's stacked state, a
+    ``Receiver``'s without it (the shapes below less the C). DDS words are
+    int64 in [0, 2^32). F is fft_length."""
 
     nco_phase: torch.Tensor     # (C,) int64 DDS phase words
-    sb_tail_r: torch.Tensor     # (C, 128) f32 IQ-stage overlap-save carry (mixed)
-    sb_tail_i: torch.Tensor     # (C, 128)
-    audio_tail: torch.Tensor    # (C, 128) f32 PBT-stage carry
-    spec_tail_l: torch.Tensor   # (C, 128) f32 spectral-subtraction carries
+    sb_tail_r: torch.Tensor     # (C, F/2) f32 IQ-stage overlap-save carry (mixed)
+    sb_tail_i: torch.Tensor     # (C, F/2)
+    audio_tail: torch.Tensor    # (C, F/2) f32 PBT-stage carry
+    spec_tail_l: torch.Tensor   # (C, F/2) f32 spectral-subtraction carries
     spec_tail_r: torch.Tensor
     agc_env: torch.Tensor       # (C,) f32
     nb_avg: torch.Tensor        # (C,) f32
@@ -114,7 +122,7 @@ class ReceiverState(NamedTuple):
     sam: planar.SAMStatePlanar
     lms: lms.LMSState
     nfloor: torch.Tensor        # (C,) f32 spectral-subtraction noise floor
-    conv_tail_r: torch.Tensor   # (C, 128) f32 conv-first pre-demod carries
+    conv_tail_r: torch.Tensor   # (C, F/2) f32 conv-first pre-demod carries (mixed)
     conv_tail_i: torch.Tensor
 
 
@@ -142,16 +150,11 @@ _SSB_MODES = (DemodMode.USB, DemodMode.LSB, DemodMode.RTTY, DemodMode.CW,
 LMS_MAX_CHANNELS = 128   # the JAX bank's LMS lane width (pallas_lms.LANES)
 
 
-def check_ported(mode: DemodMode, conv_first: bool = False,
-                 conv_inline_denoise: bool = False, fft_length: int = 256) -> None:
-    """Raise NotImplementedError for a stage the port does not have yet."""
+def check_ported(mode: DemodMode) -> None:
+    """Raise ValueError for a mode the chain has no demodulator for, as the
+    JAX chain does."""
     if mode not in _SSB_MODES + (DemodMode.AM, DemodMode.SAM):
         raise ValueError(f"unsupported mode {mode}")
-    if conv_first or conv_inline_denoise:
-        raise NotImplementedError("the conv-first variants come with ROADMAP item 7")
-    if fft_length != 256:
-        raise NotImplementedError("the port frames 128-sample blocks; fft_length "
-                                  "other than 256 is ROADMAP item 2's")
 
 
 def _run_lms(audio, state: lms.LMSState, mu, mode: str):
@@ -168,15 +171,19 @@ def rx_chain_batched(params: ReceiverParams, state: ReceiverState, xr, xi, *,
                      sample_rate: float = 44117.64706, conv_first: bool = False,
                      conv_inline_denoise: bool = False):
     """One segment of the bank chain on (C, n) f32 planes, n a multiple of
-    128; ``params.nco_inc`` holds the (C,) DDS increments. Stage for stage
-    the JAX ``rx_chain_batched``: input gain and IQ balance, [noise blanker],
-    DDS mix, band-pass + SSB demod, or band-pass + AM envelope or SAM PLL
-    (at ``sample_rate``) + DC blocker,
-    [LMS notch], AGC, PBT, [LMS denoise, x1.1 makeup, R <- L, or spectral
-    subtraction with the split DFT], output gain (0 when muted), [q15 round
-    trip]. Every product is full fp32, the JAX chain's default
-    ``matmul_precision="highest"``; the port does not read that setting. Returns ({"audio_l", "audio_r"}, state')."""
-    check_ported(mode, conv_first, conv_inline_denoise, fft_length)
+    fft_length / 2; ``params.nco_inc`` holds the (C,) DDS increments. Stage
+    for stage the JAX ``rx_chain_batched``: input gain and IQ balance,
+    [noise blanker], DDS mix, [conv-first: the audio band-pass (``w_audio``),
+    or with ``conv_inline_denoise`` the inline spectral denoise, on the
+    mixed IQ], band-pass + SSB demod, or band-pass + AM envelope or SAM PLL
+    (at ``sample_rate``) + DC blocker, [LMS notch], AGC, PBT (conv-first:
+    none, L = R = the AGC's output, the PBT tail carried unchanged), [LMS
+    denoise, x1.1 makeup, R <- L, or spectral subtraction with the split
+    DFT], output gain (0 when muted), [q15 round trip]. Every product is
+    full fp32, the JAX chain's default ``matmul_precision="highest"``; the
+    port does not read that setting. Returns ({"audio_l", "audio_r"},
+    state')."""
+    check_ported(mode)
     xr = xr * params.input_gain
     xi = xi * params.input_gain
     xr, xi = planar.iq_gain_balance_planar(xr, xi, params.iq_gain_balance)
@@ -187,6 +194,15 @@ def rx_chain_batched(params: ReceiverParams, state: ReceiverState, xr, xi, *,
             xr, xi, nb_avg, params.nb_threshold_db, params.nb_tau)
 
     xr, xi, nco_phase = planar.nco_mix_planar(xr, xi, state.nco_phase, params.nco_inc)
+
+    conv_tail_r, conv_tail_i = state.conv_tail_r, state.conv_tail_i
+    if conv_first:
+        if conv_inline_denoise:
+            xr, xi, conv_tail_r, conv_tail_i = planar.inline_denoise_planar(
+                xr, xi, params.dft_cos, params.dft_sin, conv_tail_r, conv_tail_i)
+        else:
+            xr, xi, conv_tail_r, conv_tail_i = planar.overlap_save_filter_planar(
+                xr, xi, params.w_audio, conv_tail_r, conv_tail_i)
 
     am_dc, sam_state = state.am_dc, state.sam
     if mode in (DemodMode.AM, DemodMode.SAM):
@@ -210,8 +226,11 @@ def rx_chain_batched(params: ReceiverParams, state: ReceiverState, xr, xi, *,
         max_gain=params.agc_max_gain, enabled=params.agc_enabled)
     audio, agc_env = agc_ops.agc_run(audio, agc_params, state.agc_env)
 
-    audio_l, audio_r, audio_tail = planar.pbt_filter_planar(
-        audio, params.w_pbt, state.audio_tail)
+    if conv_first:
+        audio_l, audio_r, audio_tail = audio, audio, state.audio_tail
+    else:
+        audio_l, audio_r, audio_tail = planar.pbt_filter_planar(
+            audio, params.w_pbt, state.audio_tail)
 
     nfloor = state.nfloor
     spec_tail_l, spec_tail_r = state.spec_tail_l, state.spec_tail_r
@@ -234,8 +253,155 @@ def rx_chain_batched(params: ReceiverParams, state: ReceiverState, xr, xi, *,
         nco_phase=nco_phase, sb_tail_r=sb_tail_r, sb_tail_i=sb_tail_i,
         audio_tail=audio_tail, agc_env=agc_env, nb_avg=nb_avg, am_dc=am_dc,
         sam=sam_state, lms=lms_state, nfloor=nfloor, spec_tail_l=spec_tail_l,
-        spec_tail_r=spec_tail_r)
+        spec_tail_r=spec_tail_r, conv_tail_r=conv_tail_r, conv_tail_i=conv_tail_i)
     return {"audio_l": audio_l, "audio_r": audio_r}, new_state
+
+
+def _map_state(fn, state):
+    """``fn`` on every tensor of a (nested) state."""
+    return type(state)(*(_map_state(fn, v) if isinstance(v, tuple) else fn(v) for v in state))
+
+
+def rx_chain(params: ReceiverParams, state: ReceiverState, xr, xi, **statics):
+    """One segment of one channel: xr, xi (n,) f32, ``state`` without the
+    channel axis (``Receiver.init_state``), ``params.nco_inc`` one DDS word.
+    The keywords are ``rx_chain_batched``'s. Returns ({"audio_l",
+    "audio_r"} each (n,), state')."""
+    inc = torch.as_tensor(params.nco_inc, dtype=torch.int64, device=xr.device).reshape(1)
+    out, state = rx_chain_batched(params._replace(nco_inc=inc),
+                                  _map_state(lambda t: t[None], state),
+                                  xr[None], xi[None], **statics)
+    return ({k: v[0] for k, v in out.items()},
+            _map_state(lambda t: t[0], state))
+
+
+def _split_planar(iq, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """Complex IQ at the host boundary -> f32 planes on ``device``; a real
+    input is the I plane with a zero Q plane."""
+    if not torch.is_tensor(iq):
+        iq = torch.from_numpy(np.ascontiguousarray(iq))
+    iq = iq.to(device)
+    if iq.is_complex():
+        return iq.real.float().contiguous(), iq.imag.float().contiguous()
+    return iq.float(), torch.zeros_like(iq, dtype=torch.float32)
+
+
+def _statics(config: ReceiverConfig) -> dict:
+    return dict(mode=config.mode, nr=config.nr, noise_blanker=config.noise_blanker,
+                quantize_output=config.quantize_output, fft_length=config.fft_length,
+                sample_rate=config.sample_rate, conv_first=config.conv_first,
+                conv_inline_denoise=config.conv_inline_denoise)
+
+
+class Receiver:
+    """Single-channel receiver (``radiodsp_sdr_rx_tpu/models/receiver.py:473-573``).
+
+    >>> rx = Receiver(ReceiverConfig(mode=DemodMode.USB, vfo_freq=7_200_000,
+    ...                              capture_center_freq=7_190_000), device="cpu")
+    >>> state = rx.init_state()
+    >>> out, state = rx.process(iq_segment, state)      # complex at the boundary
+    >>> out, state = rx.process_planar(xr, xi, state)   # planar f32
+
+    ``device=None`` means the CUDA card and raises without one; pass
+    ``device="cpu"`` for the plain PyTorch versions. With ``swap_iq`` the
+    planes swap first. With ``auto_iq_repair`` every segment's first
+    ``_REPAIR_SCORE_SAMPLES`` samples are scored for a one-sample I2S slip
+    (``preprocessor.detect_iq_error_host``: identity, delay I, delay Q);
+    the first segment's verdict is adopted, a later different one only after
+    ``iq_repair_hysteresis`` consecutive segments agree on it; the locked
+    repair is applied with the previous raw segment's last sample carried in.
+    """
+
+    _REPAIR_SCORE_SAMPLES = 1 << 15   # detector prefix bound per segment
+
+    def __init__(self, config: ReceiverConfig, device=None):
+        check_ported(config.mode)
+        self.config = config
+        self.device = resolve_device(device)
+        self._host_params = build_params(config)
+        self.params = self._to_device(self._host_params)
+        self.statics = _statics(config)
+        self._repair_idx: int | None = None
+        self._repair_carry = None
+        self._repair_candidate: int | None = None
+        self._repair_votes = 0
+
+    def _to_device(self, host: ReceiverParams, reuse: ReceiverParams | None = None):
+        """Parameters on the device, nco_inc a (1,) int64 tensor. With
+        ``reuse`` (the host parameters this receiver was built from), the
+        fields whose values did not change keep this receiver's tensors."""
+        fields = host._replace(nco_inc=np.asarray([host.nco_inc], np.int64))._asdict()
+        same = set() if reuse is None else {
+            name for name in ReceiverParams._fields
+            if np.array_equal(np.asarray(getattr(host, name)), np.asarray(getattr(reuse, name)))}
+        params = params_from_numpy({k: v for k, v in fields.items() if k not in same},
+                                   self.device)
+        return params._replace(**{name: getattr(self.params, name) for name in same})
+
+    def _maybe_repair(self, xr, xi):
+        if self.config.swap_iq:          # manual swap (ino:118, swapIQ)
+            xr, xi = xi, xr
+        if not self.config.auto_iq_repair:
+            return xr, xi
+        m = self._REPAIR_SCORE_SAMPLES
+        idx = preprocessor.detect_iq_error_host(xr[..., :m], xi[..., :m])
+        if self._repair_idx is None:
+            self._repair_idx = idx           # first segment: adopt directly
+        elif idx != self._repair_idx:
+            if idx == self._repair_candidate:
+                self._repair_votes += 1
+            else:
+                self._repair_candidate, self._repair_votes = idx, 1
+            if self._repair_votes >= self.config.iq_repair_hysteresis:
+                self._repair_idx = idx       # k consecutive segments agree
+                self._repair_candidate, self._repair_votes = None, 0
+        else:
+            self._repair_candidate, self._repair_votes = None, 0
+        xr, xi, self._repair_carry = preprocessor.apply_repair_planar_host(
+            xr, xi, self._repair_idx, self._repair_carry)
+        return xr, xi
+
+    @property
+    def iq_repair_idx(self) -> int | None:
+        """Locked I2S repair (0 identity, 1 swap, 2 delay I, 3 delay Q);
+        None until the first segment is processed."""
+        return self._repair_idx
+
+    def init_state(self) -> ReceiverState:
+        return _map_state(lambda t: t[0], init_state(self.config.fft_length, 1, self.device))
+
+    def retune(self, **updates) -> "Receiver":
+        """A receiver of the updated config. When mode, NR, blanker, q15,
+        fft_length and sample rate are unchanged it keeps this receiver's
+        chain settings (as the JAX receiver keeps its compiled pipeline),
+        shares the parameter tensors whose values did not change, and keeps
+        the locked I2S repair and its carry; else it is a new Receiver."""
+        new_config = self.config.with_(**updates)
+        old = self.config
+        if not all(getattr(new_config, k) == getattr(old, k) for k in (
+                "mode", "nr", "noise_blanker", "quantize_output", "fft_length",
+                "sample_rate")):
+            return Receiver(new_config, self.device)
+        new_rx = object.__new__(Receiver)
+        new_rx.config, new_rx.device, new_rx.statics = new_config, self.device, self.statics
+        new_rx._host_params = build_params(new_config)
+        new_rx.params = self._to_device(new_rx._host_params, reuse=self._host_params)
+        new_rx._repair_idx = self._repair_idx       # locked repair survives
+        new_rx._repair_carry = self._repair_carry
+        new_rx._repair_candidate, new_rx._repair_votes = None, 0
+        return new_rx
+
+    def process(self, iq, state: ReceiverState):
+        """One segment of complex IQ (n,). Returns ({"audio_l", "audio_r"},
+        state')."""
+        return self.process_planar(*_split_planar(iq, self.device), state)
+
+    def process_planar(self, xr, xi, state: ReceiverState):
+        """One segment of planar f32 IQ, (n,) each."""
+        xr = torch.as_tensor(xr, dtype=torch.float32, device=self.device)
+        xi = torch.as_tensor(xi, dtype=torch.float32, device=self.device)
+        xr, xi = self._maybe_repair(xr, xi)
+        return rx_chain(self.params, state, xr, xi, **self.statics)
 
 
 class ReceiverBank:
@@ -254,19 +420,14 @@ class ReceiverBank:
                  device=None):
         if backend not in ("vmap", "batched"):
             raise ValueError(f"backend must be 'vmap' or 'batched', got {backend!r}")
-        check_ported(config.mode, config.conv_first,
-                     config.conv_inline_denoise, config.fft_length)
+        check_ported(config.mode)
         self.backend = backend
         self.config = config
         self.device = resolve_device(device)
         self.n_channels = len(freqs_hz)
         self.params = params_from_numpy(build_params(config)._replace(
             nco_inc=nco.bank_phase_incs(config, freqs_hz))._asdict(), self.device)
-        self.statics = dict(
-            mode=config.mode, nr=config.nr, noise_blanker=config.noise_blanker,
-            quantize_output=config.quantize_output, fft_length=config.fft_length,
-            sample_rate=config.sample_rate, conv_first=config.conv_first,
-            conv_inline_denoise=config.conv_inline_denoise)
+        self.statics = _statics(config)
 
     def init_state(self) -> ReceiverState:
         return init_state(self.config.fft_length, self.n_channels, self.device)

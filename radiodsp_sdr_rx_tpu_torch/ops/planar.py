@@ -1,15 +1,16 @@
-"""Planar (split re/im f32) stages of the reference chain (``radiodsp_sdr_rx_tpu/ops/planar.py:32-336``).
+"""Planar (split re/im f32) stages of the reference chain (``radiodsp_sdr_rx_tpu/ops/planar.py``).
 
 What ``models/receiver.rx_chain_batched`` calls, on (C, n) planes: input
 balance, the noise blanker, the DDS mix, the overlap-save band-pass (complex
-for AM, fused with the SSB demod otherwise), the AM envelope with its DC
-blocker, the PBT stage and the spectral subtraction (its DFTs as planar
-matrix products). These are XLA in JAX and plain PyTorch here; the
-products run in full fp32 (``chain_common.matmul_fp32``), the JAX chain's
-``Precision.HIGHEST``. The mix and the overlap-save framing are
-``ops/chain_common.py``'s, the pieces the fused kernels' plain versions use,
-so the reference chain and the kernels frame and mix the stream the same
-way. ``demod_sam_planar`` is the exact SAM PLL (cos, sin, atan2 and the
+for AM and the conv-first stage, fused with the SSB demod otherwise), the
+AM envelope with its DC blocker, the PBT stage, the spectral subtraction and
+the conv-first inline denoise (their DFTs as planar matrix products). These
+are XLA in JAX and plain PyTorch here; the products run in full fp32
+(``chain_common.matmul_fp32``), the JAX chain's ``Precision.HIGHEST``. The
+mix is ``ops/chain_common.py``'s, the one the fused kernels' plain versions
+use. The filters frame by their operator's shape, so any ``fft_length``
+(block = fft_length / 2 samples; n a multiple of it) runs, as in JAX.
+``demod_sam_planar`` is the exact SAM PLL (cos, sin, atan2 and the
 phase wrapped by ``torch.remainder``, as ``jnp.mod``), one vectorised step per
 sample over the channels, then the DC blocker.
 """
@@ -23,15 +24,13 @@ import numpy as np
 import torch
 
 from radiodsp_sdr_rx_tpu_torch.ops import nco, sam
-from radiodsp_sdr_rx_tpu_torch.ops.chain_common import (
-    BLOCK,
-    demod_frames,
-    matmul_fp32,
-    mix,
-    pbt_frames,
-)
+from radiodsp_sdr_rx_tpu_torch.ops.chain_common import matmul_fp32, mix
+from radiodsp_sdr_rx_tpu_torch.ops.fastconv import frame_overlap_save
 from radiodsp_sdr_rx_tpu_torch.ops.iir import dc_blocker, first_order_iir
 from radiodsp_sdr_rx_tpu_torch.ops.spectral_sub import (
+    INLINE_END_BIN,
+    INLINE_MULT,
+    INLINE_START_BIN,
     UNDER_FLOOR_GAIN,
     VAD_END_BIN,
     VAD_START_BIN,
@@ -48,27 +47,45 @@ def nco_mix_planar(xr, xi, phase0, phase_inc):
     return yr, yi, nco.advance_phase(phase0, n, phase_inc)
 
 
+def _frames(x, tail):
+    """Overlap-save frames [prev | cur] (C, rows, 2*block) of x (C, n) and
+    its tail (C, block), block = fft_length / 2, n a multiple of block."""
+    block = tail.shape[-1]
+    if x.shape[-1] % block:
+        raise ValueError(f"the segment length {x.shape[-1]} must be a multiple of "
+                         f"fft_length/2 = {block}")
+    return frame_overlap_save(x, tail, block)
+
+
+def _filter(xr, xi, tail_r, tail_i, w):
+    """[frames of xr | frames of xi] (C, rows, 2F) @ w (2F, m)."""
+    return matmul_fp32(torch.cat([_frames(xr, tail_r), _frames(xi, tail_i)], dim=-1), w)
+
+
 def overlap_save_filter_planar(xr, xi, w, tail_r, tail_i):
-    """Complex overlap-save band-pass, w (512, 256). Returns (yr, yi,
-    new_tail_r, new_tail_i); the tails are the input's last block."""
+    """Complex overlap-save band-pass, w (2F, F) with F = fft_length. Returns
+    (yr, yi, new_tail_r, new_tail_i); the tails are the input's last block."""
     c, n = xr.shape
-    y = demod_frames(xr, xi, tail_r, tail_i, w)
-    return (y[..., :BLOCK].reshape(c, n), y[..., BLOCK:].reshape(c, n),
-            xr[:, -BLOCK:], xi[:, -BLOCK:])
+    block = w.shape[1] // 2
+    y = _filter(xr, xi, tail_r, tail_i, w)
+    return (y[..., :block].reshape(c, n), y[..., block:].reshape(c, n),
+            xr[:, -block:], xi[:, -block:])
 
 
 def ssb_filter_demod_planar(xr, xi, w_ssb, tail_r, tail_i):
-    """Sideband filter + SSB demod as one half-width product, w_ssb (512, 128).
+    """Sideband filter + SSB demod as one half-width product, w_ssb (2F, F/2).
     Returns (audio, new_tail_r, new_tail_i)."""
-    audio = demod_frames(xr, xi, tail_r, tail_i, w_ssb).reshape(xr.shape)
-    return audio, xr[:, -BLOCK:], xi[:, -BLOCK:]
+    block = w_ssb.shape[1]
+    audio = _filter(xr, xi, tail_r, tail_i, w_ssb).reshape(xr.shape)
+    return audio, xr[:, -block:], xi[:, -block:]
 
 
 def pbt_filter_planar(audio, w_pbt, tail):
-    """The PBT stage, w_pbt (256, 256) -> [L|R]. Returns (L, R, new_tail)."""
+    """The PBT stage, w_pbt (F, F) -> [L|R]. Returns (L, R, new_tail)."""
     c, n = audio.shape
-    lr = pbt_frames(audio.reshape(c, n // BLOCK, BLOCK), tail, w_pbt)
-    return lr[..., :BLOCK].reshape(c, n), lr[..., BLOCK:].reshape(c, n), audio[:, -BLOCK:]
+    block = w_pbt.shape[0] // 2
+    lr = matmul_fp32(_frames(audio, tail), w_pbt)
+    return lr[..., :block].reshape(c, n), lr[..., block:].reshape(c, n), audio[:, -block:]
 
 
 def demod_am_planar(zr, zi, dc_state):
@@ -169,14 +186,6 @@ def planar_dft_split(xr, xi, n: int):
             torch.cat([e_i + t_i, e_i - t_i], dim=-1))
 
 
-def _frames(x, tail):
-    """Overlap-save frames [prev | cur] (C, rows, 256) of x (C, n) and its
-    tail (C, 128)."""
-    c, n = x.shape
-    x = x.reshape(c, n // BLOCK, BLOCK)
-    return torch.cat([torch.cat([tail[:, None], x[:, :-1]], dim=1), x], dim=-1)
-
-
 def spectral_subtract_planar(l, r, nr_level, nfloor0, dft_cos, dft_sin, tail_l, tail_r,
                              split_dft: bool = True):
     """The backup engine's spectral subtraction on (C, n) stereo planes, the
@@ -185,15 +194,8 @@ def spectral_subtract_planar(l, r, nr_level, nfloor0, dft_cos, dft_sin, tail_l, 
     (dft_cos/dft_sin then give only the size); False multiplies by the
     direct n x n matrices. The floor is tracked across frames, clamped at 0.
     Returns (L', R', nfloor_last, new_tail_l, new_tail_r)."""
-    n = dft_cos.shape[0]
-    if n != 2 * BLOCK:
-        raise ValueError(f"the port frames {BLOCK}-sample blocks: fft length 256, got {n}")
-    fl, fr_ = _frames(l, tail_l), _frames(r, tail_r)
-    if split_dft:
-        sr, si = planar_dft_split(fl, fr_, n)
-    else:
-        sr = matmul_fp32(fl, dft_cos) + matmul_fp32(fr_, dft_sin)
-        si = matmul_fp32(fr_, dft_cos) - matmul_fp32(fl, dft_sin)
+    block = dft_cos.shape[0] // 2
+    sr, si = _forward_dft(_frames(l, tail_l), _frames(r, tail_r), dft_cos, dft_sin, split_dft)
     mag = torch.sqrt(sr * sr + si * si)
 
     floor_est = mag[..., VAD_START_BIN:VAD_END_BIN + 1].sum(-1) / (VAD_END_BIN - VAD_START_BIN)
@@ -203,15 +205,50 @@ def spectral_subtract_planar(l, r, nr_level, nfloor0, dft_cos, dft_sin, tail_l, 
     nf = nfloor[..., None]
     scale = torch.where(mag <= nf, UNDER_FLOOR_GAIN, 1.0 - nf / mag.clamp(min=1e-20))
     # the subtracted magnitude with the original phase == the scaled bin
-    sr2, si2 = sr * scale, si * scale
-    # inverse DFT: y = (sr2 + j si2) @ (C + jS) / n = conj(DFT(conj(spec))) / n
+    yl, yr = _inverse_dft(sr * scale, si * scale, dft_cos, dft_sin, split_dft)
+    out_l = yl[..., block:].reshape(l.shape)
+    out_r = yr[..., block:].reshape(r.shape)
+    return (out_l, out_r, nfloor[..., -1].contiguous(), l[:, -block:].contiguous(),
+            r[:, -block:].contiguous())
+
+
+def _forward_dft(fl, fr_, dft_cos, dft_sin, split_dft):
+    """The DFT of the frames z = fl + j fr_: (re, im)."""
+    if split_dft:
+        return planar_dft_split(fl, fr_, dft_cos.shape[0])
+    return (matmul_fp32(fl, dft_cos) + matmul_fp32(fr_, dft_sin),
+            matmul_fp32(fr_, dft_cos) - matmul_fp32(fl, dft_sin))
+
+
+def _inverse_dft(sr2, si2, dft_cos, dft_sin, split_dft):
+    """y = (sr2 + j si2) @ (C + jS) / n = conj(DFT(conj(spec))) / n: (re, im)."""
+    n = dft_cos.shape[0]
     if split_dft:
         ar, ai = planar_dft_split(sr2, -si2, n)
-        yl, yr = ar * (1.0 / n), -ai * (1.0 / n)
-    else:
-        yl = (matmul_fp32(sr2, dft_cos) - matmul_fp32(si2, dft_sin)) * (1.0 / n)
-        yr = (matmul_fp32(si2, dft_cos) + matmul_fp32(sr2, dft_sin)) * (1.0 / n)
-    out_l = yl[..., BLOCK:].reshape(l.shape)
-    out_r = yr[..., BLOCK:].reshape(r.shape)
-    return (out_l, out_r, nfloor[..., -1].contiguous(), l[:, -BLOCK:].contiguous(),
-            r[:, -BLOCK:].contiguous())
+        return ar * (1.0 / n), -ai * (1.0 / n)
+    return ((matmul_fp32(sr2, dft_cos) - matmul_fp32(si2, dft_sin)) * (1.0 / n),
+            (matmul_fp32(si2, dft_cos) + matmul_fp32(sr2, dft_sin)) * (1.0 / n))
+
+
+def inline_denoise_planar(xr, xi, dft_cos, dft_sin, tail_r, tail_i, split_dft: bool = True):
+    """The backup sketch's inline pre-demod spectral denoise
+    (``doConvolutionalProcessing_Denoise``, src/backup/RadioDSP_SDR_RX_Conv.ino:
+    1520-1650) on (C, n) mixed IQ, per overlap-save frame z = xr + j xi:
+    th = (sum of |Z| over bins 60..120) / 60 * 3, |Z| <= th scaled by 0.2,
+    else reduced by th, with the phase kept; the right half of the inverse
+    DFT out. No FIR mask (commented out in the source, :1633) and no carry
+    of the threshold across frames (``loop()`` reseeds it before every call,
+    so each frame's threshold is its own band mean). Returns (xr', xi',
+    new_tail_r, new_tail_i), the tails the input's last block."""
+    n = dft_cos.shape[0]
+    block = n // 2
+    sr, si = _forward_dft(_frames(xr, tail_r), _frames(xi, tail_i), dft_cos, dft_sin,
+                          split_dft)
+    mag = torch.sqrt(sr * sr + si * si)
+    th = (mag[..., INLINE_START_BIN:INLINE_END_BIN + 1].sum(-1)
+          / (INLINE_END_BIN - INLINE_START_BIN)) * INLINE_MULT
+    thb = th[..., None]
+    scale = torch.where(mag <= thb, UNDER_FLOOR_GAIN, 1.0 - thb / mag.clamp(min=1e-20))
+    yl, yr = _inverse_dft(sr * scale, si * scale, dft_cos, dft_sin, split_dft)
+    return (yl[..., block:].reshape(xr.shape), yr[..., block:].reshape(xi.shape),
+            xr[:, -block:], xi[:, -block:])

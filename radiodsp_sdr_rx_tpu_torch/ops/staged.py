@@ -71,10 +71,13 @@ _PTR, _I32, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {  # the extern "C" launchers of csrc/staged.cu
     "mix_demod": [_PTR] * 7 + [_I32] * 3 + [_F32] * 2 + [_PTR],
     "pbt": [_PTR] * 5 + [_I32] * 3 + [_F32] + [_PTR],
+    "sweep_mix_demod": [_PTR] * 6 + [_I32] * 3 + [_F32] + [_PTR],   # ops/sweep.py's K8
 }
 
 
-def _launch(name: str, device: torch.device, *args) -> None:
+def launch(name: str, device: torch.device, *args) -> None:
+    """Call the launcher ``name`` of ``csrc/staged.cu`` on the current
+    stream of ``device``; raise if the launch failed."""
     fn = getattr(build.load_library("staged"), name)
     fn.argtypes = _ARGTYPES[name]
     fn.restype = ctypes.c_int
@@ -119,7 +122,7 @@ def fused_mix_filter_demod(xr, xi, inc, phase0, w, tail, gain_i=1.0, gain_q=1.0)
     check_launch("fused_mix_filter_demod", (xr, xi, inc, phase0, w, tail))
     c, n = xr.shape
     audio = torch.empty_like(xr)
-    _launch("mix_demod", xr.device,
+    launch("mix_demod", xr.device,
             *(t.data_ptr() for t in (xr, xi, inc, phase0, w, tail, audio)),
             c, n, xr.device.index or 0, float(np.float32(gain_i)),
             float(np.float32(gain_q)))
@@ -151,7 +154,7 @@ def pbt_filter(audio, w, tail, out_gain=1.0):
     check_launch("pbt_filter", (audio, w, tail))
     c, n = audio.shape
     out_l, out_r = torch.empty_like(audio), torch.empty_like(audio)
-    _launch("pbt", audio.device,
+    launch("pbt", audio.device,
             *(t.data_ptr() for t in (audio, w, tail, out_l, out_r)),
             c, n, audio.device.index or 0, float(np.float32(out_gain)))
     LAUNCHES_PBT += 1

@@ -42,8 +42,17 @@ kernels' launches. ``launch_chain`` launches every source of the chain
 (these seven; ``ops/lanes.py``'s NR stages, whose plain versions
 ``chain_plain`` also computes from ``LmsArgs`` and ``SpecArgs``; K7 of
 ``ops/sam_wide.py``) through one C entry that takes a ``ChainArgs``
-(``csrc/chain_args.cuh``). The JAX wrappers' TPU tiling knobs (``block_c``,
-``chunk_t``, ``interpret``) have no meaning here and are not taken.
+(``csrc/chain_args.cuh``). The chain wrappers do not take the JAX wrappers'
+TPU tiling knobs (``block_c``, ``chunk_t``, ``interpret``): they have no
+meaning here.
+
+``sweep_mix_filter_demod`` (:147, kernel ``_sweep_kernel`` :59) is the
+front of the chain alone from a stream start: mix, band-pass and SSB demod,
+times ``out_gain``, nothing carried. It launches ``sweep_mix_demod`` of
+``csrc/staged.cu`` (K2a's kernel without the tail) for CUDA tensors and
+runs ``sweep_mix_filter_demod_plain`` for CPU ones; ``LAUNCHES_SWEEP_MIX``
+counts its launches. It keeps the JAX signature; ``block_c`` and
+``chunk_t`` are validated as JAX does and change nothing else.
 """
 
 from __future__ import annotations
@@ -55,7 +64,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from radiodsp_sdr_rx_tpu_torch.ops import lms_bank
+from radiodsp_sdr_rx_tpu_torch.ops import lms_bank, staged
 from radiodsp_sdr_rx_tpu_torch.ops import sam as sam_ops
 from radiodsp_sdr_rx_tpu_torch.ops.chain_common import (
     BLOCK,
@@ -85,6 +94,7 @@ LAUNCHES_AM_NB = 0  # sweep_chain_am_nb
 LAUNCHES_MONO = 0   # sweep_chain_ssb_mono
 LAUNCHES_SAM = 0    # sweep_chain_sam
 LAUNCHES_SAM_NB = 0  # sweep_chain_sam_nb
+LAUNCHES_SWEEP_MIX = 0  # sweep_mix_demod
 
 
 def _env_lanes(mag: torch.Tensor, release: float) -> torch.Tensor:
@@ -627,3 +637,60 @@ def sweep_sam_chain(xr, xi, inc, phase0, w_sb, w_pbt, tail_r, tail_i, audio_tail
     return run(xr, xi, inc, phase0, w_sb, w_pbt, tail_r, tail_i, audio_tail, env0,
                agc_release, agc_target, agc_max_gain, agc_enabled, out_gain, in_gain,
                iq_balance, nb, nb_thresh_db, nb_tau, nb_avg0, nb_mask0, dc0, sam=sam)
+
+
+# ---------------- mix + band-pass + SSB demod from a stream start (K8) ----------------
+
+def _check_sweep_mix(xr, xi, inc, phase0, w, block_c, chunk_t):
+    check_stream(xr)
+    c, n = xr.shape
+    sam_ops.even_chunks(n, chunk_t)   # the JAX wrapper's chunk check
+    if block_c <= 0 or c % block_c:
+        raise ValueError(f"the channel count {c} must be a positive multiple of "
+                         f"block_c={block_c} (the JAX grid is C // block_c)")
+    check_tensors({"xi": (xi, (c, n), torch.float32),
+                   "inc": (inc, (c,), torch.int64),
+                   "phase0": (phase0, (c,), torch.int64),
+                   "w": (w, (4 * BLOCK, BLOCK), torch.float32),
+                   "xr": (xr, (c, n), torch.float32)}, xr.device)
+
+
+def sweep_mix_filter_demod_plain(xr, xi, inc, phase0, w, out_gain=1.0, block_c=8,
+                                 chunk_t=4096):
+    """Plain PyTorch version of ``sweep_mix_filter_demod``."""
+    _check_sweep_mix(xr, xi, inc, phase0, w, block_c, chunk_t)
+    c, n = xr.shape
+    br, bi = mix(xr, xi, phase0, inc, torch.arange(n, dtype=torch.int64, device=xr.device))
+    zero = torch.zeros(c, BLOCK, device=xr.device)
+    return demod_frames(br, bi, zero, zero, w).reshape(c, n) * float(np.float32(out_gain))
+
+
+def sweep_mix_filter_demod(xr, xi, inc, phase0, w, out_gain=1.0, block_c=8, chunk_t=4096):
+    """DDS NCO mix + sideband filter + SSB demod of a stream from its start.
+
+      xr, xi:      (C, n) f32 planar IQ, n a multiple of 128
+      inc, phase0: (C,) int64 DDS words in [0, 2^32); sample j mixes at
+                   phase0 + j*inc (mod 2^32)
+      w:           (512, 128) ssb_demod_operator
+      out_gain:    f32 factor on the audio
+      block_c, chunk_t: the TPU kernel's tiling, checked as the JAX wrapper
+                   checks them (C a multiple of block_c; chunk_t as
+                   ``_even_chunks``); the result does not depend on them
+
+    The framing tails start at zero. Returns the audio (C, n) f32. CPU
+    tensors run the plain version; CUDA tensors launch the kernel, or raise.
+    """
+    global LAUNCHES_SWEEP_MIX
+    if xr.device.type == "cpu":
+        return sweep_mix_filter_demod_plain(xr, xi, inc, phase0, w, out_gain, block_c, chunk_t)
+    if xr.device.type != "cuda":
+        raise ValueError(f"sweep_mix_filter_demod runs on cuda or cpu, not {xr.device}")
+    _check_sweep_mix(xr, xi, inc, phase0, w, block_c, chunk_t)
+    check_launch("sweep_mix_filter_demod", (xr, xi, inc, phase0, w))
+    c, n = xr.shape
+    audio = torch.empty_like(xr)
+    staged.launch("sweep_mix_demod", xr.device,
+                  *(t.data_ptr() for t in (xr, xi, inc, phase0, w, audio)),
+                  c, n, xr.device.index or 0, float(np.float32(out_gain)))
+    LAUNCHES_SWEEP_MIX += 1
+    return audio

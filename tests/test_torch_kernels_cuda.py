@@ -14,7 +14,12 @@ scene, the PLL being chaotic on noise, at 1e-4, with the plain PLL's
 per-sample loop kept to a few thousand samples. The NR instantiations of
 the lanes kernel (ops/lanes.py: LMS denoise and notch, spectral NR, after
 each demod, with and without the blanker) run on the same locked scenes, at
-2e-4 with an LMS stage and 1e-4 with the spectral one.
+2e-4 with an LMS stage and 1e-4 with the spectral one. K8
+(``sweep.sweep_mix_filter_demod``, kernel sweep_mix_demod) is held to its
+plain version at 1e-4, to K2a with a zero tail bit for bit, across chunk_t
+bit for bit. The single-channel ``Receiver`` on the card is held to the same
+Receiver on the CPU (1e-4, LMS 2e-4), to the committed goldens (1e-4 x
+their peak) and to the CPU's sequence of I2S repairs.
 """
 
 import numpy as np
@@ -24,7 +29,7 @@ import torch
 from radiodsp_sdr_rx_tpu_torch.models.config import AGCMode, DemodMode, NRMode, ReceiverConfig
 from radiodsp_sdr_rx_tpu_torch.models.fused import (
     FusedAMBank, FusedNRBank, FusedSAMBank, FusedSSBBank)
-from radiodsp_sdr_rx_tpu_torch.models.receiver import ReceiverBank
+from radiodsp_sdr_rx_tpu_torch.models.receiver import Receiver, ReceiverBank
 from radiodsp_sdr_rx_tpu_torch.ops import (
     agc, lanes, lms, lms_bank, sam, sam_wide, staged, sweep, sweep_spec)
 
@@ -565,3 +570,112 @@ def test_nr_chain_wrapper_rejects_bad_arguments(cuda_device):
     ssb_args = ssb.lanes_args(xr, xi, ssb.init_state())
     with pytest.raises(ValueError, match="sweep_spec"):
         lanes.sweep_lanes_chain(*ssb_args[:17], False, *ssb_args[18:])
+
+
+@pytest.mark.parametrize("channels, n, block_c, out_gain", [
+    (8, 4 * 4096, 8, 1.0),      # four chunks of 64 rows
+    (3, 3 * 2048, 1, 1.1),      # a partial last chunk (48 rows)
+    (16, 5 * 128, 4, 1.0),      # five rows
+])
+def test_sweep_mix_kernel_matches_plain(cuda_device, channels, n, block_c, out_gain):
+    from radiodsp_sdr_rx_tpu_torch.ops import fir_design, nco
+    from radiodsp_sdr_rx_tpu_torch.ops.operators import ssb_demod_operator
+
+    gen = torch.Generator(device=cuda_device).manual_seed(n)
+    xr = torch.randn((channels, n), generator=gen, device=cuda_device) * 0.1
+    xi = torch.randn((channels, n), generator=gen, device=cuda_device) * 0.1
+    w = torch.as_tensor(np.ascontiguousarray(ssb_demod_operator(
+        fir_design.design_filter_mask(300.0, 4000.0, 44117.64706))), device=cuda_device)
+    inc = torch.tensor([int(nco.freq_to_phase_inc(1000.0 * k, 44117.64706))
+                        for k in range(channels)], dtype=torch.int64, device=cuda_device)
+    ph = torch.randint(0, 2**32, (channels,), generator=gen, device=cuda_device,
+                       dtype=torch.int64)
+    before = sweep.LAUNCHES_SWEEP_MIX
+    got = sweep.sweep_mix_filter_demod(xr, xi, inc, ph, w, out_gain, block_c)
+    assert sweep.LAUNCHES_SWEEP_MIX == before + 1
+    ref = sweep.sweep_mix_filter_demod_plain(xr, xi, inc, ph, w, out_gain, block_c)
+    _close([got], [ref])
+    k2a = staged.fused_mix_filter_demod(xr, xi, inc, ph, w,
+                                        torch.zeros((channels, 256), device=cuda_device))
+    assert torch.equal(got, k2a * float(np.float32(out_gain)))
+    for chunk_t in (128, 2048, n):
+        assert torch.equal(sweep.sweep_mix_filter_demod(xr, xi, inc, ph, w, out_gain, block_c,
+                                                        chunk_t), got)
+    with pytest.raises(ValueError):
+        sweep.sweep_mix_filter_demod(xr[:, :n - 64], xi[:, :n - 64], inc, ph, w)
+
+
+def _leaves(state):
+    for v in state:
+        yield from (_leaves(v) if isinstance(v, tuple) else (v,))
+
+
+def _receiver_cfg(**kw):
+    return ReceiverConfig(mode=DemodMode.USB, vfo_freq=7_160_000.0,
+                          capture_center_freq=7_150_000.0, agc=AGCMode.OFF, **kw)
+
+
+@pytest.mark.parametrize("kw", [
+    {"nr": NRMode.NOTCH},
+    {"mode": DemodMode.AM, "nr": NRMode.DNR2, "fft_length": 512, "agc": AGCMode.MEDIUM},
+    {"nr": NRMode.SPEC2, "conv_first": True, "conv_inline_denoise": True},
+    {"conv_first": True, "noise_blanker": True, "fft_length": 128},
+])
+def test_receiver_on_card_matches_cpu(cuda_device, kw):
+    from radiodsp_sdr_rx_tpu_torch.utils import scenes
+
+    cfg = _receiver_cfg().with_(**kw)
+    iq, _ = scenes.qrm_ssb_scene(2 * 8192)
+    card, cpu = Receiver(cfg), Receiver(cfg, device="cpu")
+    st_c, st_h = card.init_state(), cpu.init_state()
+    lms_runs = lms_bank.LAUNCHES
+    tol = LMS_ATOL if cfg.nr.kind in ("lms", "notch") else ATOL
+    for seg in range(2):
+        out_c, st_c = card.process(iq[seg * 8192:(seg + 1) * 8192], st_c)
+        out_h, st_h = cpu.process(iq[seg * 8192:(seg + 1) * 8192], st_h)
+        for key in ("audio_l", "audio_r"):
+            assert out_c[key].is_cuda and out_c[key].shape == (8192,)
+            np.testing.assert_allclose(out_c[key].cpu().numpy(), out_h[key].numpy(), atol=tol,
+                                       rtol=0)
+    assert lms_bank.LAUNCHES - lms_runs == (2 if cfg.nr.kind in ("lms", "notch") else 0)
+    for a, b in zip(_leaves(st_c), _leaves(st_h)):
+        np.testing.assert_allclose(a.cpu().numpy().astype(np.float64),
+                                   b.numpy().astype(np.float64), atol=tol, rtol=1e-4)
+
+
+def test_receiver_on_card_matches_the_goldens(cuda_device):
+    from pathlib import Path
+
+    from radiodsp_sdr_rx_tpu_torch.utils import scenes
+
+    for name, cfg, iq, _ in scenes.golden_cases():
+        rx = Receiver(cfg)
+        out, _ = rx.process(iq, rx.init_state())
+        want = np.load(Path(__file__).parent / "goldens" / f"{name}.npz")["audio_l"]
+        np.testing.assert_allclose(out["audio_l"][:len(want)].cpu().numpy(), want,
+                                   atol=1e-4 * max(float(np.abs(want).max()), 1e-6), rtol=0,
+                                   err_msg=name)
+
+
+def test_receiver_i2s_repair_on_card_matches_cpu(cuda_device):
+    from radiodsp_sdr_rx_tpu_torch.utils import siggen
+
+    n, seg = 8 * 4096, 4096
+    audio = siggen.voice_like(n, 44117.64706)
+    iq = siggen.ssb_from_audio(audio, 10_000.0, 44117.64706, "usb", amp=0.4)
+    iq = iq + siggen.noise(n, 0.01)
+    q = iq.imag.copy()
+    q[2 * seg + 1000:] = q[2 * seg + 999:-1]    # Q one sample late from mid segment 2
+    iq = (iq.real + 1j * q).astype(np.complex64)
+    cfg = _receiver_cfg(auto_iq_repair=True)
+    card, cpu = Receiver(cfg), Receiver(cfg, device="cpu")
+    st_c, st_h = card.init_state(), cpu.init_state()
+    seq_c, seq_h = [], []
+    for k in range(8):
+        out_c, st_c = card.process(iq[k * seg:(k + 1) * seg], st_c)
+        out_h, st_h = cpu.process(iq[k * seg:(k + 1) * seg], st_h)
+        seq_c.append(card.iq_repair_idx)
+        seq_h.append(cpu.iq_repair_idx)
+        np.testing.assert_allclose(out_c["audio_l"].cpu().numpy(), out_h["audio_l"].numpy(),
+                                   atol=ATOL, rtol=0)
+    assert seq_c == seq_h == [0, 0, 0, 0, 2, 2, 2, 2]

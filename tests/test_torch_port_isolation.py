@@ -42,6 +42,11 @@ def test_port_has_modules():
             "radiodsp_sdr_rx_tpu_torch/ops/sweep_spec.py",
             "radiodsp_sdr_rx_tpu_torch/ops/sam.py",
             "radiodsp_sdr_rx_tpu_torch/ops/sam_wide.py",
+            "radiodsp_sdr_rx_tpu_torch/ops/preprocessor.py",
+            "radiodsp_sdr_rx_tpu_torch/ops/noise_blanker.py",
+            "radiodsp_sdr_rx_tpu_torch/ops/fastconv.py",
+            "radiodsp_sdr_rx_tpu_torch/utils/siggen.py",
+            "radiodsp_sdr_rx_tpu_torch/utils/scenes.py",
             "radiodsp_sdr_rx_tpu_torch/models/receiver.py",
             "radiodsp_sdr_rx_tpu_torch/models/fused.py"} <= names
 

@@ -11,8 +11,9 @@ run in another order, and the AGC gain amplifies that). The measured max is
 (3.05e-5) with ``quantize_output``, where a sample that rounding puts on
 the other side of a truncation boundary lands one step away.
 The planar stages are held to their JAX functions at the same bound, the
-q15 round trip bit for bit. The conv-first variants raise
-NotImplementedError; SAM is held in tests/test_torch_sam.py.
+q15 round trip bit for bit. The conv-first variants and other fft_lengths
+run (held to JAX in tests/test_torch_conv_first.py and
+tests/test_torch_fft_length.py); SAM is held in tests/test_torch_sam.py.
 """
 
 import functools
@@ -265,14 +266,19 @@ def test_q15_round_trip_matches_jax_bit_for_bit():
     {"fft_length": 512},
 ])
 def test_unported_stages_raise_not_implemented(cfg_kw):
+    """The stages that raised NotImplementedError before they were ported
+    now build and run: a segment of every such configuration gives finite
+    audio, and ``check_ported`` raises only for a mode without a
+    demodulator."""
     _, tc = _configs("usb")
-    with pytest.raises(NotImplementedError, match="ROADMAP item"):
-        ReceiverBank(tc.with_(**cfg_kw), _freqs("usb"), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item"):
-        receiver.check_ported(tc.with_(**cfg_kw).mode,
-                              cfg_kw.get("conv_first", False),
-                              cfg_kw.get("conv_inline_denoise", False),
-                              cfg_kw.get("fft_length", 256))
+    cfg = tc.with_(**cfg_kw)
+    bank = ReceiverBank(cfg, _freqs("usb"), device="cpu")
+    out, st = bank.process(_scene("usb")[:, :N], bank.init_state())
+    assert all(bool(torch.isfinite(v).all()) and v.shape == (N_CH, N) for v in out.values())
+    assert st.audio_tail.shape == (N_CH, cfg.fft_length // 2)
+    receiver.check_ported(cfg.mode)
+    with pytest.raises(ValueError, match="unsupported mode"):
+        receiver.check_ported("FM")
 
 
 def test_lms_stages_keep_the_channel_limit():
