@@ -61,7 +61,21 @@ banks against the port's reference chain, and times them:
     Receiver on the CPU at fft_length 512 (DNR2), with conv_first and with
     the inline denoise; the I2S-slip repair sequence with hysteresis on a
     mid-stream slip; and timed per 16,384-sample CLI block (NR off, NOTCH,
-    SPEC2) with its real-time factor.
+    SPEC2) with its real-time factor;
+  - the sharded paths (``radiodsp_sdr_rx_tpu_torch/parallel``) on meshes
+    that name cuda:0 once per shard: K9, ``ring_shift`` (the ring halo), on
+    rings of 2, 4 and 8 shards, f32 and complex64, bit for bit with its
+    plain copies, one launch per exchange, timed as a chain of 100
+    exchanges; ``make_time_sharded_ssb_chain`` (USB and AM, a 2^21-sample
+    stream on time=4) with the kernel halo, 2 launches a call, bit for bit
+    with the ppermute halo and against the unsharded ``Receiver``;
+    ``make_full_sharded_chain`` on channel=2 x time=4: the fifteen mode x NR
+    x blanker combos of ``__graft_entry__.dryrun_multichip`` (8 channels x
+    2 x 8,192, a locked-carrier scene) against the unsharded chain and split
+    against unbroken, and USB + DNR (K3, one launch a segment) and USB +
+    spectral at 128 channels x 2^19; ``ShardedFusedBank`` of the SSB bank,
+    1,024 channels x 2^17 on channel=8, bit for bit with the one bank; and
+    ``ReceiverBank(backend="vmap")`` with DNR2 at 129 channels (fault F1).
 
 Every phase prints one flushed line with the seconds elapsed. Any failure
 raises and exits non-zero; without a CUDA card it exits non-zero at once.
@@ -125,7 +139,7 @@ SPEC_FLOPS_PER_SAMPLE = 2 * (512 * 128 + 256 * 256 + 512 * 512 + 512 * 256) // 1
 # loop update, the base oscillator's two Horner chains, the rotation
 PLL_FLOPS_PER_SAMPLE = 72
 LIBRARIES = ("sweep_chain", "staged", "lms", "sweep_spec", "sam", "sam_wide", "sweep_denoise",
-             "sweep_notch")
+             "sweep_notch", "halo")
 
 
 def say(msg: str) -> None:
@@ -212,7 +226,8 @@ def ptxas_summary(log: str):
             kname = next(k for fn, k in (("mix_demod_kernelILb0", "sweep_mix_demod"),
                                          ("mix_demod_kernel", "mix_demod"), ("pbt_kernel", "pbt"),
                                          ("lms_kernel", "lms_nr"),
-                                         ("sam_pll_kernel", "sam_pll"))
+                                         ("sam_pll_kernel", "sam_pll"),
+                                         ("ring_shift_kernel", "ring_shift"))
                          if fn in mangled)
         lines = block.splitlines()
         out.append((kname, next(ln for ln in lines if "registers" in ln).split(": ")[-1],
@@ -281,6 +296,301 @@ def bound(flops: float, nbytes: float) -> tuple[float, str]:
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops > t_bytes else "bytes"
 
 
+def unsharded_full_chain(mode, nr, nb, iq, incs, p, st, mu):
+    """The per-channel chain that ``make_full_sharded_chain`` shards, on one
+    device, from the port's ops (``__graft_entry__._unsharded_oracle``): the
+    blanker, the complex mix and band-pass, SSB / AM / SAM, [LMS notch], AGC,
+    PBT, [spectral subtraction | LMS denoise x1.1]. Returns (audio, the
+    spectral stage's input L and R scaled by the output gain, or None)."""
+    from radiodsp_sdr_rx_tpu_torch.ops import (
+        agc, demod, fastconv, iir, lms, nco, noise_blanker, planar)
+
+    if nb:
+        iq, _ = noise_blanker.noise_blanker(iq, st.nb_avg)
+    z, _ = nco.nco_mix(iq, st.nco_phase, incs)
+    z, _ = fastconv.overlap_save_filter(z, p.w_sideband, st.sb_tail)
+    if mode == "usb":
+        audio = demod.demod_ssb(z)
+    elif mode == "am":
+        audio, _ = iir.dc_blocker(z.abs(), st.am_dc)
+    else:
+        audio, _ = planar.demod_sam_planar(
+            z.real.contiguous(), z.imag.contiguous(),
+            planar.SAMStatePlanar(st.sam_phase, st.sam_freq, st.am_dc), sample_rate=FS)
+    if nr == "notch":
+        audio, _ = lms.lms_nr_run(audio, st.lms, mu, "notch")
+    env, _ = agc.agc_envelope(audio.abs(), st.agc_env, p.agc_release)
+    audio = audio * torch.clamp(p.agc_target / env.clamp(min=1e-12), max=p.agc_max_gain)
+    za, _ = fastconv.overlap_save_filter(torch.complex(audio, audio), p.w_audio, st.audio_tail)
+    audio, spec_in = za.real * p.output_gain, None
+    if nr == "spectral":
+        spec_in = (audio, za.imag * p.output_gain)
+        audio = planar.spectral_subtract_planar(*spec_in, 30.0, st.nfloor, p.dft_cos, p.dft_sin,
+                                                st.spec_tail_l, st.spec_tail_r)[0]
+    if nr == "lms":
+        audio = lms.lms_nr_run(audio, st.lms, mu, "denoise")[0] * 1.1
+    return audio, spec_in
+
+
+def sharded_paths(gen, reset_counts, counts, only, launches, err, timing) -> None:
+    """7. the sharded paths on one card: K9 alone, the time-sharded chains
+    with the kernel halo, the full 2-D chain, the sharded fused bank, and
+    the vmap ReceiverBank past 128 LMS channels (fault F1). Adds K9's
+    record to ``timing`` and prints the paths' times."""
+    path_ms = {}
+    from radiodsp_sdr_rx_tpu_torch.models.config import (
+        AGCMode, DemodMode, NRMode, ReceiverConfig)
+    from radiodsp_sdr_rx_tpu_torch.models.fused import FusedSSBBank
+    from radiodsp_sdr_rx_tpu_torch.models.receiver import Receiver, ReceiverBank, build_params
+    from radiodsp_sdr_rx_tpu_torch.ops import sweep
+    from radiodsp_sdr_rx_tpu_torch.ops.spectral_sub import spectral_matmul_ops
+    from radiodsp_sdr_rx_tpu_torch.parallel import (
+        ShardedFusedBank, halo, make_mesh, make_time_sharded_ssb_chain)
+    from radiodsp_sdr_rx_tpu_torch.parallel.stream_shard import (
+        make_full_sharded_chain, sharded_chain_init)
+    from radiodsp_sdr_rx_tpu_torch.utils import siggen
+
+    def card(n):
+        return make_mesh(channel=1, time=n, devices=[torch.device("cuda:0")] * n)
+
+    # 7a. K9 alone: rings of 2, 4, 8 shards on cuda:0, bit for bit, one launch each
+    for shards in (2, 4, 8):
+        for shape in ((1, 128), (128, 128)):
+            for dtype in (torch.float32, torch.complex64):
+                blocks = [torch.randn(shape, generator=gen, device="cuda", dtype=dtype)
+                          for _ in range(shards)]
+                first = torch.randn(shape, generator=gen, device="cuda", dtype=dtype)
+                before = halo.LAUNCHES
+                got = halo.ring_shift_right(blocks) + halo.shift_from_left_kernel(blocks, first)
+                torch.cuda.synchronize()
+                want = halo.ring_shift_right_plain(blocks) + halo.shift_from_left_plain(blocks,
+                                                                                      first)
+                same = all(torch.equal(g, w) for g, w in zip(got, want))
+                check(same and halo.LAUNCHES - before == 2,
+                      f"ring_shift {shards} x {shape} {dtype}: equal {same}, launches "
+                      f"{halo.LAUNCHES - before} for 2 exchanges")
+    say("check ring_shift (K9) vs plain: rings of 2, 4, 8 shards on cuda:0, blocks (1, 128) "
+        "and (128, 128), f32 and complex64, ring_shift_right and shift_from_left: bit for "
+        "bit, one launch per exchange")
+    err["ring_shift"] = 0.0
+
+    # 7b. the time-sharded chains at full width: a 2^21-sample stream on time=4
+    n_1d = 1 << 21
+    audio_in = siggen.voice_like(n_1d, FS)
+    iq_usb = siggen.ssb_from_audio(audio_in, 10_000.0, FS, "usb", amp=0.4).astype(np.complex64)
+    iq_am = siggen.am_signal(n_1d, 10_000.0, mod_hz=900.0, fs=FS).astype(np.complex64)
+    kw = dict(vfo_freq=7_060_000.0, capture_center_freq=7_050_000.0, iq_gain_balance=1.0)
+    ring_calls, launched = 0, dict.fromkeys(counts(), 0)
+    for am, iq1, agc_mode in ((False, iq_usb, AGCMode.FAST), (True, iq_am, AGCMode.MEDIUM)):
+        cfg1 = ReceiverConfig(mode=DemodMode.AM if am else DemodMode.USB, agc=agc_mode, **kw)
+        p = build_params(cfg1)
+        args = (p.nco_inc, p.w_sideband, p.w_audio, p.agc_release, p.agc_target,
+                p.agc_max_gain, p.output_gain)
+        iq_dev = torch.from_numpy(iq1).cuda()
+        chains = {h: make_time_sharded_ssb_chain(card(4), am=am, sample_rate=FS, halo=h)
+                  for h in ("kernel", "ppermute")}
+        reset_counts()
+        got = chains["kernel"](iq_dev, *args)
+        torch.cuda.synchronize()
+        launched = {k: v + launched[k] for k, v in counts().items()}
+        ring_calls += 1
+        ref = chains["ppermute"](iq_dev, *args)
+        rx = Receiver(cfg1)
+        single = rx.process(iq1, rx.init_state())[0]["audio_l"]
+        torch.cuda.synchronize()
+        d = float((got - single).abs().max())
+        label = "AM" if am else "USB"
+        say(f"check time-sharded {label} chain, 1 stream x {n_1d} on time=4 (cuda:0 x 4): "
+            f"kernel halo vs ppermute bit for bit {bool(torch.equal(got, ref))}; max |sharded "
+            f"- unsharded Receiver| = {d:.3e} (tolerance {TOL_PARITY:g}); rms "
+            f"{float(got.square().mean().sqrt()):.4f}")
+        check(torch.equal(got, ref), f"the kernel halo differs from the ppermute ({label})")
+        check(d <= TOL_PARITY and bool(torch.isfinite(got).all()),
+              f"the time-sharded {label} chain differs from the Receiver: {d:.3e}")
+        path_ms[f"time-sharded {label} chain, kernel halo (1 x {n_1d}, time=4)"] = time_ms(
+            lambda: chains["kernel"](iq_dev, *args), 3)
+        path_ms[f"time-sharded {label} chain, ppermute halo (1 x {n_1d}, time=4)"] = time_ms(
+            lambda: chains["ppermute"](iq_dev, *args), 3)
+    launches["ring_shift"] += launched["ring_shift"]
+    check(launched == only(ring_shift=2 * ring_calls), f"the kernel-halo chains launched "
+          f"{launched}, expected 2 ring_shift per call ({ring_calls} calls) and no other")
+    say(f"time-sharded chains, kernel halo: kernel launches {launched}")
+    del iq_usb, iq_am, audio_in, iq_dev, got, ref, single
+
+    # 7c. the full 2-D chain on channel=2 x time=4 over cuda:0
+    mesh24 = make_mesh(channel=2, time=4, devices=[torch.device("cuda:0")] * 8)
+    cfg2 = ReceiverConfig(mode=DemodMode.USB, agc=AGCMode.FAST, vfo_freq=7_200_000.0,
+                          capture_center_freq=7_190_000.0, iq_gain_balance=1.0)
+    p2 = build_params(cfg2)
+    oracle_params = ReceiverBank(cfg2, [7_190_000.0]).params   # on the card, 0-d as floats
+    args2 = (p2.w_sideband, p2.w_audio, p2.agc_release, p2.agc_target, p2.agc_max_gain,
+             p2.agc_enabled, p2.output_gain)
+    mu = 0.0316
+
+    def run_full(mode, nr, nb, c, n, unbroken):
+        """Segment 1 of two threaded ones (launches counted), the unsharded
+        chain on it, and with ``unbroken`` max |split - unbroken run|."""
+        incs = torch.tensor([(k * 977 + 12345) * 65536 % (1 << 32) for k in range(c)],
+                            device="cuda")   # __graft_entry__.dryrun_multichip's
+        xr, xi, _ = locked_scene(c, 2 * n, gen, [float(i) * FS / 2 ** 32 for i in incs],
+                                 impulses=nb)
+        iq = torch.complex(xr, xi)
+        del xr, xi
+        chain = make_full_sharded_chain(mesh24, mode=mode, nr=nr, sample_rate=FS, lms_mu=mu,
+                                        nr_level=30.0, noise_blanker=nb)
+        st0 = sharded_chain_init(c, device="cuda")
+        full = chain(iq, incs, st0, *args2)[0] if unbroken else None
+        reset_counts()
+        a1, st1 = chain(iq[:, :n], incs, st0, *args2)
+        a2, _ = chain(iq[:, n:], incs, st1, *args2)
+        torch.cuda.synchronize()
+        launched = counts()
+        want, spec_in = unsharded_full_chain(mode, nr, nb, iq[:, :n], incs, oracle_params,
+                                             st0, mu)
+        split = torch.cat([a1, a2], dim=1)
+        seam = 0.0 if full is None else float((split - full).abs().max())
+        return a1, want, spec_in, seam, launched, chain, (iq, incs, st0)
+
+    combos = [(m, r, False) for m in ("usb", "am", "sam")
+              for r in ("off", "lms", "notch", "spectral")]
+    combos += [("usb", "off", True), ("usb", "lms", True), ("sam", "off", True)]
+    worst = 0.0
+    n_dry = 2048 * 4
+    t = time.perf_counter()
+    for mode, nr, nb in combos:
+        a1, want, _, seam, launched, *_ = run_full(mode, nr, nb, 8, n_dry, True)
+        d = float((a1 - want).abs().max())
+        tag = f"{nr}{'+nb' if nb else ''}"
+        say(f"check full sharded chain {mode}/{tag}, 8 ch x 2 x {n_dry} on channel=2 x time=4 "
+            f"(cuda:0 x 8): max |sharded - unsharded| = {d:.3e}, max |split - unbroken| = "
+            f"{seam:.3e} (tolerance {TOL_PARITY:g}); launches {launched}")
+        k3 = 2 if nr in ("lms", "notch") else 0   # one a segment: every line's sub-banks at once
+        check(launched == only(lms_nr=k3), f"{mode}/{tag}: launches {launched}")
+        check(d <= TOL_PARITY and seam <= TOL_PARITY and bool(torch.isfinite(a1).all()),
+              f"the full sharded chain {mode}/{tag} is off: {d:.3e}, seam {seam:.3e}")
+        worst = max(worst, d, seam)
+    say(f"full sharded chain: {len(combos)} combos in {time.perf_counter() - t:.2f} s, worst "
+        f"diff {worst:.3e}")
+    for nr in ("lms", "spectral"):
+        c, n = N_CHANNELS, SEG_LEN
+        a1, want, spec_in, _, launched, chain, (iq, incs, st0) = run_full(
+            "usb", nr, False, c, n, False)
+        if nr == "spectral":
+            # frames with a bin within rounding of the floor may flip (spectral_diff)
+            w_fwd = torch.from_numpy(spectral_matmul_ops(256)[0]).cuda()
+            _, _, mag, nfl = sweep.spectral_floor(*spec_in, w_fwd, st0.nfloor, st0.spec_tail_l,
+                                                  st0.spec_tail_r, 30.0)
+            nf = nfl.clamp(min=0.0)
+            near = ((mag - nf[..., None]).abs() <= FLIP_MARGIN * nf[..., None]).sum(-1)
+            d, n_near, n_moved, ok = spectral_diff((a1,), (want,), near, nf, 1.0, TOL_PARITY)
+            detail = f"{d:.3e} over frames with no bin near the floor ({n_near} frames with " \
+                     f"one, {n_moved} of them beyond {TOL_PARITY:g})"
+        else:
+            d = float((a1 - want).abs().max())
+            ok, detail = d <= TOL_PARITY, f"{d:.3e}"
+        say(f"check full sharded chain usb/{nr}, {c} ch x 2 x {n} on channel=2 x time=4: max "
+            f"|sharded - unsharded| {detail} (tolerance {TOL_PARITY:g}); launches {launched}")
+        check(launched == only(lms_nr=2 if nr == "lms" else 0),
+              f"usb/{nr} full width: launches {launched}")
+        check(ok and bool(torch.isfinite(a1).all()), f"usb/{nr} full width is off: {detail}")
+        if nr == "lms":
+            launches["lms_nr"] += launched["lms_nr"]
+        x = iq[:, :n]
+        path_ms[f"full sharded chain usb/{nr} ({c} ch x {n}, channel=2 x time=4)"] = time_ms(
+            lambda: chain(x, incs, st0, *args2), 2)
+        del a1, want, spec_in, iq, x
+    # 7d. ShardedFusedBank of FusedSSBBank, 1,024 ch x 2^17 on channel=8, two segments
+    c, n = 1024, 1 << 17
+    cfg_b = ReceiverConfig(mode=DemodMode.USB, vfo_freq=7_200_000.0,
+                           capture_center_freq=7_190_000.0, agc=AGCMode.MEDIUM)
+    freqs_b = [7_100_000.0 + 200.0 * k for k in range(c)]
+    sharded = ShardedFusedBank(cfg_b, freqs_b, make_mesh(
+        channel=8, devices=[torch.device("cuda:0")] * 8))
+    one = FusedSSBBank(cfg_b, freqs_b)
+    st_s, st_o = sharded.init_state(), one.init_state()
+    same, launched = True, dict.fromkeys(counts(), 0)
+    for seg in range(2):
+        xr, xi = noise((c, n), gen), noise((c, n), gen)
+        reset_counts()
+        got, st_s = sharded.process_planar(xr, xi, st_s)
+        launched = {k: v + launched[k] for k, v in counts().items()}
+        want, st_o = one.process_planar(xr, xi, st_o)
+        same &= all(torch.equal(got[k], want[k]) for k in got) and all(
+            torch.equal(a, b) for a, b in zip(st_s, st_o))
+    torch.cuda.synchronize()
+    say(f"check ShardedFusedBank(FusedSSBBank), {c} ch x 2 x {n} on channel=8 (cuda:0 x 8): "
+        f"equal to the unsharded bank bit for bit, output and state: {same}; launches of the "
+        f"sharded bank {launched}")
+    check(same, "the sharded fused bank differs from the unsharded one")
+    check(launched == only(sweep_chain_ssb=16), f"ShardedFusedBank launches {launched}")
+    launches["sweep_chain_ssb"] += launched["sweep_chain_ssb"]
+    path_ms[f"ShardedFusedBank(FusedSSBBank) ({c} ch x {n}, channel=8)"] = time_ms(
+        lambda: sharded.process_planar(xr, xi, st_s), 3)
+    path_ms[f"FusedSSBBank ({c} ch x {n}, one bank)"] = time_ms(
+        lambda: one.process_planar(xr, xi, st_o), 3)
+    del sharded, one, xr, xi, got, want
+
+    # 7e. fault F1: ReceiverBank(backend="vmap") with DNR2 past 128 channels
+    cfg_f1 = cfg_b.with_(nr=NRMode.DNR2)
+    c, n = 129, 1 << 16
+    xr, xi = noise((c, n), gen), noise((c, n), gen)
+    bank_f1 = ReceiverBank(cfg_f1, freqs_b[:c])
+    reset_counts()
+    got, _ = bank_f1.process_planar(xr, xi, bank_f1.init_state())
+    launched = counts()
+    parts = [ReceiverBank(cfg_f1, freqs_b[a:b], backend="batched") for a, b in ((0, 64),
+                                                                                  (64, c))]
+    want = torch.cat([b.process_planar(xr[s], xi[s], b.init_state())[0]["audio_l"]
+                      for b, s in zip(parts, (slice(0, 64), slice(64, c)))])
+    d = float((got["audio_l"] - want).abs().max())
+    say(f"check ReceiverBank(backend='vmap') USB + DNR2 at {c} channels x {n}: max |vmap - "
+        f"two batched banks of 64 and 65| = {d:.3e} (tolerance {TOL_LMS:g}); launches "
+        f"{launched}")
+    check(d <= TOL_LMS and launched == only(lms_nr=1), f"F1: {d:.3e}, launches {launched}")
+
+    # 7f. K9 timed: a chain of 100 exchanges, 4 shards of (128, 128) complex64
+    blocks = [torch.randn((128, 128), generator=gen, device="cuda", dtype=torch.complex64)
+              for _ in range(4)]
+    bufs = [torch.empty_like(b) for b in blocks]
+    nbytes = 2 * sum(b.numel() * 8 for b in blocks)
+
+    def chain_of(fn, k=100):
+        def run():
+            x = blocks
+            for _ in range(k):
+                x = fn(x)
+        return run
+
+    def copies(x):
+        for s, buf in enumerate(bufs):
+            buf.copy_(x[s - 1])
+        return bufs
+
+    b_ms, b_by = bound(0, nbytes)
+    timing["ring_shift"] = dict(
+        ms=time_ms(chain_of(halo.ring_shift_right), 3) / 100,
+        plain_ms=time_ms(chain_of(halo.ring_shift_right_plain), 3) / 100,
+        bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(chain_of(copies), 3) / 100,
+        flops=0, samples=4 * 128 * 128, plain_from=4 * 128 * 128)
+    busy = {}   # the device's own time per exchange, from a profiler trace
+    for name, fn in (("kernel", halo.ring_shift_right), ("library", copies)):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            chain_of(fn)()
+            torch.cuda.synchronize()
+        ops = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy[name] = (sum(e.time_range.elapsed_us() for e in ops) / 100, len(ops) / 100)
+    tm = timing["ring_shift"]
+    say(f"timing ring_shift (K9), 4 shards of (128, 128) complex64 on cuda:0, a chain of 100 "
+        f"exchanges: kernel {tm['ms'] * 1e3:.2f} us per exchange (one launch), plain (4 "
+        f"copies) {tm['plain_ms'] * 1e3:.2f} us, library (4 copy_ into buffers) "
+        f"{tm['library_ms'] * 1e3:.2f} us, bound {tm['bound_ms'] * 1e3:.3f} us ({b_by}, "
+        f"{nbytes} B); device busy per exchange by the profiler: kernel "
+        f"{busy['kernel'][0]:.2f} us in {busy['kernel'][1]:.0f} operation(s), library "
+        f"{busy['library'][0]:.2f} us in {busy['library'][1]:.0f}")
+    say("timing sharded paths: " + "; ".join(f"{k} {v:.3f} ms" for k, v in path_ms.items()))
+
+
 def main() -> None:
 
     if not torch.cuda.is_available():
@@ -304,6 +614,7 @@ def main() -> None:
         agc, fir_design, iir, lanes, lms, lms_bank, nco, planar, sam, sam_wide, staged, sweep,
         sweep_spec)
     from radiodsp_sdr_rx_tpu_torch.ops.operators import ssb_demod_operator
+    from radiodsp_sdr_rx_tpu_torch.parallel import halo
     from radiodsp_sdr_rx_tpu_torch.utils import scenes, siggen
     from radiodsp_sdr_rx_tpu_torch.utils import build
 
@@ -320,6 +631,7 @@ def main() -> None:
         sam_wide.LAUNCHES = sam_wide.LAUNCHES_NB = 0
         lanes.LAUNCHES.update(dict.fromkeys(lanes.LAUNCHES, 0))
         sweep.LAUNCHES_SWEEP_MIX = 0
+        halo.LAUNCHES = 0
 
     def counts() -> dict:
         return {"sweep_chain_ssb": sweep.LAUNCHES, "sweep_chain_ssb_nb": sweep.LAUNCHES_NB,
@@ -329,7 +641,8 @@ def main() -> None:
                 "sweep_spec_chain": sweep_spec.LAUNCHES, "sam_pll": sam.LAUNCHES,
                 "sweep_chain_sam": sweep.LAUNCHES_SAM, "sweep_chain_sam_nb": sweep.LAUNCHES_SAM_NB,
                 "sam_wide": sam_wide.LAUNCHES, "sam_wide_nb": sam_wide.LAUNCHES_NB,
-                **lanes.LAUNCHES, "sweep_mix_demod": sweep.LAUNCHES_SWEEP_MIX}
+                **lanes.LAUNCHES, "sweep_mix_demod": sweep.LAUNCHES_SWEEP_MIX,
+                "ring_shift": halo.LAUNCHES}
 
     def only(**launched) -> dict:
         """The counts of a path that launched these kernels and no other."""
@@ -1620,27 +1933,31 @@ def main() -> None:
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {smi}")
 
     # 6. the per-kernel record
-    sources = {"sweep_chain_ssb": ("sweep_chain.cu", "pallas_sweep.py:261"),
-               "sweep_chain_ssb_nb": ("sweep_chain.cu", "pallas_sweep.py:261"),
-               "mix_demod": ("staged.cu", "pallas_kernels.py:83"),
-               "pbt": ("staged.cu", "pallas_kernels.py:177"),
-               "sweep_chain_am": ("sweep_chain.cu", "pallas_sweep.py:261"),
-               "sweep_chain_am_nb": ("sweep_chain.cu", "pallas_sweep.py:261"),
-               "lms_nr": ("lms.cu", "pallas_lms.py:36"),
-               "sweep_chain_ssb_mono": ("sweep_chain.cu", "pallas_sweep.py:261"),
-               "sweep_spec_chain": ("sweep_spec.cu", "pallas_sweep_spec.py:46"),
-               "sam_pll": ("sam.cu", "pallas_sam.py:226"),
-               "sweep_chain_sam": ("sweep_chain.cu", "pallas_chain_lanes.py:98"),
-               "sweep_chain_sam_nb": ("sweep_chain.cu", "pallas_chain_lanes.py:98"),
-               "sam_wide": ("sam_wide.cu", "pallas_sam_wide.py:49"),
-               "sam_wide_nb": ("sam_wide.cu", "pallas_sam_wide.py:49"),
-               **{k: (f"{sweep.LIBRARIES[k.split('_')[2]]}.cu", "pallas_chain_lanes.py:98")
+    # 7. the sharded paths
+    sharded_paths(gen, reset_counts, counts, only, launches, err, timing)
+
+    sources = {"sweep_chain_ssb": ("sweep_chain.cu", "ops/pallas_sweep.py:261"),
+               "sweep_chain_ssb_nb": ("sweep_chain.cu", "ops/pallas_sweep.py:261"),
+               "mix_demod": ("staged.cu", "ops/pallas_kernels.py:83"),
+               "pbt": ("staged.cu", "ops/pallas_kernels.py:177"),
+               "sweep_chain_am": ("sweep_chain.cu", "ops/pallas_sweep.py:261"),
+               "sweep_chain_am_nb": ("sweep_chain.cu", "ops/pallas_sweep.py:261"),
+               "lms_nr": ("lms.cu", "ops/pallas_lms.py:36"),
+               "sweep_chain_ssb_mono": ("sweep_chain.cu", "ops/pallas_sweep.py:261"),
+               "sweep_spec_chain": ("sweep_spec.cu", "ops/pallas_sweep_spec.py:46"),
+               "sam_pll": ("sam.cu", "ops/pallas_sam.py:226"),
+               "sweep_chain_sam": ("sweep_chain.cu", "ops/pallas_chain_lanes.py:98"),
+               "sweep_chain_sam_nb": ("sweep_chain.cu", "ops/pallas_chain_lanes.py:98"),
+               "sam_wide": ("sam_wide.cu", "ops/pallas_sam_wide.py:49"),
+               "sam_wide_nb": ("sam_wide.cu", "ops/pallas_sam_wide.py:49"),
+               **{k: (f"{sweep.LIBRARIES[k.split('_')[2]]}.cu", "ops/pallas_chain_lanes.py:98")
                   for k in lanes.KERNELS},
-               "sweep_mix_demod": ("staged.cu", "pallas_sweep.py:59")}
+               "sweep_mix_demod": ("staged.cu", "ops/pallas_sweep.py:59"),
+               "ring_shift": ("halo.cu", "parallel/pallas_halo.py:36")}
     print(json.dumps({"kernels": [{
         "name": kname, "route": "cuda",
         "source": f"radiodsp_sdr_rx_tpu_torch/csrc/{src}",
-        "replaces": f"radiodsp_sdr_rx_tpu/ops/{tpu}",
+        "replaces": f"radiodsp_sdr_rx_tpu/{tpu}",
         "launches": launches[kname], "max_abs_err": err[kname],
         "ms": timing[kname]["ms"], "plain_ms": timing[kname]["plain_ms"],
         "bound_ms": timing[kname]["bound_ms"], "bound_by": timing[kname]["bound_by"],

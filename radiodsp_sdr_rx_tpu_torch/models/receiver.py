@@ -157,10 +157,10 @@ def check_ported(mode: DemodMode) -> None:
         raise ValueError(f"unsupported mode {mode}")
 
 
-def _run_lms(audio, state: lms.LMSState, mu, mode: str):
+def _run_lms(audio, state: lms.LMSState, mu, mode: str, max_channels: int | None):
     c = audio.shape[0]
-    if c > LMS_MAX_CHANNELS:
-        raise ValueError(f"rx_chain_batched LMS stages support <= {LMS_MAX_CHANNELS} "
+    if max_channels is not None and c > max_channels:
+        raise ValueError(f"rx_chain_batched LMS stages support <= {max_channels} "
                          f"channels (got {c}); shard the bank")
     return lms.lms_nr_run(audio, state, mu, mode)
 
@@ -169,7 +169,8 @@ def rx_chain_batched(params: ReceiverParams, state: ReceiverState, xr, xi, *,
                      mode: DemodMode, nr: NRMode, noise_blanker: bool,
                      quantize_output: bool, fft_length: int = 256,
                      sample_rate: float = 44117.64706, conv_first: bool = False,
-                     conv_inline_denoise: bool = False):
+                     conv_inline_denoise: bool = False,
+                     max_lms_channels: int | None = LMS_MAX_CHANNELS):
     """One segment of the bank chain on (C, n) f32 planes, n a multiple of
     fft_length / 2; ``params.nco_inc`` holds the (C,) DDS increments. Stage
     for stage the JAX ``rx_chain_batched``: input gain and IQ balance,
@@ -181,7 +182,9 @@ def rx_chain_batched(params: ReceiverParams, state: ReceiverState, xr, xi, *,
     denoise, x1.1 makeup, R <- L, or spectral subtraction with the split
     DFT], output gain (0 when muted), [q15 round trip]. Every product is
     full fp32, the JAX chain's default ``matmul_precision="highest"``; the
-    port does not read that setting. Returns ({"audio_l", "audio_r"},
+    port does not read that setting. The LMS stages raise ValueError above
+    ``max_lms_channels`` channels, the JAX chain's 128 lanes; ``None``
+    lifts the cap, as the JAX vmap bank has none (K3 takes any C). Returns ({"audio_l", "audio_r"},
     state')."""
     check_ported(mode)
     xr = xr * params.input_gain
@@ -219,7 +222,7 @@ def rx_chain_batched(params: ReceiverParams, state: ReceiverState, xr, xi, *,
 
     lms_state = state.lms
     if nr.kind == "notch":
-        audio, lms_state = _run_lms(audio, lms_state, params.lms_mu, "notch")
+        audio, lms_state = _run_lms(audio, lms_state, params.lms_mu, "notch", max_lms_channels)
 
     agc_params = agc_ops.AGCParams(
         release=params.agc_release, target=params.agc_target,
@@ -235,7 +238,8 @@ def rx_chain_batched(params: ReceiverParams, state: ReceiverState, xr, xi, *,
     nfloor = state.nfloor
     spec_tail_l, spec_tail_r = state.spec_tail_l, state.spec_tail_r
     if nr.kind == "lms":
-        audio_l, lms_state = _run_lms(audio_l, lms_state, params.lms_mu, "denoise")
+        audio_l, lms_state = _run_lms(audio_l, lms_state, params.lms_mu, "denoise",
+                                     max_lms_channels)
         audio_l = audio_l * 1.1          # makeup gain (RDSP_convolutional.h:334)
         audio_r = audio_l                # mono copy R<-L (:335)
     elif nr.kind == "spectral":
@@ -270,7 +274,7 @@ def rx_chain(params: ReceiverParams, state: ReceiverState, xr, xi, **statics):
     inc = torch.as_tensor(params.nco_inc, dtype=torch.int64, device=xr.device).reshape(1)
     out, state = rx_chain_batched(params._replace(nco_inc=inc),
                                   _map_state(lambda t: t[None], state),
-                                  xr[None], xi[None], **statics)
+                                  xr[None], xi[None], max_lms_channels=None, **statics)
     return ({k: v[0] for k, v in out.items()},
             _map_state(lambda t: t[0], state))
 
@@ -412,7 +416,11 @@ class ReceiverBank:
     compute the same function (tests/test_batched_bank.py). Here both run the
     one bank chain, ``rx_chain_batched``, with the channels as a tensor axis
     in place of vmap, and both run the LMS stages on the K3 kernel on the
-    card. ``device=None`` means the CUDA card and raises without one; pass
+    card. As in JAX, "batched" takes at most 128 channels with an LMS stage
+    (ValueError above) and "vmap" any number. The JAX vmap bank keeps the
+    LMS ``first`` flag per channel; the port runs the stage with
+    ``all(first)``, which agrees whenever every channel starts together
+    (``init_state`` and every segment after it). ``device=None`` means the CUDA card and raises without one; pass
     ``device="cpu"`` to run the plain PyTorch versions.
     """
 
@@ -437,7 +445,9 @@ class ReceiverBank:
         ({"audio_l", "audio_r"}, next state)."""
         xr = torch.as_tensor(xr, dtype=torch.float32, device=self.device)
         xi = torch.as_tensor(xi, dtype=torch.float32, device=self.device)
-        return rx_chain_batched(self.params, state, xr, xi, **self.statics)
+        cap = None if self.backend == "vmap" else LMS_MAX_CHANNELS
+        return rx_chain_batched(self.params, state, xr, xi, max_lms_channels=cap,
+                                **self.statics)
 
     def process(self, iq, state: ReceiverState):
         """Complex IQ at the host boundary: (C, n), or (n,) for every channel."""

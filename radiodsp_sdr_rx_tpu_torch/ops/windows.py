@@ -10,7 +10,8 @@ reference FIR designer (ref: src/RadioDSP_SDR_RX/RDSP_convolutional.h:152-179):
   other -> Blackman-Nuttall
 
 Evaluated in float64 on the host, as the reference computes its coefficients
-in ``double``. The analyzer windows of the JAX module come with the scopes.
+in ``double``. ``hann_periodic`` is the panadapter's analyzer window; the
+other analyzer window of the JAX module comes with the scopes.
 """
 
 from __future__ import annotations
@@ -39,3 +40,9 @@ def fir_window(window_id: int, num_taps: int) -> np.ndarray:
     if window_id == 4:
         return 0.5 * (1.0 - np.cos(2.0 * np.pi * n / (num_taps - 1)))
     return _cosine_series(n, num_taps, _BLACKMAN_NUTTALL)
+
+
+def hann_periodic(n: int) -> np.ndarray:
+    """Periodic Hann window of the spectrum analyzers (the Teensy
+    ``AudioWindowHanning256`` table, RadioDSP_SDR_RX.ino:144-148)."""
+    return 0.5 - 0.5 * np.cos(2.0 * np.pi * np.arange(n, dtype=np.float64) / n)

@@ -4,12 +4,13 @@
 package's ``ReceiverParams`` and of its bank states (``FusedBankState``,
 ``FusedAMBankState``, ``FusedNRBankState``, ``FusedSAMBankState`` with its
 PLL planes padded to the JAX bank's lanes, the nested ``ReceiverState`` with
-its ``sam`` PLL state) as numpy arrays (a dict,
+its ``sam`` PLL state, the sharded chain's ``ShardedChainState`` with its
+complex64 tails and (C,) LMS ``first`` flags) as numpy arrays (a dict,
 e.g. ``state._asdict()``; nested states as NamedTuples or dicts) and return
 the port's; ``state_to_numpy`` goes back, nested states as dicts. Both
 packages then compute from the same operators and carries. DDS words are
 uint32 in JAX and int64 in the port (ops/nco.py); the LMS ``first`` flags
-stay bool.
+stay bool and complex leaves complex64.
 """
 
 from __future__ import annotations
@@ -71,9 +72,10 @@ def _state_types():
     from radiodsp_sdr_rx_tpu_torch.models.receiver import ReceiverState
     from radiodsp_sdr_rx_tpu_torch.ops.lms import LMSState
     from radiodsp_sdr_rx_tpu_torch.ops.planar import SAMStatePlanar
+    from radiodsp_sdr_rx_tpu_torch.parallel.stream_shard import ShardedChainState
 
     return (FusedBankState, FusedAMBankState, FusedNRBankState, FusedSAMBankState,
-            ReceiverState), {
+            ReceiverState, ShardedChainState), {
         "lms": LMSState, "sam": SAMStatePlanar}
 
 
@@ -84,7 +86,7 @@ def _fields(v) -> Mapping:
 def state_from_numpy(d: Mapping, device):
     """The fields of a JAX bank state -> the port's state of the same fields
     (``FusedBankState``, ``FusedAMBankState``, ``FusedNRBankState``,
-    ``FusedSAMBankState`` or ``ReceiverState``)."""
+    ``FusedSAMBankState``, ``ReceiverState`` or ``ShardedChainState``)."""
     tops, nested = _state_types()
     d = _fields(d)
     cls = next((t for t in tops if set(t._fields) == set(d)), None)
@@ -96,7 +98,7 @@ def state_from_numpy(d: Mapping, device):
         if name == "nco_phase":
             a = a.astype(np.int64)
         elif a.dtype != np.bool_:
-            a = a.astype(np.float32)
+            a = a.astype(np.complex64 if np.iscomplexobj(a) else np.float32)
         return torch.as_tensor(a, device=device)
 
     def build(t, fields):
@@ -113,7 +115,9 @@ def state_to_numpy(state) -> dict:
         a = v.cpu().numpy()
         if name == "nco_phase":
             return a.astype(np.uint32)
-        return a if a.dtype == np.bool_ else a.astype(np.float32)
+        if a.dtype == np.bool_:
+            return a
+        return a.astype(np.complex64 if np.iscomplexobj(a) else np.float32)
 
     return {name: state_to_numpy(v) if hasattr(v, "_asdict") else leaf(name, v)
             for name, v in state._asdict().items()}

@@ -19,7 +19,11 @@ each demod, with and without the blanker) run on the same locked scenes, at
 plain version at 1e-4, to K2a with a zero tail bit for bit, across chunk_t
 bit for bit. The single-channel ``Receiver`` on the card is held to the same
 Receiver on the CPU (1e-4, LMS 2e-4), to the committed goldens (1e-4 x
-their peak) and to the CPU's sequence of I2S repairs.
+their peak) and to the CPU's sequence of I2S repairs. K9 (``ring_shift``,
+parallel/halo.py) equals its plain copies bit for bit, one launch per
+exchange on one card (every ring of the list in it), one per source card
+across cards (skipped with fewer than two), and the time-sharded chain's
+kernel halo equals its ppermute halo bit for bit.
 """
 
 import numpy as np
@@ -679,3 +683,111 @@ def test_receiver_i2s_repair_on_card_matches_cpu(cuda_device):
         np.testing.assert_allclose(out_c["audio_l"].cpu().numpy(), out_h["audio_l"].numpy(),
                                    atol=ATOL, rtol=0)
     assert seq_c == seq_h == [0, 0, 0, 0, 2, 2, 2, 2]
+
+
+@pytest.mark.parametrize("shards", [2, 4, 8])
+@pytest.mark.parametrize("shape", [(1, 128), (128, 128), (3, 5)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.complex64])
+def test_ring_halo_kernel_matches_plain(cuda_device, shards, shape, dtype):
+    """K9 (parallel/halo.py): a ring of shards on one card, one launch per
+    exchange, bit for bit with the plain copies; (3, 5) f32 takes the
+    kernel's scalar path (15 floats, no float4)."""
+    from radiodsp_sdr_rx_tpu_torch.parallel import halo
+
+    gen = torch.Generator(device=cuda_device).manual_seed(shards)
+    blocks = [torch.randn(shape, generator=gen, device=cuda_device, dtype=dtype)
+              for _ in range(shards)]
+    first = torch.randn(shape[-1:], generator=gen, device=cuda_device, dtype=dtype)
+    before = halo.LAUNCHES
+    ring = halo.ring_shift_right(blocks)
+    shifted = halo.shift_from_left_kernel(blocks, first)
+    torch.cuda.synchronize()
+    assert halo.LAUNCHES - before == 2
+    assert all(torch.equal(a, b) for a, b in zip(ring, halo.ring_shift_right_plain(blocks)))
+    assert all(torch.equal(a, b) for a, b in zip(shifted, halo.shift_from_left_plain(blocks,
+                                                                                     first)))
+    assert all(a.data_ptr() != b.data_ptr() for a, b in zip(ring, blocks))
+    if shards % 2 == 0:   # two lines of shards/2 in one launch
+        before = halo.LAUNCHES
+        got = halo.shift_from_left_kernel(blocks, [first, -first], ring=shards // 2)
+        torch.cuda.synchronize()
+        assert halo.LAUNCHES - before == 1
+        want = halo.shift_from_left_plain(blocks, [first, -first], ring=shards // 2)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_ring_halo_kernel_refuses_strided_blocks(cuda_device):
+    from radiodsp_sdr_rx_tpu_torch.parallel import halo
+
+    x = torch.zeros(4, 256, device=cuda_device)
+    with pytest.raises(ValueError, match="contiguous"):
+        halo.ring_shift_right([x[:, :128], x[:, 128:]])
+
+
+def test_ring_halo_kernel_across_cards():
+    """Shards on several cards of one process: one launch per source card,
+    writing into the neighbour's buffer by peer access."""
+    from radiodsp_sdr_rx_tpu_torch.parallel import halo
+
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA cards")
+    devs = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    blocks = [torch.randn((128, 128), device=d, dtype=torch.complex64) for d in devs]
+    before = halo.LAUNCHES
+    got = halo.shift_from_left_kernel(blocks, torch.zeros(128, dtype=torch.complex64))
+    for d in devs:
+        torch.cuda.synchronize(d)
+    assert halo.LAUNCHES - before == len(devs) - 1   # the last card's block goes nowhere
+    want = halo.shift_from_left_plain(blocks, torch.zeros(128, dtype=torch.complex64))
+    assert all(g.device == w.device and torch.equal(g, w) for g, w in zip(got, want))
+    ring = halo.ring_shift_right(blocks)
+    for d in devs:
+        torch.cuda.synchronize(d)
+    assert all(torch.equal(g, w) for g, w in zip(ring, halo.ring_shift_right_plain(blocks)))
+    assert torch.cuda.current_device() == 0
+    # the time-sharded chain over every card (make_mesh's default devices)
+    from radiodsp_sdr_rx_tpu_torch.models.receiver import build_params
+    from radiodsp_sdr_rx_tpu_torch.parallel import make_mesh, make_time_sharded_ssb_chain
+
+    p = build_params(ReceiverConfig(mode=DemodMode.USB, vfo_freq=7_060_000.0,
+                                    capture_center_freq=7_050_000.0, iq_gain_balance=1.0))
+    args = (p.nco_inc, p.w_sideband, p.w_audio, p.agc_release, p.agc_target, p.agc_max_gain,
+            p.output_gain)
+    iq = torch.randn(len(devs) * 8192, dtype=torch.complex64) * 0.1
+    mesh = make_mesh(time=len(devs))
+    assert [d.index for d in mesh.devices[0]] == list(range(len(devs)))
+    got = {h: make_time_sharded_ssb_chain(mesh, halo=h)(iq, *args).cpu()
+           for h in ("kernel", "ppermute")}
+    one = make_time_sharded_ssb_chain(make_mesh(time=len(devs), devices=[devs[0]] * len(devs)),
+                                      halo="kernel")(iq, *args).cpu()
+    assert torch.equal(got["kernel"], got["ppermute"])
+    np.testing.assert_allclose(got["kernel"].numpy(), one.numpy(), atol=ATOL, rtol=0)
+
+
+def test_time_sharded_chain_kernel_halo_on_card(cuda_device):
+    """make_time_sharded_ssb_chain on time=4 over one card: the kernel halo
+    equals the ppermute halo bit for bit, 2 launches a call, and the chain
+    equals it on the CPU at 1e-4."""
+    from radiodsp_sdr_rx_tpu_torch.models.receiver import build_params
+    from radiodsp_sdr_rx_tpu_torch.parallel import halo, make_mesh, make_time_sharded_ssb_chain
+
+    cfg = ReceiverConfig(mode=DemodMode.USB, vfo_freq=7_060_000.0,
+                         capture_center_freq=7_050_000.0, agc=AGCMode.FAST,
+                         iq_gain_balance=1.0)
+    p = build_params(cfg)
+    args = (p.nco_inc, p.w_sideband, p.w_audio, p.agc_release, p.agc_target, p.agc_max_gain,
+            p.output_gain)
+    rng = np.random.default_rng(9)
+    iq = ((rng.standard_normal(4 * 8192) + 1j * rng.standard_normal(4 * 8192)) * 0.1
+          ).astype(np.complex64)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        mesh = make_mesh(time=4, devices=[torch.device(dev)] * 4)
+        for h in ("kernel", "ppermute"):
+            before = halo.LAUNCHES
+            out[dev, h] = make_time_sharded_ssb_chain(mesh, halo=h)(
+                torch.from_numpy(iq).to(dev), *args).cpu()
+            assert halo.LAUNCHES - before == (2 if (dev, h) == ("cuda", "kernel") else 0)
+    assert torch.equal(out["cuda", "kernel"], out["cuda", "ppermute"])
+    np.testing.assert_allclose(out["cuda", "kernel"].numpy(), out["cpu", "kernel"].numpy(),
+                               atol=ATOL, rtol=0)

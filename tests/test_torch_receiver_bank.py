@@ -38,6 +38,7 @@ from radiodsp_sdr_rx_tpu_torch.ops import planar, qformat
 from radiodsp_sdr_rx_tpu_torch.utils import convert
 
 ATOL = 1e-4
+LMS_ATOL = 2e-4   # the LMS twin bound (tests/test_pallas_lms.py:35)
 N_CH, N = 8, 4096
 
 # (mode, nr, agc, extra config, vfo, capture centre)
@@ -282,11 +283,44 @@ def test_unported_stages_raise_not_implemented(cfg_kw):
 
 
 def test_lms_stages_keep_the_channel_limit():
+    """The batched backend keeps the JAX ``rx_chain_batched`` cap of 128
+    channels with an LMS stage (the vmap backend has none, below)."""
     _, tc = _configs("usb_dnr2")
-    bank = ReceiverBank(tc, [7_190_000.0 + 100.0 * k for k in range(129)], device="cpu")
+    bank = ReceiverBank(tc, [7_190_000.0 + 100.0 * k for k in range(129)],
+                        backend="batched", device="cpu")
     x = np.zeros((129, 128), np.float32)
     with pytest.raises(ValueError, match="<= 128 channels"):
         bank.process_planar(x, x, bank.init_state())
+
+
+def test_vmap_bank_runs_past_the_lms_channel_limit():
+    """The vmap backend runs 129 channels with DNR2, as the JAX vmap bank
+    does (it vmaps the per-channel chain, whose LMS is an XLA scan with no
+    lane cap): two threaded segments of 512 samples held to the JAX vmap
+    bank at the LMS bound 2e-4 (the 96-tap sums run in another order and
+    the adaptation carries that), the LMS state included."""
+    jc, tc = _configs("usb_dnr2")
+    c, n = 129, 512
+    freqs = [7_190_000.0 + 100.0 * k for k in range(c)]
+    rng = np.random.default_rng(129)
+    iq = ((rng.standard_normal((c, 2 * n)) + 1j * rng.standard_normal((c, 2 * n)))
+          * 0.1).astype(np.complex64)
+    jbank = JaxReceiverBank(jc, freqs, backend="vmap")
+    port = ReceiverBank(tc, freqs, backend="vmap", device="cpu")
+    jst, st = jbank.init_state(), port.init_state()
+    for seg in range(2):
+        block = iq[:, seg * n:(seg + 1) * n]
+        want, jst = jbank.process(block, jst)
+        got, st = port.process(block, st)
+        for key in ("audio_l", "audio_r"):
+            assert got[key].shape == (c, n)
+            np.testing.assert_allclose(got[key].numpy(), np.asarray(want[key]),
+                                       atol=LMS_ATOL, rtol=0)
+        d = convert.state_to_numpy(st)
+        np.testing.assert_array_equal(d["lms"]["first"], np.asarray(jst.lms.first))
+        for field in ("weights", "window", "delay"):
+            np.testing.assert_allclose(d["lms"][field], np.asarray(getattr(jst.lms, field)),
+                                       atol=LMS_ATOL, rtol=0)
 
 
 def test_rejects_unknown_backend():
