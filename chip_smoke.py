@@ -21,7 +21,8 @@ banks against the port's reference chain, and times them:
   - the reference chain, ``ReceiverBank(backend="batched")`` at bench_full.py's
     config3 (CW_NARROW, NR notch) and config7 (USB, DNR2), 128 channels: its
     LMS stage on kernel lms_nr, 1 launch/segment, the other stages plain
-    PyTorch;
+    PyTorch; lms_nr held to its plain version (the grouped algebra) over
+    the three whole threaded segments;
   - the NR bank, ``FusedNRBank``: at bench_full.py's config4 (USB, SPEC2, 64
     channels) ``fold=True`` on kernel sweep_spec_chain (K4), 1 launch/segment,
     and ``fold=False`` on sweep_chain_ssb, 1 launch/segment, with the spectral
@@ -33,9 +34,10 @@ banks against the port's reference chain, and times them:
     config7 (USB + DNR2, lanes_ssb_denoise) and config8 (AM + DNR2,
     lanes_am_denoise) at 128 channels x 2^19, and the other fourteen
     routes (every demod x NR x blanker) at 128 channels x 2^17; each kernel
-    against its plain chain on a prefix (LMS_PREFIX samples, SAM_PREFIX
-    with SAM), each bank against ``ReceiverBank``, configs 3 and 7 folded
-    against staged;
+    against its plain chain over whole threaded segments (with SAM on a
+    prefix of SAM_PREFIX samples: the plain PLL is one host-bound step per
+    sample), each bank against ``ReceiverBank``, configs 3 and 7 folded
+    against staged; the LMS kernels' cycles per LMS step;
   - cross-path parity: the fused SSB, AM and NR banks against
     ``ReceiverBank`` on the same input, at the docs/CHIP_PARITY.md bound;
   - the SAM bank, ``FusedSAMBank``, on locked-carrier scenes (every channel
@@ -118,7 +120,6 @@ N_SPEC = 64          # bench_full.py config4_spec_nr_64ch
 SEG_LEN = 1 << 19    # bench.py:39
 SEGMENTS = 3         # threaded segments of each full-width run
 REPS = 10            # timed segments
-LMS_PREFIX = 16384   # samples of the per-sample plain LMS held to the kernel
 TOL_K8_K2A = 2e-5    # K8 vs mix_demod with a zero tail (tests/test_pallas_sweep.py:30)
 TOL_CHUNK = 1e-5     # K8 across chunk_t
 K8_INC = 123456789   # tools/bench_sweep.py's DDS increment
@@ -654,9 +655,11 @@ def main() -> None:
         list(pool.map(build.load_library, LIBRARIES))
     say(f"build: csrc/{{{','.join(LIBRARIES)}}}.cu with nvcc for sm_90a in "
         f"{time.perf_counter() - t:.2f} s")
+    ptxas = {}
     for lib in LIBRARIES:
         for kname, regs, spills in ptxas_summary(build.build_log(lib)):
             say(f"ptxas {lib}.cu {kname}: {regs}; {spills}")
+            ptxas[kname] = f"{regs}; {spills}"
 
     cfg = ReceiverConfig(mode=DemodMode.USB, vfo_freq=7_200_000.0,
                          capture_center_freq=7_190_000.0, agc=AGCMode.MEDIUM)
@@ -948,13 +951,16 @@ def main() -> None:
 
     # 4e. the reference chain at full width: bench_full.py config3 (CW_NARROW,
     # NR notch, AGC fast) and config7 (USB, DNR2), 128 ch, backend="batched";
-    # the LMS stage's arguments in segment 1 are recorded, and the per-sample
-    # plain LMS runs on their first LMS_PREFIX samples (LMS is causal)
+    # the LMS stage's arguments are recorded, and the plain LMS (the grouped
+    # algebra, a few tensor calls per group of 16 samples) runs over the same
+    # three segments' inputs with its own state threaded from the first: the
+    # LMS's input does not depend on its output, so every segment's output
+    # and the state after each are held to the kernel's
     cfg3 = ReceiverConfig(mode=DemodMode.CW_NARROW, vfo_freq=14_050_000.0,
                           capture_center_freq=14_049_000.0, agc=AGCMode.FAST,
                           nr=NRMode.NOTCH)
     cfg7 = cfg.with_(nr=NRMode.DNR2)
-    lms_args, lms_plain_prefix_ms = {}, {}
+    lms_args, lms_plain_ms = {}, {}
     recorded = []
     run_lms = lms_bank.lms_nr_run_bank
 
@@ -978,23 +984,27 @@ def main() -> None:
         check(len(recorded) == SEGMENTS, f"expected {SEGMENTS} calls of "
               f"lms_bank.lms_nr_run_bank through ops/lms.lms_nr_run, recorded "
               f"{len(recorded)}")
-        (x, w, win, dl, first, mu_rb, mode), got = recorded[1]
-        lms_args[label] = (x, w, win, dl, first, mu_rb, mode)
-        x_pre = x[:, :LMS_PREFIX].contiguous()
-        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        t0.record()
-        ref = lms_bank.lms_nr_run_bank_plain(x_pre, w, win, dl, first, mu_rb, mode)
-        t1.record()
-        t1.synchronize()
-        lms_plain_prefix_ms[label] = t0.elapsed_time(t1)
-        d = max_diff([got[0][:, :LMS_PREFIX]], ref[:1])
-        say(f"check lms_nr ({mode}) full width, segment 1: max |kernel - plain| over the "
-            f"first {LMS_PREFIX} outputs = {d:.3e} (tolerance {TOL_LMS:g}); "
-            f"rms(L) = {float(out_1['audio_l'].square().mean().sqrt()):.4e}")
+        lms_args[label] = recorded[1][0]
+        (_, w, win, dl, first, mu_rb, mode), _ = recorded[0]
+        d = 0.0
+        for seg, ((x, *_), got) in enumerate(recorded):
+            t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0.record()
+            ref = lms_bank.lms_nr_run_bank_plain(x, w, win, dl, first, mu_rb, mode)
+            t1.record()
+            t1.synchronize()
+            if seg == 1:
+                lms_plain_ms[label] = t0.elapsed_time(t1)
+            d = max(d, max_diff(got, ref))
+            _, w, win, dl = ref
+            first = torch.zeros_like(first)
+        say(f"check lms_nr ({mode}) full width: max |kernel - plain| over out, weights, window "
+            f"and delay of {SEGMENTS} whole threaded segments = {d:.3e} (tolerance "
+            f"{TOL_LMS:g}); rms(L) = {float(out_1['audio_l'].square().mean().sqrt()):.4e}")
         check(d <= TOL_LMS, f"lms_nr disagrees at full width: {d:.3e} > {TOL_LMS:g}")
         err["lms_nr"] = max(err["lms_nr"], d)
         ends[label] = (rb, xr, xi, state_rb)
-        del out_1, ref, got, recorded[:]
+        del out_1, ref, got, recorded[:], x
 
     # 4g. the NR bank at full width: bench_full.py config4 (USB, AGC medium,
     # SPEC2, 64 ch at 1 kHz, the main path's noise) folded on K4, staged, and
@@ -1285,12 +1295,12 @@ def main() -> None:
     # bench_full.py config3 (CW_NARROW + notch), config7 (USB + DNR2) and
     # config8 (AM + DNR2) at full width, 128 ch x 2^19, SEGMENTS checked and
     # REPS timed; the other fourteen routes at 128 ch x SEG_NR (a cut of the
-    # segment, PERF.md section 4), two threaded segments. The plain LMS and
-    # PLL are host-bound per-sample loops, so each kernel is held to its plain
-    # chain on a prefix (LMS_PREFIX samples, SAM_PREFIX with SAM; the whole
-    # segment for AM and SSB spectral): as two threaded segments of half the
-    # prefix, every carry compared, and as the full run's segment 1 on its
-    # first samples (the chain is causal). Spectral NR is compared frame by
+    # segment, PERF.md section 4), two threaded segments. Each kernel is held
+    # to its plain chain over the whole segment (the plain LMS is the grouped
+    # algebra; with SAM on a SAM_PREFIX-sample prefix, the plain PLL being a
+    # host-bound loop of one step per sample): as two threaded segments of
+    # half of it, every carry compared, and as the full run's segment 1
+    # (the chain is causal). Spectral NR is compared frame by
     # frame (spectral_diff). Each bank against the port's ReceiverBank (SAM on
     # the prefix, the exact PLL being per-sample plain PyTorch)
     cfg8 = cfg_am.with_(agc=AGCMode.MEDIUM, nr=NRMode.DNR2)
@@ -1330,7 +1340,7 @@ def main() -> None:
         bank to ReceiverBank. Returns the state after the drive."""
         kname, c = bank.kernel, xr.shape[0]
         spectral = bank.nr == "spectral"
-        prefix = SAM_PREFIX if bank.demod == "sam" else seg_len if spectral else LMS_PREFIX
+        prefix = SAM_PREFIX if bank.demod == "sam" else seg_len
         tol = TOL if spectral else TOL_LMS
         pre = prefix // 2
         st, d_two, ok = state0, 0.0, True
@@ -1774,17 +1784,16 @@ def main() -> None:
         path_ms[f"NR {label}"] = time_ms(lambda: b.process_planar(x_r, x_i, st), REPS)
 
     # the LMS kernel on config3's notch input of segment 1 (128 ch x 2^19); no
-    # single PyTorch call computes it. Its plain version, a host-bound loop of
-    # one step per sample, was timed in 4e on the first LMS_PREFIX samples of
-    # the same input; plain_ms scales that time to the whole segment
+    # single PyTorch call computes it. Its plain version was timed in 4e on
+    # the same input
     args = lms_args["config3 notch"]
     b_ms, b_by = bound(LMS_FLOPS_PER_SAMPLE * samples,
                        8 * samples + N_CHANNELS * 4 * (4 * 96 + 2 * 128))
     timing["lms_nr"] = dict(
         ms=time_ms(lambda: lms_bank.lms_nr_run_bank(*args), REPS),
-        plain_ms=lms_plain_prefix_ms["config3 notch"] * (SEG_LEN / LMS_PREFIX),
-        plain_from=LMS_PREFIX, bound_ms=b_ms, bound_by=b_by, library_ms=None,
-        flops=LMS_FLOPS_PER_SAMPLE * samples, samples=samples)
+        plain_ms=lms_plain_ms["config3 notch"], bound_ms=b_ms, bound_by=b_by,
+        library_ms=None, flops=LMS_FLOPS_PER_SAMPLE * samples, samples=samples,
+        steps=SEG_LEN)
     del args, lms_args
     for label in ("config3 notch", "config7 DNR2"):
         rb, x_r, x_i, st = ends[label]
@@ -1844,8 +1853,8 @@ def main() -> None:
         path_ms[label] = time_ms(lambda: b.process_planar(x_r, x_i, st), REPS)
     del args, sam_ends, xr6, xi6, xr6nb, xi6nb, xr10, xi10, xr10nb, xi10nb
     # the NR chain kernels: configs 3, 7 and 8 at full width, the other routes
-    # at 128 ch x SEG_NR. plain_ms scales the plain chain's time on its checked
-    # prefix (the per-sample LMS and PLL loops are host-bound) to the segment;
+    # at 128 ch x SEG_NR. plain_ms is the plain chain's time on its checked
+    # span, scaled to the segment for SAM (its PLL loop is host-bound);
     # the library yardstick is the products the kernel computes, as fp32
     # torch.matmul; the bound adds the LMS's and the PLL's operations to the
     # products'
@@ -1884,7 +1893,7 @@ def main() -> None:
         timing[kname] = dict(
             ms=time_ms(lambda: lanes.sweep_lanes_chain(*args), REPS),
             plain_ms=plain_ms * (n / prefix), bound_ms=b_ms, bound_by=b_by,
-            library_ms=lib_nr_ms[key], flops=flops, samples=samples_k,
+            library_ms=lib_nr_ms[key], flops=flops, samples=samples_k, seg=n,
             **({"plain_from": prefix} if prefix < n else {}),
             **({} if spectral and b.demod != "sam" else {"steps": n}))
         path_ms[f"NR {b.config.mode.name} + {b.config.nr.name}"
@@ -1910,6 +1919,16 @@ def main() -> None:
                f"segment)" if "plain_from" in tm else "")
             + f", library {library}, bound "
             f"{tm['bound_ms']:.3f} ms ({tm['bound_by']})")
+    lms_kernels = ["lms_nr"] + [k for k in lanes.KERNELS if not k.startswith("lanes_sam")
+                                and "spectral" not in k]
+    say("LMS step (csrc/lms_step.cuh, the grouped algebra): cycles per LMS step (the "
+        f"kernel's time over its n steps at {sm_max:.0f} MHz; SAM + LMS walks the PLL's chain "
+        "too) "
+        + ", ".join(f"{k} {timing[k]['ms'] * 1e-3 / timing[k]['steps'] * sm_max * 1e6:.1f}"
+                    for k in lms_kernels + [k for k in lanes.KERNELS
+                                            if k.startswith("lanes_sam") and "spectral" not in k])
+        + "; ptxas: " + "; ".join(f"{k} {ptxas.get(k, 'not in the build log')}"
+                                  for k in lms_kernels))
     block_s = CLI_BLOCK / FS
     say(f"timing Receiver (1 channel, {CLI_BLOCKS} threaded CLI blocks of {CLI_BLOCK} samples, "
         f"automatic I2S repair on): "
@@ -1962,7 +1981,7 @@ def main() -> None:
         "ms": timing[kname]["ms"], "plain_ms": timing[kname]["plain_ms"],
         "bound_ms": timing[kname]["bound_ms"], "bound_by": timing[kname]["bound_by"],
         "library_ms": timing[kname]["library_ms"],
-        "plain_timed_samples": timing[kname].get("plain_from", SEG_LEN)}
+        "plain_timed_samples": timing[kname].get("plain_from", timing[kname].get("seg", SEG_LEN))}
         for kname, (src, tpu) in sources.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)

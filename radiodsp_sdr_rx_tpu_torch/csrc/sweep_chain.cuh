@@ -54,10 +54,13 @@
 // 1.07 GB (0.32 ms at 3.35 TB/s) and 137 GFLOP (2.0 ms at the 67 TFLOP/s
 // fp32 rate outside the tensor cores): in fp32 SIMT it is bound by
 // arithmetic. The blanker adds about 10 flops and a square root per sample,
-// the AM envelope and DC blocker about 6 and a square root. The SAM PLL and
-// the LMS are not bound by a rate: each is a chain of dependent per-sample
-// steps (sam_pll.cuh, lms_step.cuh), n of them per segment whatever the
-// channel count, and their latency sets the time of those instantiations.
+// the AM envelope and DC blocker about 6 and a square root, the LMS 576.
+// The SAM PLL and the LMS are not bound by a rate: each is a chain of
+// dependent per-sample steps, n of them per segment whatever the channel
+// count. The PLL walks them one sample at a time (sam_pll.cuh); the LMS runs
+// the grouped exact algebra of lms_step.cuh on warps 0-2: the lag products
+// and each group's triangular inverse off the weights' path, the weights
+// waiting only for the predictions and two broadcasts a group.
 //
 // What the design does about it: every intermediate stays on chip, so device
 // memory sees only the 16 B/sample; the time goes to the products, run as
@@ -72,12 +75,14 @@
 // SAM writes zr into the audio rows and zi into the mixed Q rows (dead after
 // the product once their last row has moved out), and thread 0 walks the
 // chunk's 8,192 samples in time order, overwriting zr with vr, while the
-// other 255 threads wait at the barrier. The LMS stages run the same way on
-// warp 0, in place: notch over the audio rows, denoise over L, which the PBT
-// product writes into the dead mixed I rows. The desired sample x[t-128] is
-// read from the input ring just before x[t] replaces it (from the carried
-// delay line for the segment's first 128 samples), so the in-place walk
-// needs no pristine copy of its input. The spectral stage is K4's: the mixed
+// other 255 threads wait at the barrier. The LMS stages run on warps 0-2
+// (lms_step.cuh's walk), in place, 32 samples (two groups) a tile: notch
+// over the audio rows, denoise over L, which the PBT product writes into
+// the dead mixed I rows. The lags warp takes each tile's inputs into the
+// LMS's ring of the last 256 (in its scratch, 18 KB of shared memory) with
+// their desired samples x[t-128] before the predictor, two tiles behind,
+// overwrites them with the outputs, so the in-place walk needs no pristine
+// copy of its input. The spectral stage is K4's: the mixed
 // rows' last row waits in its own buffer, PBT writes l and r into the mixed
 // rows, W_fwd runs as two passes of 256 columns (its columns permuted by the
 // wrapper so that a pass holds sr and si of 128 bins and one thread holds sr
@@ -95,7 +100,8 @@
 // from the true carry, so every sample follows the sequential recurrence.
 // Segments past the end of a partial last chunk come after every valid one
 // and never reach a carry. Hiding the PLL's and the LMS's walks behind the
-// next chunk's products (warp specialisation) and a TF32/3xTF32 tensor-core
+// next chunk's products (warp specialisation), the LMS's input-only terms
+// (the lag products) on the waiting warps, and a TF32/3xTF32 tensor-core
 // design of the products are later work.
 
 #pragma once
@@ -124,13 +130,13 @@ static_assert(kSpecFloats <= 2 * kRowBuf, "pass B's spectrum fits the two mixed-
 __host__ __device__ constexpr bool is_lms(Nr nr) { return nr == Nr::kDenoise || nr == Nr::kNotch; }
 
 // As, Bs, three row buffers, scan segment ends, 8 carries; the blanker adds
-// the keep mask of the last row, the LMS its input ring, the spectral stage
-// pass A's spectrum, the per-row floor sums and floors, the mixed carry row
-// and the l/r carry rows
+// the keep mask of the last row, the LMS its scratch (16-byte aligned: up to
+// 3 floats of padding before it), the spectral stage pass A's spectrum, the
+// per-row floor sums and floors, the mixed carry row and the l/r carry rows
 template <bool kNB, Nr kNR>
 constexpr int smem_floats() {
   return kAsFloats + kBsFloats + 3 * kRowBuf + kThreads + 8 + (kNB ? kBlk : 0) +
-         (is_lms(kNR) ? lms::kRing : 0) +
+         (is_lms(kNR) ? lms::kScratchFloats + 3 : 0) +
          (kNR == Nr::kSpectral ? kSpecFloats + 2 * kRows + 4 * kBlk : 0);
 }
 
@@ -148,26 +154,31 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Warp 0: the LMS over rows 1..rows of buf, the chunk's samples from
-// segment position pos0, in time order and in place: each sample's output
-// overwrites its input. The desired sample x[m-128] is read from the ring
-// just before x[m] replaces it; for m < 128 it comes from the carried delay
-// line, or is x[m] itself while `first` (the reference's first-block quirk).
-__device__ __forceinline__ void lms_walk(lms::Warp& lw, float* ring, float* buf, int rows,
-                                         int pos0, const float* __restrict__ delay,
-                                         bool first, float mu, int notch) {
-  const int lane = threadIdx.x;
-  for (int i0 = 0; i0 < rows * kBlk; i0 += 32) {
-    const int i = i0 + lane, m = pos0 + i;
-    float* px = buf + (i / kBlk + 1) * kLd + i % kBlk;
-    __syncwarp();   // the previous tile's window loads are done
-    const float xv = *px;
-    const int slot = m & (lms::kRing - 1);
-    const float dv = m >= lms::kDelay ? ring[slot] : (first ? xv : delay[m]);
-    ring[slot] = xv;
-    __syncwarp();
-    *px = lw.tile(ring, pos0 + i0, 32, dv, mu, notch);
+// lms_step.cuh's walk over the chunk's rows 1..rows of buf, in place: each
+// sample's output overwrites its input once the lags warp has taken the
+// input into its ring.
+struct RowIo {
+  float* buf;
+  int count;
+  __device__ __forceinline__ float* at(int i) const { return buf + (i / kBlk + 1) * kLd + i % kBlk; }
+  __device__ __forceinline__ float fetch(int it) const {
+    const int i = it * lms::kTile + (threadIdx.x & 31);
+    return i < count ? *at(i) : 0.f;
   }
+  __device__ __forceinline__ void put(int it, float v) const {
+    const int i = it * lms::kTile + (threadIdx.x & 31);
+    if (i < count) *at(i) = v;
+  }
+};
+
+// Warps 0 and 1: the LMS over rows 1..rows of buf, the chunk's samples from
+// segment position pos0, in time order and in place.
+__device__ __forceinline__ void lms_walk(lms::Predictor& pr, lms::Lags& lg, lms::Scratch& ls,
+                                         float* buf, int rows, int pos0,
+                                         const float* __restrict__ delay, bool first, float mu,
+                                         int notch) {
+  RowIo io{buf, rows * kBlk};
+  lms::walk(pr, lg, ls, pos0, rows * kBlk, io, delay, first, mu, notch);
 }
 
 template <Demod kDemod, bool kNB, Nr kNR, bool kEmitR>
@@ -187,8 +198,11 @@ __global__ void __launch_bounds__(kThreads, 1) sweep_chain_kernel(const ChainArg
                                   // [2] [3] DC blocker: last envelope, last output,
                                   // [4] spectral floor
   float* keep_row = env_c + 8;                    // nb: keep mask of the last row so far
-  float* ring = keep_row + (kNB ? kBlk : 0);      // LMS: the last 128 inputs
-  float* Sa = ring + (kLMS ? lms::kRing : 0);     // spectral: pass A's spectrum
+  float* tail = keep_row + (kNB ? kBlk : 0);
+  // LMS: the scratch of lms_step.cuh (its ring of inputs), 16-byte aligned
+  lms::Scratch& ls = *reinterpret_cast<lms::Scratch*>(
+      smem + ((tail - smem + 3) & ~3));
+  float* Sa = tail;                               // spectral: pass A's spectrum
   float* fsum = Sa + kSpecFloats;                 // per row: the VAD band's magnitude sum
   float* nfr = fsum + kRows;                      // per row: the floor, clamped at 0
   float* mt = nfr + kRows;                        // the mixed carry row [re | im]
@@ -239,11 +253,14 @@ __global__ void __launch_bounds__(kThreads, 1) sweep_chain_kernel(const ChainArg
     pll.phase = a.pll0[c];
     pll.freq = a.pll0[gridDim.x + c];
   }
-  // LMS: warp 0 runs the channel's LMS, its weights in registers across chunks
-  lms::Warp lw;
+  // LMS: warps 0 and 1 run the channel's LMS, the weights and the lag
+  // products in their registers across chunks
+  lms::Predictor pr;
+  lms::Lags lg;
   bool lms_first = false;
-  if (kLMS && warp == 0) {
-    lw.load(a.lms_w0 + c * lms::kTaps, a.lms_win0 + c * lms::kTaps, ring);
+  if (kLMS && warp == 0) pr.load(a.lms_w0 + c * lms::kTaps);
+  if (kLMS && warp == 1) {
+    ls.load_window(a.lms_win0 + c * lms::kTaps);
     lms_first = *a.lms_first != 0;
   }
   if (tid == 0) {
@@ -426,10 +443,10 @@ __global__ void __launch_bounds__(kThreads, 1) sweep_chain_kernel(const ChainArg
       __syncthreads();
     }
 
-    // 2c. notch: the LMS error replaces the audio, warp 0 walking the chunk
+    // 2c. notch: the LMS error replaces the audio, warps 0 and 1 walking the chunk
     if constexpr (kNR == Nr::kNotch) {
-      if (warp == 0)
-        lms_walk(lw, ring, Ab, rows, row0 * kBlk, a.lms_delay0 + c * lms::kDelay, lms_first,
+      if (warp < 3)
+        lms_walk(pr, lg, ls, Ab, rows, row0 * kBlk, a.lms_delay0 + c * lms::kDelay, lms_first,
                  a.mu, 1);
       __syncthreads();
     }
@@ -465,15 +482,15 @@ __global__ void __launch_bounds__(kThreads, 1) sweep_chain_kernel(const ChainArg
       // [L|R] (L alone without kEmitR), output gain, straight to device memory
       store_rows<256, kEmitR ? 2 : 1>(lr, a.out_l, a.out_r, base, row0, rows, a.out_gain);
     } else if constexpr (kNR == Nr::kDenoise) {
-      // L into the dead mixed I rows; warp 0 replaces it by the LMS
+      // L into the dead mixed I rows; warps 0 and 1 replace it by the LMS
       // prediction; then y * 1.1 * output gain, straight to device memory
 #pragma unroll
       for (int i = 0; i < 8; ++i)
 #pragma unroll
         for (int j = 0; j < 4; ++j) Mr[(warp * 8 + i + 1) * kLd + lane * 4 + j] = lr[i][j];
       __syncthreads();
-      if (warp == 0)
-        lms_walk(lw, ring, Mr, rows, row0 * kBlk, a.lms_delay0 + c * lms::kDelay, lms_first,
+      if (warp < 3)
+        lms_walk(pr, lg, ls, Mr, rows, row0 * kBlk, a.lms_delay0 + c * lms::kDelay, lms_first,
                  a.mu, 0);
       __syncthreads();
 #pragma unroll 4
@@ -603,11 +620,12 @@ __global__ void __launch_bounds__(kThreads, 1) sweep_chain_kernel(const ChainArg
   }
   if constexpr (kLMS) {
     // the weights, the window and the delay line: the segment's last 128 inputs
-    if (warp == 0) {
-      lw.store(a.lms_w_out + c * lms::kTaps, a.lms_win_out + c * lms::kTaps, ring, n);
+    if (warp == 0) pr.store(a.lms_w_out + c * lms::kTaps);
+    if (warp == 1) {
+      ls.store_window(a.lms_win_out + c * lms::kTaps, n);
 #pragma unroll
       for (int k = lane; k < lms::kDelay; k += 32)
-        a.lms_delay_out[c * lms::kDelay + k] = ring[(n - lms::kDelay + k) & (lms::kRing - 1)];
+        a.lms_delay_out[c * lms::kDelay + k] = ls.at(n - lms::kDelay + k);
     }
   }
   if constexpr (kSpec) {

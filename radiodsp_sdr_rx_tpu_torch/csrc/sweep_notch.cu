@@ -5,9 +5,11 @@
 //
 // Replaces _lanes_chain_kernel (radiodsp_sdr_rx_tpu/ops/pallas_chain_lanes.py:98,
 // wrapper sweep_lanes_chain :748) with nr="notch" (:635-636: the LMS error between
-// the demod and the AGC), the LMS step of lms_step.cuh in place of the TPU's
-// grouped macro (ops/pallas_lms.py:127, 230), which is the same NLMS
-// recurrence reassociated for the TPU's lanes.
+// the demod and the AGC), the LMS in the grouped exact algebra of the TPU's macro
+// (ops/pallas_lms.py:127, 230), laid out for one warp in lms_step.cuh: 16
+// samples a group, the lag products slid one sample at a time and summed
+// afresh every 128, each group's triangular system inverted off the
+// weights' path: warps 0-2 walk while the other five wait.
 
 #include "sweep_chain.cuh"
 

@@ -4,10 +4,12 @@ Counterpart of ``radiodsp_sdr_rx_tpu/ops/pallas_lms.py``: ``lms_nr_run_bank``
 takes and returns what ``lms_nr_run_pallas`` (:380) does, (out, weights',
 window', delay') for x (C, n), and computes ``ops/lms.py``'s recurrence for
 every channel at once. CUDA tensors launch ``csrc/lms.cu`` (``lms_nr``, the
-K3 kernel: one warp per channel, the whole segment in one launch) or raise;
-CPU tensors run ``lms_nr_run_bank_plain``, the per-sample recurrence over
-(C, n) vectorised across channels, which the tests and ``chip_smoke.py``
-hold the kernel to. ``LAUNCHES`` counts the launches.
+K3 kernel: three warps per channel, the whole segment in one launch) or
+raise; CPU tensors run ``lms_nr_run_bank_plain``, which the tests and
+``chip_smoke.py`` hold the kernel to: the kernel's grouped exact algebra
+(``lms_grouped``: groups of LMS_GROUP samples, the lag products summed
+afresh every LMS_REBASE samples), batched across channels, a few tensor
+calls per group. ``LAUNCHES`` counts the launches.
 
 The JAX wrapper pads channels to 128 lanes and walks time in 4096-sample
 chunks with the state carried between them, both to fit the TPU; the kernel
@@ -29,6 +31,9 @@ from radiodsp_sdr_rx_tpu_torch.utils import build
 
 LAUNCHES = 0   # lms_nr
 MODES = ("denoise", "notch")
+LMS_GROUP = 16      # samples per group of the grouped algebra (csrc/lms_step.cuh kGroup)
+LMS_REBASE = 128    # the lag products are summed afresh every LMS_REBASE samples (kRebase)
+_CHUNK = 64 * LMS_REBASE   # samples whose input-only terms are formed at once
 
 
 def _check_args(x, weights, window, delay, mode):
@@ -57,28 +62,79 @@ def next_delay(delay: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return torch.cat([delay[:, n:], x], dim=1)
 
 
-def lms_nr_run_bank_plain(x, weights, window, delay, first, mu, mode="denoise"):
-    """Plain PyTorch version: the per-sample recurrence, vectorised across
-    channels. Every window is a slice of [window | x]; its energy is summed
-    afresh for every step (all steps at once, before the loop, since it
-    depends on the input alone), then the loop runs y, e and the update."""
-    _check_args(x, weights, window, delay, mode)
+def _lag_products(xp, s0, s1):
+    """R (C, s1 - s0, LMS_GROUP): R[:, m - s0, d] = win_m . win_{m+d}, win_m =
+    xp[:, m+1 : m+97], as the kernel forms them: summed afresh at every
+    multiple b of LMS_REBASE and telescoped from there,
+    R_m = R_b + sum_{e=b+1}^{m} (x[e] x[e+d] - x[e-96] x[e-96+d]).
+    s0 and s1 are multiples of LMS_REBASE; xp holds 96 + s1 + LMS_GROUP - 1
+    samples or more."""
+    c, u = xp.shape[0], LMS_GROUP
+    wins = xp.unfold(1, LMS_TAPS, 1)                                # wins[:, m+1] = win_m
+    starts = torch.arange(s0, s1, LMS_REBASE, device=xp.device)
+    lags = starts[:, None] + torch.arange(u, device=xp.device)      # (blocks, U)
+    fresh = (wins[:, starts + 1, None, :] * wins[:, lags + 1, :]).sum(-1)
+    new = xp[:, LMS_TAPS + s0:LMS_TAPS + s1]                          # x[e]
+    old = xp[:, s0:s1]                                              # x[e - 96]
+    delta = (new[..., None] * xp[:, LMS_TAPS + s0:LMS_TAPS + s1 + u - 1].unfold(1, u, 1)
+             - old[..., None] * xp[:, s0:s1 + u - 1].unfold(1, u, 1))
+    delta = delta.view(c, -1, LMS_REBASE, u)
+    delta[:, :, 0] = 0.0
+    return (torch.cumsum(delta, 2) + fresh[:, :, None]).view(c, s1 - s0, u)
+
+
+def lms_grouped(x, weights, window, delay, first, mu, mode="denoise"):
+    """The grouped exact algebra of csrc/lms_step.cuh in x's dtype, with the
+    kernel's group (LMS_GROUP) and rebase schedule (LMS_REBASE), batched over
+    channels: per group of U samples from t0, with inv_k = mu / (||win_k||^2
+    + eps), r_{j,k} = win_j . win_k and p = w . win_k from the weights at t0,
+    the chain e_k = d_k - y_k, c_k = e_k inv_k, y_k = p_k + sum_{j<k} c_j
+    r_{j,k} is one unit-lower-triangular system L c = inv * (d - p), L_kj =
+    inv_k r_{j,k}; then w += sum_k c_k win_k. A short last group has c_k =
+    0 past n. The arguments as ``lms_nr_run_bank``'s, unchecked."""
     c, n = x.shape
-    xp = torch.cat([window, x], dim=1)            # window[j] = x[j - 96]
+    u = LMS_GROUP
+    npad = -(-n // LMS_REBASE) * LMS_REBASE
+    xp = torch.cat([window, x, x.new_zeros(c, npad - n + u)], dim=1)   # xp[:, 96 + m] = x[m]
     shifted = torch.cat([delay, x], dim=1)[:, :n]
     quirk = _first(first, x.device) & (torch.arange(n, device=x.device) < LMS_DELAY)
-    d = torch.where(quirk, x, shifted)
-    den = (xp * xp).unfold(1, LMS_TAPS, 1)[:, 1:].sum(-1) + _EPS   # (C, n)
+    d = torch.cat([torch.where(quirk, x, shifted), x.new_zeros(c, npad - n)], dim=1)
     mu = float(np.float32(mu))
+    wins = xp.unfold(1, LMS_TAPS, 1)
+    below = torch.arange(u, device=x.device)
+    lag = below[:, None] - below[None, :]                   # [k, j] -> k - j
+    strict = lag > 0
+    flat = (below[None, :] * u + lag.clamp(min=0)).view(-1)   # [k, j] -> R[j, k - j]
+    eye = torch.eye(u, dtype=x.dtype, device=x.device)
     w = weights.clone()
-    out = torch.empty_like(x)
-    for t in range(n):
-        win = xp[:, t + 1:t + 1 + LMS_TAPS]
-        y = (w * win).sum(-1)
-        e = d[:, t] - y
-        w.addcmul_(((mu * e) / den[:, t])[:, None], win)
-        out[:, t] = y if mode == "denoise" else e
-    return out, w, xp[:, n:].clone(), next_delay(delay, x)
+    out = x.new_empty(c, npad)
+    for s0 in range(0, npad, _CHUNK):
+        s1 = min(s0 + _CHUNK, npad)
+        g = (s1 - s0) // u
+        r = _lag_products(xp, s0, s1).view(c, g, u, u)      # [.., k, d] = r_{k, k+d}
+        inv = mu / (r[..., 0] + _EPS)                       # (C, G, U)
+        if s1 > n:
+            inv = inv.masked_fill((torch.arange(s0, s1, device=x.device) >= n).view(g, u), 0.0)
+        rlow = torch.where(strict, r.view(c, g, u * u)[..., flat].view(c, g, u, u), 0.0)
+        system = eye + inv[..., None] * rlow                # L
+        dg = d[:, s0:s1].view(c, g, u)
+        for k in range(g):
+            t0 = s0 + k * u
+            win = wins[:, t0 + 1:t0 + 1 + u]                # (C, U, 96)
+            p = (win @ w[:, :, None])[..., 0]
+            cc = torch.linalg.solve_triangular(system[:, k], (inv[:, k] * (dg[:, k] - p))[..., None],
+                                               upper=False, unitriangular=True)
+            y = p + (rlow[:, k] @ cc)[..., 0]
+            out[:, t0:t0 + u] = y if mode == "denoise" else dg[:, k] - y
+            w = w + (cc.transpose(1, 2) @ win)[:, 0]
+    return out[:, :n].contiguous(), w, xp[:, n:n + LMS_TAPS].clone(), next_delay(delay, x)
+
+
+def lms_nr_run_bank_plain(x, weights, window, delay, first, mu, mode="denoise"):
+    """Plain PyTorch version: ``lms_grouped``, the kernel's algebra, group
+    and rebase schedule, a few tensor calls per group of LMS_GROUP samples."""
+    _check_args(x, weights, window, delay, mode)
+    return lms_grouped(x, weights, window, delay, first, mu, mode)
 
 
 def lms_nr_run_bank(x, weights, window, delay, first, mu, mode="denoise"):

@@ -220,11 +220,15 @@ def test_am_kernel_matches_plain_over_two_segments(cuda_device, channels, n, agc
 
 
 @pytest.mark.parametrize("mode", ["denoise", "notch"])
-@pytest.mark.parametrize("channels, n", [(8, 4096), (5, 1000), (3, 100)])
+@pytest.mark.parametrize("channels, n", [(8, 4096), (5, 1000), (3, 100), (1, 16384),
+                                         (128, 1 << 19)])
 def test_lms_kernel_matches_plain_over_two_segments(cuda_device, channels, n, mode):
-    """K3 against lms_nr_run_bank_plain, first=True into the first segment (the
-    quirk) and False after, on tones in noise; n not a multiple of 32, and
-    shorter than the delay line, included."""
+    """K3 against lms_nr_run_bank_plain (the same grouped algebra, group and
+    rebase schedule), first=True into the first segment (the quirk) and False
+    after, on tones in noise: n not a multiple of the group (a short last
+    group) or of 32, shorter than the delay line, one channel at the
+    Receiver's 16,384-sample block, and whole 128 x 2^19 segments (the
+    drift a prefix cannot show)."""
     gen = torch.Generator(device=cuda_device).manual_seed(n + len(mode))
     t = torch.arange(n, device=cuda_device, dtype=torch.float32)
     f = torch.rand((channels, 1), generator=gen, device=cuda_device) * 0.2 + 0.01
@@ -547,6 +551,50 @@ def test_nr_chain_kernels_match_plain_over_two_segments(cuda_device, demod, nr, 
         for key in ("audio_l", "audio_r"):
             np.testing.assert_allclose(out[key].cpu().numpy(), want[key].cpu().numpy(),
                                        atol=2e-3, rtol=0)
+
+
+# the LMS routes: one channel, the last 8,192-sample chunk one row long (SAM
+# at 2,176 samples: its plain PLL is one host-bound step per sample), and
+# 128 channels x 2^17 but for SAM
+LMS_CASES = [(d, nr, nb, 1, 2048 + 128 if d == "sam" else 8192 + 128)
+             for d, nr, nb in LANES_ROUTES if nr != "spectral"] + [
+    (d, nr, nb, 128, 1 << 17) for d, nr, nb in LANES_ROUTES if nr != "spectral" and d != "sam"]
+
+
+@pytest.mark.parametrize("demod, nr, nb, channels, n", LMS_CASES)
+def test_lms_chain_kernels_match_plain_over_whole_segments(cuda_device, demod, nr, nb,
+                                                           channels, n):
+    """Each LMS instantiation of the lanes kernel against the plain chain (the
+    same grouped LMS algebra) over two whole threaded segments, the LMS's
+    first-block quirk in the first, every output and carry: the drift over
+    a long stream that a prefix cannot show, and one channel."""
+    bank = _lanes_bank(demod, nr, nb, channels, cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(channels + len(bank.kernel))
+    xr, xi = _locked(channels, n, gen, cuda_device)
+    if nb:
+        for pos in sorted({n // 5, n // 2 + 3, n - 1}):
+            xr[:, pos] = 8.0
+            xi[:, pos] = 8.0
+    warm = torch.full((channels,), float(torch.hypot(xr, xi).mean()), device=cuda_device)
+    state = bank.init_state()._replace(nb_avg=warm)
+    for _ in range(2):
+        args = bank.lanes_args(xr, xi, state)
+        ref = lanes.sweep_lanes_chain_plain(*args)
+        before = dict(lanes.LAUNCHES)
+        got = lanes.sweep_lanes_chain(*args)
+        torch.cuda.synchronize()
+        assert {k: v - before[k] for k, v in lanes.LAUNCHES.items() if v != before[k]} == \
+            {bank.kernel: 1}
+        for name, g, r in zip(lanes.LanesOut._fields, got, ref):
+            if g is None:
+                continue
+            assert bool(torch.isfinite(g).all()), name
+            if name == "pll":
+                _phase_close(g[0], r[0])
+                g, r = g[1], r[1]
+            np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(), atol=LMS_ATOL, rtol=0,
+                                       err_msg=name)
+        _, state = bank.process_planar(xr, xi, state)
 
 
 def test_nr_chain_wrapper_rejects_bad_arguments(cuda_device):
