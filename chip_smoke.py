@@ -49,9 +49,14 @@ banks against the port's reference chain, and times them:
     channels a block) and with the blanker sam_wide_nb, 1 launch/segment.
     Each kernel against its plain version on a full-width prefix of
     SAM_PREFIX samples (the plain PLL is one host-bound step per sample):
-    threaded as two segments, and the full run's first samples; each route
-    against ``ReceiverBank(mode=SAM)`` on a prefix; K7 against K6 at
-    1,024 channels over two full segments;
+    threaded as two segments, and the full run's first samples; K5 and
+    sweep_chain_sam also over a long run, SAM_LONG samples as two threaded
+    segments at full width, against the plain versions on the CPU copy of
+    SAM_LONG_ROWS channels spread over the bank; each route against
+    ``ReceiverBank(mode=SAM)`` on a prefix; K7 against K6 at 1,024 channels
+    over two full segments; the PLL step's pieces (csrc/sam.cu's probe: the
+    explicit divide bit for bit against IEEE division, the atan2 within
+    ATAN2_ULPS ulps of the plain one); cycles per PLL step;
   - K8, ``sweep_mix_filter_demod`` (mix + band-pass + SSB demod from a
     stream start), at tools/bench_sweep.py's shapes (128 channels x 2^19):
     kernel sweep_mix_demod, 1 launch/call, held to its plain version, to
@@ -115,6 +120,9 @@ N_SAM_WIDE = 1024    # bench_full.py config10_sam_1024ch
 SEG_WIDE = 1 << 17   # config10's segment (bench_full.py seg_override)
 SEG_NR = 1 << 17     # the NR routes beside configs 3, 7 and 8 (a cut, PERF.md section 4)
 SAM_PREFIX = 2048    # samples of the per-sample plain PLL held to the kernels
+SAM_LONG = 1 << 17   # the long run of K5 and sweep_chain_sam, two threaded segments
+SAM_LONG_ROWS = 8    # its channels, spread over the bank, their plain loop on the CPU
+ATAN2_ULPS = 4       # device atan2 vs plain: the kernel's FMAs against separate products
 N_AM = 64            # bench_full.py config1_am_64ch
 N_SPEC = 64          # bench_full.py config4_spec_nr_64ch
 SEG_LEN = 1 << 19    # bench.py:39
@@ -139,6 +147,60 @@ SPEC_FLOPS_PER_SAMPLE = 2 * (512 * 128 + 256 * 256 + 512 * 512 + 512 * 256) // 1
 # the PLL step: the two products, the atan2 (a divide counted as one), the
 # loop update, the base oscillator's two Horner chains, the rotation
 PLL_FLOPS_PER_SAMPLE = 72
+# the PLL step's dependent path from err[n] to err[n+1], read from the SASS
+# of csrc/sam_pll.cuh (cuobjdump of sam.cu's build; PERF.md section 6),
+# instructions by latency kind of LATENCY_KINDS: the clip bounds, the two
+# clamps, the rotation's two FMA levels, hi, lo + hi and its clamp, the
+# reciprocal and the divide's Newton step, quotient, residual and
+# correction, the Estrin polynomial. Printed beside the cycles per step as
+# the chain bound; not part of the kernels line.
+PLL_PATH = {"FFMA": 12, "FMNMX": 4, "MUFU.RCP + FFMA": 1}
+# cycles per link of dependent chains of the PLL step's instruction kinds,
+# one thread timing each chain of LATENCY_LINKS links with clock64: 0 FFMA,
+# 1 FMNMX, 2 a compare and a select (FSETP, FSEL), 3 a compare and a
+# predicated FADD on the fresh predicate, 4 MUFU.RCP and an FFMA. Only this
+# script prices the path, so the source is built here, beside the package's.
+LATENCY_KINDS = ("FFMA", "FMNMX", "FSETP + FSEL", "FSETP + predicated FADD",
+                 "MUFU.RCP + FFMA")
+LATENCY_LINKS = 256
+LATENCY_SRC = r"""
+#include <cuda_runtime.h>
+#define LINKS %d
+__global__ void pll_latency_kernel(long long* cycles, float* sink, float a, float b) {
+  float x = a;
+  long long t = clock64();
+#pragma unroll
+  for (int i = 0; i < LINKS; ++i) asm volatile("fma.rn.f32 %%0, %%0, %%1, %%2;" : "+f"(x) : "f"(b), "f"(a));
+  cycles[0] = clock64() - t;
+  t = clock64();
+#pragma unroll
+  for (int i = 0; i < LINKS; ++i) asm volatile("max.f32 %%0, %%0, %%1;" : "+f"(x) : "f"(b));
+  cycles[1] = clock64() - t;
+  t = clock64();
+#pragma unroll
+  for (int i = 0; i < LINKS; ++i)
+    asm volatile("{.reg .pred p; setp.gt.f32 p, %%0, %%1; selp.f32 %%0, %%2, %%0, p;}"
+                 : "+f"(x) : "f"(b), "f"(a));
+  cycles[2] = clock64() - t;
+  t = clock64();
+#pragma unroll
+  for (int i = 0; i < LINKS; ++i)
+    asm volatile("{.reg .pred p; setp.gt.f32 p, %%0, %%1; @p add.f32 %%0, %%0, %%2;}"
+                 : "+f"(x) : "f"(b), "f"(a));
+  cycles[3] = clock64() - t;
+  t = clock64();
+#pragma unroll
+  for (int i = 0; i < LINKS; ++i)
+    asm volatile("{.reg .f32 r; rcp.approx.ftz.f32 r, %%0; fma.rn.f32 %%0, r, %%1, %%2;}"
+                 : "+f"(x) : "f"(b), "f"(a));
+  cycles[4] = clock64() - t;
+  *sink = x;
+}
+extern "C" int pll_latency(long long* cycles, float* sink) {
+  pll_latency_kernel<<<1, 1>>>(cycles, sink, 1.0001f, 0.9999f);
+  return (int)cudaGetLastError();
+}
+""" % LATENCY_LINKS
 LIBRARIES = ("sweep_chain", "staged", "lms", "sweep_spec", "sam", "sam_wide", "sweep_denoise",
              "sweep_notch", "halo")
 
@@ -220,6 +282,9 @@ def ptxas_summary(log: str):
             demod, nb, nr, stereo = re.search(r"DemodE(\d)ELb(\d)EL\w*?NrE(\d)ELb(\d)E",
                                               mangled).groups()
             kname = kernel_of(int(demod), nb == "1", int(nr), stereo == "1")
+        elif "sam_chain_kernel" in mangled:
+            nb, nr = re.search(r"sam_chain_kernelILb(\d)EL\w*?NrE(\d)E", mangled).groups()
+            kname = kernel_of(2, nb == "1", int(nr), nr != "1")
         elif "sam_wide_kernel" in mangled:
             g, nb = re.search(r"sam_wide_kernelILi(\d)ELb(\d)E", mangled).groups()
             kname = f"sam_wide{'_nb' if nb == '1' else ''} (G={g})"
@@ -228,12 +293,42 @@ def ptxas_summary(log: str):
                                          ("mix_demod_kernel", "mix_demod"), ("pbt_kernel", "pbt"),
                                          ("lms_kernel", "lms_nr"),
                                          ("sam_pll_kernel", "sam_pll"),
+                                         ("sam_probe_kernel", "sam_probe"),
                                          ("ring_shift_kernel", "ring_shift"))
                          if fn in mangled)
         lines = block.splitlines()
         out.append((kname, next(ln for ln in lines if "registers" in ln).split(": ")[-1],
                     next(ln for ln in lines if "spill" in ln).strip()))
     return out
+
+
+def build_latency_probe():
+    """LATENCY_SRC built with the package's nvcc flags into its build
+    directory (ignored by git), loaded with ctypes."""
+    import ctypes
+    from radiodsp_sdr_rx_tpu_torch.utils import build
+    build.BUILD_DIR.mkdir(exist_ok=True)
+    src, so = build.BUILD_DIR / "pll_latency.cu", build.BUILD_DIR / "libpll_latency.so"
+    src.write_text(LATENCY_SRC)
+    proc = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", str(so), str(src)],
+                          capture_output=True, text=True)
+    check(proc.returncode == 0, f"nvcc failed on the latency chains:\n{proc.stdout}{proc.stderr}")
+    return ctypes.CDLL(str(so))
+
+
+def latency_probe(lib) -> dict:
+    """Cycles per link of each kind of LATENCY_KINDS on the current card."""
+    cycles = torch.zeros(len(LATENCY_KINDS), dtype=torch.int64, device="cuda")
+    sink = torch.zeros(1, device="cuda")
+    check(lib.pll_latency(ctypes_ptr(cycles), ctypes_ptr(sink)) == 0,
+          "the latency chains did not launch")
+    torch.cuda.synchronize()
+    return {k: float(v) / LATENCY_LINKS for k, v in zip(LATENCY_KINDS, cycles.tolist())}
+
+
+def ctypes_ptr(t):
+    import ctypes
+    return ctypes.c_void_p(t.data_ptr())
 
 
 def floor_margins(args, sweep):
@@ -651,10 +746,12 @@ def main() -> None:
 
     # 2. the kernel builds, one nvcc per source, all at once
     t = time.perf_counter()
-    with ThreadPoolExecutor(len(LIBRARIES)) as pool:
+    with ThreadPoolExecutor(len(LIBRARIES) + 1) as pool:
+        latency_lib = pool.submit(build_latency_probe)
         list(pool.map(build.load_library, LIBRARIES))
-    say(f"build: csrc/{{{','.join(LIBRARIES)}}}.cu with nvcc for sm_90a in "
-        f"{time.perf_counter() - t:.2f} s")
+        latency_lib = latency_lib.result()
+    say(f"build: csrc/{{{','.join(LIBRARIES)}}}.cu and the latency chains with nvcc for "
+        f"sm_90a in {time.perf_counter() - t:.2f} s")
     ptxas = {}
     for lib in LIBRARIES:
         for kname, regs, spills in ptxas_summary(build.build_log(lib)):
@@ -1128,6 +1225,47 @@ def main() -> None:
         t1.synchronize()
         return out, t0.elapsed_time(t1)
 
+    # the step's pieces (csrc/sam.cu sam_probe; no launch counted): the
+    # explicit divide against numpy's float32 division over the PLL's
+    # operands (tiny numerators and quotients near the subnormal grid's
+    # midpoints included), bit for bit where the quotient is at least 2^-126,
+    # within 2^-149 below, a zero numerator's signed zero (div_rn's
+    # contract), the compiler's `/` and torch's division bit for bit
+    # everywhere; the atan2 within ATAN2_ULPS of the plain version
+    num, den = sam.probe_operands(29)
+    a_dev, b_dev = torch.from_numpy(num).cuda(), torch.from_numpy(den).cuda()
+    q, q_ref, _ = sam.probe(a_dev, b_dev)
+    want = num / den
+    sub = np.abs(want) < np.float32(2.0 ** -126)
+    bits = [t.cpu().numpy() for t in (q, q_ref, a_dev / b_dev)]
+    same = [int((t.view(np.int32) != want.view(np.int32))[~sub].sum()) for t in bits]
+    same_sub = [int((t.view(np.int32) != want.view(np.int32))[sub].sum()) for t in bits]
+    sub_err = float(np.abs(bits[0][sub].astype(np.float64) - want[sub]).max())
+    zero = num == 0
+    zero_sign = int((np.signbit(bits[0][zero]) != np.signbit(want[zero])).sum())
+    y = torch.randn(1 << 18, generator=gen, device="cuda")
+    x = torch.randn(1 << 18, generator=gen, device="cuda")
+    y[:4096] = x[:4096] * torch.where(torch.rand(4096, generator=gen, device="cuda") < 0.5, -1, 1)
+    y[4096:8192] = x[4096:8192] * np.float32(0.41421356)
+    y[:8], x[:8] = (torch.tensor(v, dtype=torch.float32, device="cuda") for v in (
+        [0, 1, -1, 0, 0, 1, -1, 0], [0, 0, 0, 1, -1, 1, -1, -1]))
+    t_dev = sam.probe(y, x)[2].cpu().numpy()
+    t_plain = sam.atan2_poly(y.cpu(), x.cpu()).numpy()
+    ulps = float((np.abs(t_dev.astype(np.float64) - t_plain)
+                  / np.spacing(np.abs(t_plain).astype(np.float32))).max())
+    say(f"check the PLL step's pieces (sam_probe): div_rn, the compiler's `/` and torch's "
+        f"division vs numpy's float32 division over {num.size} operands (den 1e-30..2^24, "
+        f"|num| <= den, subnormal numerators included): {same} differ of the "
+        f"{int((~sub).sum())} quotients >= 2^-126, {same_sub} of the {int(sub.sum())} below "
+        f"(div_rn within {sub_err / 2.0 ** -149:g} x 2^-149 there, bound 1; the sign of "
+        f"{int(zero.sum())} zero numerators' quotients kept but {zero_sign}); atan2_poly vs "
+        f"plain over {y.numel()} inputs: {ulps:.1f} ulps (bound {ATAN2_ULPS})")
+    check(same == [0, 0, 0] and same_sub[1:] == [0, 0] and sub_err <= 2.0 ** -149
+          and zero_sign == 0,
+          "div_rn or `/` departs from IEEE division on the PLL's operands")
+    check(ulps <= ATAN2_ULPS, f"the device atan2 is {ulps:.1f} ulps from the plain one")
+    del q, q_ref, a_dev, b_dev, y, x
+
     # config6 staged: K5 (recorded through ops/sam.sam_pll_run, as the LMS
     # stage is above) and pbt
     c6 = N_SAM
@@ -1224,6 +1362,54 @@ def main() -> None:
     sam_ends["sweep_chain_sam"] = (bank6, xr6, xi6, sam_kernel_checks(
         "sweep_chain_sam", bank6, xr6, xi6, bank6.init_state(), "SAM config6 fold=True",
         SEG_LEN))
+    # the long run: K5 and sweep_chain_sam over SAM_LONG samples as two
+    # threaded segments at full width, against their plain versions on the CPU
+    # copy of SAM_LONG_ROWS channels spread over the bank (the plain loop is
+    # one step per sample; 32 K5 re-seed periods, 128 of K6)
+    rows_l = list(range(0, c6, c6 // SAM_LONG_ROWS))
+    half_l = SAM_LONG // 2
+    t = time.perf_counter()
+    (zr, zi, ph0, fr0, bw, fs, chunk), _ = bank6s.pll_args(
+        xr6[:, :SAM_LONG].contiguous(), xi6[:, :SAM_LONG].contiguous(), bank6s.init_state())
+    got, ph, fr = [], ph0, fr0
+    for h in range(2):
+        vr_h, ph, fr = sam.sam_pll_run(zr[:, h * half_l:(h + 1) * half_l].contiguous(),
+                                       zi[:, h * half_l:(h + 1) * half_l].contiguous(), ph, fr,
+                                       bw, fs, chunk)
+        got.append(vr_h[rows_l].cpu())
+    ref = sam.sam_pll_run_plain(zr[rows_l].cpu(), zi[rows_l].cpu(), ph0[rows_l].cpu(),
+                                fr0[rows_l].cpu(), bw, fs, chunk)
+    d_k5 = max(max_diff([torch.cat(got, 1), fr[rows_l].cpu()], [ref[0], ref[2]]),
+               phase_diff(ph[rows_l].cpu(), ref[1]))
+    say(f"check sam_pll long run: {len(rows_l)} of {c6} ch (rows {rows_l}) x {SAM_LONG} "
+        f"samples as 2 threaded segments, the plain loop on the CPU in "
+        f"{time.perf_counter() - t:.1f} s: max |kernel - plain| over vr, phase (wrap-aware), "
+        f"freq = {d_k5:.3e} (tolerance {TOL:g})")
+    check(d_k5 <= TOL, f"sam_pll disagrees with the plain version over the long run: {d_k5:.3e}")
+    del zr, zi, got, ref
+    t = time.perf_counter()
+    bank_h = FusedSAMBank(cfg_sam, [freqs10[k] for k in rows_l], device="cpu")
+    st_k, st_h, d_k6 = bank6.init_state(), bank_h.init_state(), 0.0
+    for h in range(2):
+        xs = (xr6[:, h * half_l:(h + 1) * half_l].contiguous(),
+              xi6[:, h * half_l:(h + 1) * half_l].contiguous())
+        out_k, st_k = bank6.process_planar(*xs, st_k)
+        out_h, st_h = bank_h.process_planar(*(x[rows_l].cpu() for x in xs), st_h)
+        d_k6 = max(d_k6, max_diff([out_k[k][rows_l].cpu() for k in ("audio_l", "audio_r")]
+                                  + [st_k.sam_freq[rows_l].cpu(), st_k.sam_dc[rows_l].cpu(),
+                                     st_k.agc_env[rows_l].cpu()],
+                                  [out_h["audio_l"], out_h["audio_r"], st_h.sam_freq[:len(rows_l)],
+                                   st_h.sam_dc, st_h.agc_env]),
+                   phase_diff(st_k.sam_phase[rows_l].cpu(), st_h.sam_phase[:len(rows_l)]))
+    say(f"check sweep_chain_sam long run: {len(rows_l)} of {c6} ch x {SAM_LONG} samples as 2 "
+        f"threaded segments, the plain chain on the CPU in {time.perf_counter() - t:.1f} s: max "
+        f"|kernel - plain| over L, R, sam_freq, sam_dc, env, sam_phase (wrap-aware) = "
+        f"{d_k6:.3e} (tolerance {TOL:g})")
+    check(d_k6 <= TOL, f"sweep_chain_sam disagrees with the plain chain over the long run: "
+          f"{d_k6:.3e}")
+    err["sam_pll"] = max(err["sam_pll"], d_k5)
+    err["sweep_chain_sam"] = max(err["sweep_chain_sam"], d_k6)
+    del out_k, out_h, st_k, st_h, bank_h
     xr6nb, xi6nb, mean6 = locked_scene(c6, SEG_LEN, gen, nco10[:c6], impulses=True)
     bank6nb = FusedSAMBank(cfg_sam_nb, freqs10[:c6])
     st0 = bank6nb.init_state()._replace(nb_avg=torch.full((c6,), mean6, device="cuda"))
@@ -1922,13 +2108,31 @@ def main() -> None:
     lms_kernels = ["lms_nr"] + [k for k in lanes.KERNELS if not k.startswith("lanes_sam")
                                 and "spectral" not in k]
     say("LMS step (csrc/lms_step.cuh, the grouped algebra): cycles per LMS step (the "
-        f"kernel's time over its n steps at {sm_max:.0f} MHz; SAM + LMS walks the PLL's chain "
-        "too) "
+        f"kernel's time over its n steps at {sm_max:.0f} MHz) "
         + ", ".join(f"{k} {timing[k]['ms'] * 1e-3 / timing[k]['steps'] * sm_max * 1e6:.1f}"
-                    for k in lms_kernels + [k for k in lanes.KERNELS
-                                            if k.startswith("lanes_sam") and "spectral" not in k])
+                    for k in lms_kernels)
         + "; ptxas: " + "; ".join(f"{k} {ptxas.get(k, 'not in the build log')}"
                                   for k in lms_kernels))
+    pll_kernels = ["sam_pll", "sweep_chain_sam", "sweep_chain_sam_nb", "sam_wide",
+                   "sam_wide_nb"] + [k for k in lanes.KERNELS if k.startswith("lanes_sam")]
+    lat = latency_probe(latency_lib)
+    check(all(0.0 < v < 1000.0 for v in lat.values()) and lat["MUFU.RCP + FFMA"] > lat["FFMA"],
+          f"the latency chains read {lat}")
+    chain_cycles = sum(n_ins * lat[kind] for kind, n_ins in PLL_PATH.items())
+    say("PLL step (csrc/sam_pll.cuh): latencies (cycles per link of a dependent chain of "
+        f"{LATENCY_LINKS}) " + ", ".join(f"{k} {v:.2f}" for k, v in lat.items())
+        + f"; the step's dependent path {PLL_PATH} = {chain_cycles:.1f} cycles, the chain bound "
+        f"n x {chain_cycles:.1f} / {sm_max:.0f} MHz: "
+        + ", ".join(f"{k} {timing[k]['steps'] * chain_cycles / (sm_max * 1e3):.3f} ms"
+                    for k in pll_kernels))
+    say("PLL step (csrc/sam_pll.cuh): cycles per PLL step (the kernel's time over its n steps "
+        f"at {sm_max:.0f} MHz; the SAM x LMS routes walk the PLL and the LMS side by side, "
+        "SAM + spectral one after the other) "
+        + ", ".join(f"{k} {timing[k]['ms'] * 1e-3 / timing[k]['steps'] * sm_max * 1e6:.1f}"
+                    for k in pll_kernels)
+        + "; ptxas: " + "; ".join(
+            f"{k} {ptxas.get(k + (' (G=8)' if k.startswith('sam_wide') else ''), 'not in the build log')}"
+            for k in pll_kernels))
     block_s = CLI_BLOCK / FS
     say(f"timing Receiver (1 channel, {CLI_BLOCKS} threaded CLI blocks of {CLI_BLOCK} samples, "
         f"automatic I2S repair on): "

@@ -88,9 +88,16 @@ struct Tile {
   }
 };
 
+// The barrier of the 256 threads that run the products and scans: the whole
+// block's, or (sweep_chain.cuh's SAM kernel, whose block has one more warp)
+// a named barrier of those 256 threads.
+struct BlockSync {
+  __device__ __forceinline__ static void sync() { __syncthreads(); }
+};
+
 // acc[i][4q+j] = sum_k A(8*warp+i, k) * w[k][128q + 4*lane + j], fp32 FMA.
-// Ends with __syncthreads(), so the caller may overwrite what A read.
-template <int N, ALayout kA = ALayout::kFrames, int kRPC = kRows>
+// Ends with Sync::sync(), so the caller may overwrite what A read.
+template <int N, ALayout kA = ALayout::kFrames, int kRPC = kRows, class Sync = BlockSync>
 __device__ __forceinline__ void chunk_gemm(const float* lo, const float* hi,
                                            const float* __restrict__ w, int K,
                                            float* As, float* Bs,
@@ -105,7 +112,7 @@ __device__ __forceinline__ void chunk_gemm(const float* lo, const float* hi,
   Tile<N, kA, kRPC> next;
   next.fetch(lo, hi, w4, 0);
   next.stash(As, Bs);
-  __syncthreads();
+  Sync::sync();
   const int tiles = K / kKT;
   for (int t = 0; t < tiles; ++t) {
     const int cur = t & 1;
@@ -130,7 +137,7 @@ __device__ __forceinline__ void chunk_gemm(const float* lo, const float* hi,
       }
     }
     if (t + 1 < tiles) next.stash(As + (cur ^ 1) * kKT * kRows, Bs + (cur ^ 1) * kKT * 256);
-    __syncthreads();
+    Sync::sync();
   }
 }
 

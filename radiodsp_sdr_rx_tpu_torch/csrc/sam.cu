@@ -10,23 +10,28 @@
 //
 // What bounds it on an H100: not bytes (12 B per sample per channel) nor
 // operations (about 72 flops per sample), but the chain of dependent
-// operations from one sample's phase error to the next sample's oscillator:
-// the atan2 with its IEEE divide, the loop update and the small-angle
-// rotation, some 40 dependent operations at 4 or more cycles each. A segment
-// of n samples costs n such steps whatever the channel count.
+// instructions from one sample's phase error to the next one's (the
+// rotation of the next product, the atan2 with its divide, the loop update)
+// and, a step behind it, the base oscillator's path from the new phase. A
+// segment of n samples costs n such steps whatever the channel count, and
+// with about a hundred instructions a step, the one warp that walks them
+// also comes close to its scheduler's issue rate.
 //
-// What the design does about it: one thread per channel walks its time axis,
-// so 32 channels share one warp's chain; the base oscillator's 13-FMA
-// polynomial hangs off the previous step's state and runs beside the chain.
-// A block owns 32 channels and has five warps: warp 0 runs the PLLs out of
-// shared memory while warps 1-4 load the next tile of 128 samples of the 32
-// channels (thread q the column q of every row: coalesced, 16 loads in
-// flight a thread) and store the previous tile's vr, so that no global
-// memory latency sits on the chain. (With one copy warp the loads went one
-// DRAM latency at a time and the copy, not the chain, set the pace: 182.5 ms
-// per config6 segment on an H100.) Rows are padded to 129 floats, so the 32
-// threads reading one column hit 32 banks. Channels past the end compute on
-// zeros and store nothing.
+// What the design does about it: sam_pll.cuh's step, arranged to shorten
+// the chain (the folded rotation, the early clip bounds, the atan2's octant
+// folded into its polynomial, the divide without its slow-path branch, the
+// re-seeds outside the unrolled loop). One thread per channel walks its time
+// axis, so 32 channels share one warp's chain. A block owns 32 channels and
+// has five warps: warp 0 runs the PLLs out of shared memory while warps 1-4
+// load the next tile of 128 samples of the 32 channels (thread q the column
+// q of every row: coalesced, 16 loads in flight a thread) and store the
+// previous tile's vr, so that no global memory latency sits on the chain.
+// (With one copy warp the loads went one DRAM latency at a time and the
+// copy, not the chain, set the pace: 182.5 ms per config6 segment on an
+// H100.) Rows are padded to 129 floats, so the 32 threads reading one column
+// hit 32 banks. Channels past the end compute on zeros and store nothing.
+//
+// sam_probe applies the device divide and atan2 to arrays, for the tests.
 
 #include <cuda_runtime.h>
 
@@ -78,7 +83,8 @@ __global__ void __launch_bounds__(kBlockThreads) sam_pll_kernel(
 
   const int c = c0 + lane;
   const PllGains gains{kp, ki, max_freq};
-  Pll pll{0.f, 0.f, 0.f, 0.f};
+  const Reseed reseed{period, n, period};
+  Pll pll{};
   if (warp == 0 && c < channels) {
     pll.phase = phase0[c];
     pll.freq = freq0[c];
@@ -92,16 +98,7 @@ __global__ void __launch_bounds__(kBlockThreads) sam_pll_kernel(
       const float* a = zin + (t & 1) * 2 * kTileFloats + lane * kLdT;
       const float* b = a + kTileFloats;
       float* v = vbuf + (t & 1) * kTileFloats + lane * kLdT;
-      const int len = min(kTile, n - t * kTile);
-#pragma unroll 4
-      for (int k = 0; k < len; ++k) {
-        const int pos = t * kTile + k;
-        if (pos == next) {
-          pll.reseed();
-          next += period;
-        }
-        v[k] = pll.step(a[k], b[k], gains);
-      }
+      walk_row(pll, gains, reseed, next, t * kTile, min(kTile, n - t * kTile), a, b, v);
     } else {
       if (t + 1 < tiles) load(t + 1);
       if (t > 0) store(t - 1);
@@ -133,5 +130,31 @@ extern "C" int sam_pll(const float* zr, const float* zi, const float* phase0,
   sam_pll_kernel<<<(channels + kCh - 1) / kCh, kBlockThreads, smem, (cudaStream_t)stream>>>(
       zr, zi, phase0, freq0, vr_out, phase_out, freq_out, channels, n, period, kp, ki,
       max_freq);
+  return (int)cudaGetLastError();
+}
+
+namespace {
+
+__global__ void sam_probe_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                                 float* __restrict__ q, float* __restrict__ q_ref,
+                                 float* __restrict__ t, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) {
+    q[i] = div_rn(a[i], b[i]);
+    q_ref[i] = a[i] / b[i];
+    t[i] = atan2_poly(a[i], b[i]);
+  }
+}
+
+}  // namespace
+
+// The probe on `stream` of CUDA device `device`, over n elements: q =
+// div_rn(a, b), q_ref = a / b (the compiler's IEEE divide), t =
+// atan2_poly(a, b) (y = a, x = b). Returns the cudaError_t of the launch.
+extern "C" int sam_probe(const float* a, const float* b, float* q, float* q_ref, float* t,
+                         int n, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  sam_probe_kernel<<<(n + 255) / 256, 256, 0, (cudaStream_t)stream>>>(a, b, q, q_ref, t, n);
   return (int)cudaGetLastError();
 }

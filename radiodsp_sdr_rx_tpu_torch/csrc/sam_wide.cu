@@ -127,7 +127,7 @@ __global__ void __launch_bounds__(kThreads, 1) sam_wide_kernel(
   }
 
   // threads 0..G-1 run the PLLs, their state in registers across chunks
-  Pll pll{0.f, 0.f, 0.f, 0.f};
+  Pll pll{};
   int next_seed = 0;
   if (tid < G && c0 + tid < channels) {
     pll.phase = pll0[c0 + tid];
@@ -238,15 +238,7 @@ __global__ void __launch_bounds__(kThreads, 1) sam_wide_kernel(
       for (int r = 0; r < rows; ++r) {
         float* a = Ab + (tid * (R + 1) + 1 + r) * kLd;
         const float* b = Mi + (tid * (R + 1) + 1 + r) * kLd;
-        const int pos0 = (row0 + r) * kBlk;
-#pragma unroll 4
-        for (int k = 0; k < kBlk; ++k) {
-          if (pos0 + k == next_seed) {
-            pll.reseed();
-            next_seed = reseed.next(next_seed);
-          }
-          a[k] = pll.step(a[k], b[k], gains);
-        }
+        walk_row(pll, gains, reseed, next_seed, (row0 + r) * kBlk, kBlk, a, b, a);
       }
     }
     __syncthreads();

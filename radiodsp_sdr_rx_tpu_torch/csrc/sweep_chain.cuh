@@ -60,7 +60,9 @@
 // count. The PLL walks them one sample at a time (sam_pll.cuh); the LMS runs
 // the grouped exact algebra of lms_step.cuh on warps 0-2: the lag products
 // and each group's triangular inverse off the weights' path, the weights
-// waiting only for the predictions and two broadcasts a group.
+// waiting only for the predictions and two broadcasts a group. A SAM route
+// costs the larger of the PLL's walk and the rest of its chain (the LMS's
+// walk included), as long as the two overlap (sam_chain_kernel below).
 //
 // What the design does about it: every intermediate stays on chip, so device
 // memory sees only the 16 B/sample; the time goes to the products, run as
@@ -72,10 +74,22 @@
 // in shared memory or registers from chunk to chunk. In the AM band-pass each
 // thread's 8 columns are j and j+128 for four j, so the same thread holds zr
 // and zi of a sample and writes its envelope straight into the audio rows.
-// SAM writes zr into the audio rows and zi into the mixed Q rows (dead after
-// the product once their last row has moved out), and thread 0 walks the
-// chunk's 8,192 samples in time order, overwriting zr with vr, while the
-// other 255 threads wait at the barrier. The LMS stages run on warps 0-2
+// SAM runs in sam_chain_kernel, a block of 288 threads: warp 8's lane 0
+// walks the PLL over chunk k+1 while warps 0-7 run chunk k's DC blocker,
+// [notch,] AGC, PBT product [and denoise], then chunk k+2's mix and
+// band-pass; the block meets at one barrier a chunk and warps 0-7 at a named
+// barrier of their own (ChainSync). A chunk's rows live in one of two slots
+// of [I rows | Q rows]: the mix writes them, the band-pass writes zr over
+// the I rows and zi over the Q rows (the mixed rows' last row saved first as
+// the next chunk's row 0), the PLL writes vr over zr, and the DC blocker,
+// AGC and PBT read it there, the audio rows' last row saved in a carry row;
+// denoise writes L over the dead zi. Shared memory of the SAM routes:
+// 177.7 KB (sam), 178.2 KB (+ blanker), 196.0 KB (+ denoise or notch),
+// 196.5 KB (+ blanker and denoise or notch) of the 227 KB. SAM + spectral
+// needs pass A's spectrum beside the four rows buffers (240 KB), so it stays
+// in sweep_chain_kernel, where thread 0 walks the chunk after its band-pass
+// (zr in the audio rows, zi in the dead mixed Q rows) while the other 255
+// threads wait, and the rest of the chain follows. The LMS stages run on warps 0-2
 // (lms_step.cuh's walk), in place, 32 samples (two groups) a tile: notch
 // over the audio rows, denoise over L, which the PBT product writes into
 // the dead mixed I rows. The lags warp takes each tile's inputs into the
@@ -99,10 +113,9 @@
 // AGC, a decaying sum for the other two) and each thread re-runs its segment
 // from the true carry, so every sample follows the sequential recurrence.
 // Segments past the end of a partial last chunk come after every valid one
-// and never reach a carry. Hiding the PLL's and the LMS's walks behind the
-// next chunk's products (warp specialisation), the LMS's input-only terms
-// (the lag products) on the waiting warps, and a TF32/3xTF32 tensor-core
-// design of the products are later work.
+// and never reach a carry. Hiding the LMS's walk behind the products on the
+// routes without SAM, the PLL's on the SAM + spectral routes, and a
+// TF32/3xTF32 tensor-core design of the products are later work.
 
 #pragma once
 
@@ -181,6 +194,187 @@ __device__ __forceinline__ void lms_walk(lms::Predictor& pr, lms::Lags& lg, lms:
   lms::walk(pr, lg, ls, pos0, rows * kBlk, io, delay, first, mu, notch);
 }
 
+// The chunk phases 1, 2b and 3 of both kernels, each on a barrier policy:
+// the whole block's in sweep_chain_kernel (BlockSync), the named barrier of
+// warps 0-7 in sam_chain_kernel (ChainSync).
+//
+// The per-block constants of the chunk phases: the DDS phase and increment,
+// the AGC's release, the blanker's one-pole factor, the DC blocker's pole,
+// each with its segment and lane decay factors (seg_factors).
+struct ChunkConsts {
+  uint32_t ph0, dph;
+  float rel, rel_seg, rel_lanes[5];
+  float nb_af, nb_om, nb_seg, nb_lanes[5];
+  float dc_pf, dc_seg, dc_lanes[5];
+};
+
+template <bool kNB, bool kDsb>
+__device__ __forceinline__ ChunkConsts chunk_consts(const ChainArgs& a, int c) {
+  ChunkConsts cc;
+  cc.ph0 = (uint32_t)a.phase0[c];
+  cc.dph = (uint32_t)a.inc[c];
+  cc.rel = (float)a.release;
+  cc.rel_seg = seg_factors(a.release, cc.rel_lanes);
+  cc.nb_af = cc.nb_om = cc.nb_seg = 0.f;
+  if constexpr (kNB) {
+    cc.nb_af = (float)a.nb_a;
+    cc.nb_om = (float)(1.0 - a.nb_a);
+    cc.nb_seg = seg_factors(a.nb_a, cc.nb_lanes);
+  }
+  cc.dc_pf = cc.dc_seg = 0.f;
+  if constexpr (kDsb) {
+    cc.dc_pf = (float)kDcPole;
+    cc.dc_seg = seg_factors(kDcPole, cc.dc_lanes);
+  }
+  return cc;
+}
+
+// 1. scale [+ blank] + mix rows row0.. of the segment into rows 1..kRows of
+// Mr and Mi (zeros past the end); with the blanker, the keep mask of the
+// segment's last row so far into keep_row and the average's carry in
+// env_c[1]. Ends with Sync::sync().
+template <bool kNB, class Sync>
+__device__ __forceinline__ void mix_rows(const ChainArgs& a, const ChunkConsts& cc, float* Mr,
+                                         float* Mi, float* keep_row, float* seg, float* env_c,
+                                         size_t base, int row0, int rows) {
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const uint32_t ph0 = cc.ph0, dph = cc.dph;
+  const float nb_af = cc.nb_af, nb_om = cc.nb_om, nb_seg = cc.nb_seg;
+  if constexpr (kNB) {
+    // 1a. load and scale
+#pragma unroll 4
+    for (int e = tid; e < kRows * kBlk; e += kThreads) {
+      const int r = e / kBlk, j = e % kBlk;
+      float vr = 0.f, vi = 0.f;
+      if (r < rows) {
+        const int pos = (row0 + r) * kBlk + j;
+        vr = a.xr[base + pos] * a.g_i;
+        vi = a.xi[base + pos] * a.g_q;
+      }
+      Mr[(r + 1) * kLd + j] = vr;
+      Mi[(r + 1) * kLd + j] = vi;
+    }
+    Sync::sync();
+
+    // 1b. blank: segment s = 4*row + quarter of the average's scan
+    {
+      const int r = tid % kRows, quarter = tid / kRows;
+      const int s = r * kSegsPerRow + quarter;
+      float* pr = Mr + (r + 1) * kLd + quarter * kSegLen;
+      float* pi = Mi + (r + 1) * kLd + quarter * kSegLen;
+      float y = 0.f;
+      for (int k = 0; k < kSegLen; ++k)
+        y = nb_af * y + nb_om * sqrtf(pr[k] * pr[k] + pi[k] * pi[k]);
+      seg[s] = y;
+      Sync::sync();
+      if (warp == 0) scan_segment_carries<true>(seg, env_c[1], nb_seg, cc.nb_lanes);
+      Sync::sync();
+      y = seg[s];
+      for (int k = 0; k < kSegLen; ++k) {
+        const float m = sqrtf(pr[k] * pr[k] + pi[k] * pi[k]);
+        y = nb_af * y + nb_om * m;
+        const bool keep = m <= y * a.nb_thresh + 1e-12f;
+        if (!keep) {
+          pr[k] = 0.f;
+          pi[k] = 0.f;
+        }
+        if (r + 1 == rows) keep_row[quarter * kSegLen + k] = keep ? 1.f : 0.f;
+      }
+      if (s == rows * kSegsPerRow - 1) env_c[1] = y;
+    }
+    Sync::sync();
+
+    // 1c. mix in place
+#pragma unroll 4
+    for (int e = tid; e < rows * kBlk; e += kThreads) {
+      const int r = e / kBlk, j = e % kBlk;
+      float* pr = Mr + (r + 1) * kLd + j;
+      float* pi = Mi + (r + 1) * kLd + j;
+      mix(*pr, *pi, ph0 + (uint32_t)((row0 + r) * kBlk + j) * dph, 1.f, 1.f, *pr, *pi);
+    }
+  } else {
+#pragma unroll 4
+    for (int e = tid; e < kRows * kBlk; e += kThreads) {
+      const int r = e / kBlk, j = e % kBlk;
+      float vr = 0.f, vi = 0.f;
+      if (r < rows) {
+        const int pos = (row0 + r) * kBlk + j;
+        mix(a.xr[base + pos], a.xi[base + pos], ph0 + (uint32_t)pos * dph, a.g_i, a.g_q, vr,
+            vi);
+      }
+      Mr[(r + 1) * kLd + j] = vr;
+      Mi[(r + 1) * kLd + j] = vi;
+    }
+  }
+  Sync::sync();
+}
+
+// 2b. am, sam: the DC blocker in place over rows 1..rows of Ab,
+// y = (x - x_prev) + pole*y, the blanker's segmented decaying-sum scan. Each
+// thread reads the input just before its segment before any thread
+// overwrites one. The carries in env_c[2] (last input) and env_c[3] (last
+// output). Ends with Sync::sync().
+template <class Sync>
+__device__ __forceinline__ void dc_rows(const ChunkConsts& cc, float* Ab, int rows, float* seg,
+                                        float* env_c) {
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const float dc_pf = cc.dc_pf, dc_seg = cc.dc_seg;
+  const int r = tid % kRows, quarter = tid / kRows;
+  const int s = r * kSegsPerRow + quarter;
+  float* p = Ab + (r + 1) * kLd + quarter * kSegLen;
+  const float prev = quarter ? p[-1] : (r ? Ab[r * kLd + kBlk - 1] : env_c[2]);
+  float y = 0.f, q = prev;
+  for (int k = 0; k < kSegLen; ++k) {
+    const float v = p[k];
+    y = (v - q) + dc_pf * y;
+    q = v;
+  }
+  seg[s] = y;
+  Sync::sync();
+  if (warp == 0) scan_segment_carries<true>(seg, env_c[3], dc_seg, cc.dc_lanes);
+  Sync::sync();
+  y = seg[s];
+  q = prev;
+  for (int k = 0; k < kSegLen; ++k) {
+    const float v = p[k];
+    y = (v - q) + dc_pf * y;
+    q = v;
+    p[k] = y;
+  }
+  if (s == rows * kSegsPerRow - 1) {
+    env_c[2] = q;
+    env_c[3] = y;
+  }
+  Sync::sync();
+}
+
+// 3. AGC over rows 1..rows of Ab, in place. Segment s = 4*row + quarter;
+// segments past the end come after every valid one, so they never reach a
+// valid carry. The envelope's carry in env_c[0]. Ends with Sync::sync().
+template <class Sync>
+__device__ __forceinline__ void agc_rows(const ChainArgs& a, const ChunkConsts& cc, float* Ab,
+                                         int rows, float* seg, float* env_c) {
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const float rel = cc.rel, rel_seg = cc.rel_seg;
+  const int r = tid % kRows, quarter = tid / kRows;
+  const int s = r * kSegsPerRow + quarter;
+  float* p = Ab + (r + 1) * kLd + quarter * kSegLen;
+  float e = 0.f;
+  for (int k = 0; k < kSegLen; ++k) e = fmaxf(fabsf(p[k]), e * rel);
+  seg[s] = e;
+  Sync::sync();
+  if (warp == 0) scan_segment_carries<false>(seg, env_c[0], rel_seg, cc.rel_lanes);
+  Sync::sync();
+  e = seg[s];
+  for (int k = 0; k < kSegLen; ++k) {
+    const float v = p[k];
+    e = fmaxf(fabsf(v), e * rel);
+    if (a.agc_enabled) p[k] = v * fminf(a.target / fmaxf(e, 1e-12f), a.max_gain);
+  }
+  if (s == rows * kSegsPerRow - 1) env_c[0] = e;
+  Sync::sync();
+}
+
 template <Demod kDemod, bool kNB, Nr kNR, bool kEmitR>
 __global__ void __launch_bounds__(kThreads, 1) sweep_chain_kernel(const ChainArgs a) {
   constexpr bool kSAM = kDemod == Demod::kSAM;
@@ -214,28 +408,13 @@ __global__ void __launch_bounds__(kThreads, 1) sweep_chain_kernel(const ChainArg
   const int c = blockIdx.x, tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int n = a.n;
   const size_t base = (size_t)c * n;
-  const uint32_t ph0 = (uint32_t)a.phase0[c];
-  const uint32_t dph = (uint32_t)a.inc[c];
-  const float rel = (float)a.release;
-  float rel_lanes[5];
-  const float rel_seg = seg_factors(a.release, rel_lanes);
-  float nb_af = 0.f, nb_om = 0.f, nb_seg = 0.f, nb_lanes[5];
-  if constexpr (kNB) {
-    nb_af = (float)a.nb_a;
-    nb_om = (float)(1.0 - a.nb_a);
-    nb_seg = seg_factors(a.nb_a, nb_lanes);
-  }
-  float dc_pf = 0.f, dc_seg = 0.f, dc_lanes[5];
-  if constexpr (kDsb) {
-    dc_pf = (float)kDcPole;
-    dc_seg = seg_factors(kDcPole, dc_lanes);
-  }
+  const ChunkConsts cc = chunk_consts<kNB, kDsb>(a, c);
 
   // the carried raw tail, re-scaled and re-mixed at positions -128..-1
   if (tid < kBlk) {
     const size_t t = (size_t)c * kBlk + tid;
-    mix(a.tail_r[t], a.tail_i[t], ph0 + (uint32_t)(tid - kBlk) * dph, a.g_i, a.g_q, Mr[tid],
-        Mi[tid]);
+    mix(a.tail_r[t], a.tail_i[t], cc.ph0 + (uint32_t)(tid - kBlk) * cc.dph, a.g_i, a.g_q,
+        Mr[tid], Mi[tid]);
     if constexpr (kNB) {
       Mr[tid] *= a.nb_mask0[t];
       Mi[tid] *= a.nb_mask0[t];
@@ -246,8 +425,9 @@ __global__ void __launch_bounds__(kThreads, 1) sweep_chain_kernel(const ChainArg
       st[kBlk + tid] = a.str0[t];
     }
   }
-  // SAM: thread 0 runs the channel's PLL, its state in registers across chunks
-  Pll pll{0.f, 0.f, 0.f, 0.f};
+  // SAM (+ spectral): thread 0 runs the channel's PLL, its state in
+  // registers across chunks
+  Pll pll{};
   int next_seed = 0;
   if (kSAM && tid == 0) {
     pll.phase = a.pll0[c];
@@ -278,73 +458,7 @@ __global__ void __launch_bounds__(kThreads, 1) sweep_chain_kernel(const ChainArg
     const int rows = min(kRows, nrows - row0);
 
     // 1. scale [+ blank] + mix into rows 1..kRows (zeros past the end)
-    if constexpr (kNB) {
-      // 1a. load and scale
-#pragma unroll 4
-      for (int e = tid; e < kRows * kBlk; e += kThreads) {
-        const int r = e / kBlk, j = e % kBlk;
-        float vr = 0.f, vi = 0.f;
-        if (r < rows) {
-          const int pos = (row0 + r) * kBlk + j;
-          vr = a.xr[base + pos] * a.g_i;
-          vi = a.xi[base + pos] * a.g_q;
-        }
-        Mr[(r + 1) * kLd + j] = vr;
-        Mi[(r + 1) * kLd + j] = vi;
-      }
-      __syncthreads();
-
-      // 1b. blank: segment s = 4*row + quarter of the average's scan
-      {
-        const int r = tid % kRows, quarter = tid / kRows;
-        const int s = r * kSegsPerRow + quarter;
-        float* pr = Mr + (r + 1) * kLd + quarter * kSegLen;
-        float* pi = Mi + (r + 1) * kLd + quarter * kSegLen;
-        float y = 0.f;
-        for (int k = 0; k < kSegLen; ++k)
-          y = nb_af * y + nb_om * sqrtf(pr[k] * pr[k] + pi[k] * pi[k]);
-        seg[s] = y;
-        __syncthreads();
-        if (warp == 0) scan_segment_carries<true>(seg, env_c[1], nb_seg, nb_lanes);
-        __syncthreads();
-        y = seg[s];
-        for (int k = 0; k < kSegLen; ++k) {
-          const float m = sqrtf(pr[k] * pr[k] + pi[k] * pi[k]);
-          y = nb_af * y + nb_om * m;
-          const bool keep = m <= y * a.nb_thresh + 1e-12f;
-          if (!keep) {
-            pr[k] = 0.f;
-            pi[k] = 0.f;
-          }
-          if (r + 1 == rows) keep_row[quarter * kSegLen + k] = keep ? 1.f : 0.f;
-        }
-        if (s == rows * kSegsPerRow - 1) env_c[1] = y;
-      }
-      __syncthreads();
-
-      // 1c. mix in place
-#pragma unroll 4
-      for (int e = tid; e < rows * kBlk; e += kThreads) {
-        const int r = e / kBlk, j = e % kBlk;
-        float* pr = Mr + (r + 1) * kLd + j;
-        float* pi = Mi + (r + 1) * kLd + j;
-        mix(*pr, *pi, ph0 + (uint32_t)((row0 + r) * kBlk + j) * dph, 1.f, 1.f, *pr, *pi);
-      }
-    } else {
-#pragma unroll 4
-      for (int e = tid; e < kRows * kBlk; e += kThreads) {
-        const int r = e / kBlk, j = e % kBlk;
-        float vr = 0.f, vi = 0.f;
-        if (r < rows) {
-          const int pos = (row0 + r) * kBlk + j;
-          mix(a.xr[base + pos], a.xi[base + pos], ph0 + (uint32_t)pos * dph, a.g_i, a.g_q, vr,
-              vi);
-        }
-        Mr[(r + 1) * kLd + j] = vr;
-        Mi[(r + 1) * kLd + j] = vi;
-      }
-    }
-    __syncthreads();
+    mix_rows<kNB, BlockSync>(a, cc, Mr, Mi, keep_row, seg, env_c, base, row0, rows);
 
     // 2. band-pass + SSB demod (ssb), or band-pass + envelope (am): Ab rows
     // 1..kRows. In the am product acc[i][j] and acc[i][4+j] are columns
@@ -369,21 +483,10 @@ __global__ void __launch_bounds__(kThreads, 1) sweep_chain_kernel(const ChainArg
           }
         __syncthreads();
         // 2a. the PLL over the chunk in time order: vr over zr in place
-        if (tid == 0) {
-          for (int r = 0; r < rows; ++r) {
-            float* p = Ab + (r + 1) * kLd;
-            const float* q = Mi + (r + 1) * kLd;
-            const int pos0 = (row0 + r) * kBlk;
-#pragma unroll 4
-            for (int k = 0; k < kBlk; ++k) {
-              if (pos0 + k == next_seed) {
-                pll.reseed();
-                next_seed = a.reseed.next(next_seed);
-              }
-              p[k] = pll.step(p[k], q[k], a.gains);
-            }
-          }
-        }
+        if (tid == 0)
+          for (int r = 1; r <= rows; ++r)
+            walk_row(pll, a.gains, a.reseed, next_seed, (row0 + r - 1) * kBlk, kBlk,
+                     Ab + r * kLd, Mi + r * kLd, Ab + r * kLd);
       } else if constexpr (kDsb) {
         float acc[8][8];
         chunk_gemm<256>(Mr, Mi, a.w_band, 512, As, Bs, acc);
@@ -410,38 +513,8 @@ __global__ void __launch_bounds__(kThreads, 1) sweep_chain_kernel(const ChainArg
     }
     __syncthreads();
 
-    // 2b. am: DC blocker in place, y = (env - env_prev) + pole*y, the
-    // blanker's segmented decaying-sum scan. Each thread reads the envelope
-    // just before its segment before any thread overwrites one.
-    if constexpr (kDsb) {
-      const int r = tid % kRows, quarter = tid / kRows;
-      const int s = r * kSegsPerRow + quarter;
-      float* p = Ab + (r + 1) * kLd + quarter * kSegLen;
-      const float prev = quarter ? p[-1] : (r ? Ab[r * kLd + kBlk - 1] : env_c[2]);
-      float y = 0.f, q = prev;
-      for (int k = 0; k < kSegLen; ++k) {
-        const float v = p[k];
-        y = (v - q) + dc_pf * y;
-        q = v;
-      }
-      seg[s] = y;
-      __syncthreads();
-      if (warp == 0) scan_segment_carries<true>(seg, env_c[3], dc_seg, dc_lanes);
-      __syncthreads();
-      y = seg[s];
-      q = prev;
-      for (int k = 0; k < kSegLen; ++k) {
-        const float v = p[k];
-        y = (v - q) + dc_pf * y;
-        q = v;
-        p[k] = y;
-      }
-      if (s == rows * kSegsPerRow - 1) {
-        env_c[2] = q;
-        env_c[3] = y;
-      }
-      __syncthreads();
-    }
+    // 2b. am, sam: the DC blocker in place
+    if constexpr (kDsb) dc_rows<BlockSync>(cc, Ab, rows, seg, env_c);
 
     // 2c. notch: the LMS error replaces the audio, warps 0 and 1 walking the chunk
     if constexpr (kNR == Nr::kNotch) {
@@ -451,27 +524,8 @@ __global__ void __launch_bounds__(kThreads, 1) sweep_chain_kernel(const ChainArg
       __syncthreads();
     }
 
-    // 3. AGC. Segment s = 4*row + quarter; segments past the end come after
-    // every valid one, so they never reach a valid carry.
-    {
-      const int r = tid % kRows, quarter = tid / kRows;
-      const int s = r * kSegsPerRow + quarter;
-      float* p = Ab + (r + 1) * kLd + quarter * kSegLen;
-      float e = 0.f;
-      for (int k = 0; k < kSegLen; ++k) e = fmaxf(fabsf(p[k]), e * rel);
-      seg[s] = e;
-      __syncthreads();
-      if (warp == 0) scan_segment_carries<false>(seg, env_c[0], rel_seg, rel_lanes);
-      __syncthreads();
-      e = seg[s];
-      for (int k = 0; k < kSegLen; ++k) {
-        const float v = p[k];
-        e = fmaxf(fabsf(v), e * rel);
-        if (a.agc_enabled) p[k] = v * fminf(a.target / fmaxf(e, 1e-12f), a.max_gain);
-      }
-      if (s == rows * kSegsPerRow - 1) env_c[0] = e;
-    }
-    __syncthreads();
+    // 3. AGC in place
+    agc_rows<BlockSync>(a, cc, Ab, rows, seg, env_c);
 
     // 4. PBT -> [L|R]; the audio rows' last row becomes the next chunk's
     // row 0 (the product has read them all); then the NR stage after PBT
@@ -638,19 +692,218 @@ __global__ void __launch_bounds__(kThreads, 1) sweep_chain_kernel(const ChainArg
   }
 }
 
+// The SAM routes but SAM + spectral: warps 0-7 run the chain, warp 8's lane
+// 0 the PLL, a chunk apart (the header's description).
+constexpr int kSamThreads = kThreads + 32;
+
+// warps 0-7 of sam_chain_kernel's block, barrier 2 (barrier 0 is
+// __syncthreads, 1 the LMS walk's)
+struct ChainSync {
+  __device__ __forceinline__ static void sync() { asm volatile("bar.sync 2, 256;" ::: "memory"); }
+};
+
+// As, Bs, two slots of [I rows | Q rows], scan segment ends, 8 carries, the
+// mixed carry row [re | im] and the audio carry row; the blanker adds the
+// keep mask of the last row, the LMS its scratch (16-byte aligned)
+template <bool kNB, Nr kNR>
+constexpr int sam_smem_floats() {
+  return kAsFloats + kBsFloats + 4 * kRowBuf + kThreads + 8 + 3 * kBlk + (kNB ? kBlk : 0) +
+         (is_lms(kNR) ? lms::kScratchFloats + 3 : 0);
+}
+
+template <bool kNB, Nr kNR>
+__global__ void __launch_bounds__(kSamThreads, 1) sam_chain_kernel(const ChainArgs a) {
+  static_assert(kNR != Nr::kSpectral, "SAM + spectral runs sweep_chain_kernel");
+  constexpr bool kLMS = is_lms(kNR);
+  extern __shared__ __align__(16) float smem[];
+  float* As = smem;
+  float* Bs = As + kAsFloats;
+  float* slots = Bs + kBsFloats;  // chunk k in slot k & 1: I rows, then Q rows
+  float* seg = slots + 4 * kRowBuf;
+  float* env_c = seg + kThreads;  // [0] AGC envelope, [1] blanker average,
+                                  // [2] [3] DC blocker: last input, last output
+  float* mc = env_c + 8;          // the mixed rows' carry row [re | im]
+  float* ac = mc + 2 * kBlk;      // the audio rows' carry row
+  float* keep_row = ac + kBlk;    // nb: keep mask of the last row so far
+  float* tail = keep_row + (kNB ? kBlk : 0);
+  lms::Scratch& ls = *reinterpret_cast<lms::Scratch*>(smem + ((tail - smem + 3) & ~3));
+
+  const int c = blockIdx.x, tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int n = a.n;
+  const size_t base = (size_t)c * n;
+  const ChunkConsts cc = chunk_consts<kNB, true>(a, c);
+  const int nrows = n / kBlk, chunks = (nrows + kRows - 1) / kRows;
+
+  // the carried raw tail, re-scaled and re-mixed at positions -128..-1
+  if (tid < kBlk) {
+    const size_t t = (size_t)c * kBlk + tid;
+    mix(a.tail_r[t], a.tail_i[t], cc.ph0 + (uint32_t)(tid - kBlk) * cc.dph, a.g_i, a.g_q,
+        mc[tid], mc[kBlk + tid]);
+    if constexpr (kNB) {
+      mc[tid] *= a.nb_mask0[t];
+      mc[kBlk + tid] *= a.nb_mask0[t];
+    }
+    ac[tid] = a.atail_in[t];
+  }
+  // the PLL thread's state in registers across chunks
+  Pll pll{};
+  int next_seed = 0;
+  if (tid == kThreads) {
+    pll.phase = a.pll0[c];
+    pll.freq = a.pll0[gridDim.x + c];
+  }
+  lms::Predictor pr;
+  lms::Lags lg;
+  bool lms_first = false;
+  if (kLMS && warp == 0) pr.load(a.lms_w0 + c * lms::kTaps);
+  if (kLMS && warp == 1) {
+    ls.load_window(a.lms_win0 + c * lms::kTaps);
+    lms_first = *a.lms_first != 0;
+  }
+  if (tid == 0) {
+    env_c[0] = a.env0[c];
+    if constexpr (kNB) env_c[1] = a.nb_avg0[c];
+    env_c[2] = a.dc0[2 * c];
+    env_c[3] = a.dc0[2 * c + 1];
+  }
+  __syncthreads();
+
+  // warps 0-7: chunk k's mix [and blanker] and band-pass into its slot, zr
+  // over the I rows and zi over the Q rows
+  auto front = [&](int k) {
+    float* Sr = slots + (k & 1) * 2 * kRowBuf;
+    float* Si = Sr + kRowBuf;
+    const int row0 = k * kRows, rows = min(kRows, nrows - row0);
+    ChainSync::sync();   // chunk k-2's tail has read the slot
+    if (tid < kBlk) {
+      Sr[tid] = mc[tid];
+      Si[tid] = mc[kBlk + tid];
+    }
+    mix_rows<kNB, ChainSync>(a, cc, Sr, Si, keep_row, seg, env_c, base, row0, rows);
+    float acc[8][8];
+    chunk_gemm<256, ALayout::kFrames, kRows, ChainSync>(Sr, Si, a.w_band, 512, As, Bs, acc);
+    if (tid < kBlk) {
+      mc[tid] = Sr[rows * kLd + tid];
+      mc[kBlk + tid] = Si[rows * kLd + tid];
+    }
+    ChainSync::sync();
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int o = (warp * 8 + i + 1) * kLd + lane * 4 + j;
+        Sr[o] = acc[i][j];
+        Si[o] = acc[i][4 + j];
+      }
+  };
+  // warp 8's lane 0: the PLL over chunk k in time order, vr over zr
+  auto walk = [&](int k) {
+    float* Sr = slots + (k & 1) * 2 * kRowBuf;
+    const float* Si = Sr + kRowBuf;
+    const int row0 = k * kRows, rows = min(kRows, nrows - row0);
+    for (int r = 1; r <= rows; ++r)
+      walk_row(pll, a.gains, a.reseed, next_seed, (row0 + r - 1) * kBlk, kBlk, Sr + r * kLd,
+               Si + r * kLd, Sr + r * kLd);
+  };
+  // warps 0-7: chunk k's DC blocker, [notch,] AGC, PBT [and denoise] from vr
+  auto back = [&](int k) {
+    float* Sr = slots + (k & 1) * 2 * kRowBuf;
+    float* Si = Sr + kRowBuf;
+    const int row0 = k * kRows, rows = min(kRows, nrows - row0);
+    if (tid < kBlk) Sr[tid] = ac[tid];   // row 0, which only PBT reads
+    dc_rows<ChainSync>(cc, Sr, rows, seg, env_c);
+    if constexpr (kNR == Nr::kNotch) {
+      if (warp < 3)
+        lms_walk(pr, lg, ls, Sr, rows, row0 * kBlk, a.lms_delay0 + c * lms::kDelay, lms_first,
+                 a.mu, 1);
+      ChainSync::sync();
+    }
+    agc_rows<ChainSync>(a, cc, Sr, rows, seg, env_c);
+    float lr[8][8];
+    chunk_gemm<256, ALayout::kFrames, kRows, ChainSync>(Sr, Sr, a.w_pbt, 256, As, Bs, lr);
+    if (tid < kBlk) ac[tid] = Sr[rows * kLd + tid];
+    if constexpr (kNR == Nr::kDenoise) {
+      // L over the dead zi; warps 0-2 replace it by the LMS prediction
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) Si[(warp * 8 + i + 1) * kLd + lane * 4 + j] = lr[i][j];
+      ChainSync::sync();
+      if (warp < 3)
+        lms_walk(pr, lg, ls, Si, rows, row0 * kBlk, a.lms_delay0 + c * lms::kDelay, lms_first,
+                 a.mu, 0);
+      ChainSync::sync();
+#pragma unroll 4
+      for (int e = tid; e < rows * kBlk; e += kThreads) {
+        const int r = e / kBlk, j = e % kBlk;
+        a.out_l[base + (size_t)(row0 + r) * kBlk + j] =
+            Si[(r + 1) * kLd + j] * kDenoiseMakeup * a.out_gain;
+      }
+    } else {
+      store_rows<256, 2>(lr, a.out_l, a.out_r, base, row0, rows, a.out_gain);
+    }
+  };
+
+  if (tid < kThreads) front(0);
+  __syncthreads();
+  for (int k = 0; k <= chunks; ++k) {
+    if (tid < kThreads) {
+      if (k > 0) back(k - 1);
+      if (k + 1 < chunks) front(k + 1);
+    } else if (tid == kThreads && k < chunks) {
+      walk(k);
+    }
+    __syncthreads();
+  }
+
+  if (tid < kBlk) {
+    a.atail_out[(size_t)c * kBlk + tid] = ac[tid];
+    if constexpr (kNB) a.nb_mask_out[(size_t)c * kBlk + tid] = keep_row[tid];
+  }
+  if (tid == 0) {
+    a.env_out[c] = env_c[0];
+    if constexpr (kNB) a.nb_avg_out[c] = env_c[1];
+    a.dc_out[2 * c] = env_c[2];
+    a.dc_out[2 * c + 1] = env_c[3];
+  }
+  if (tid == kThreads) {
+    a.pll_out[c] = pll.phase;
+    a.pll_out[gridDim.x + c] = pll.freq;
+  }
+  if constexpr (kLMS) {
+    if (warp == 0) pr.store(a.lms_w_out + c * lms::kTaps);
+    if (warp == 1) {
+      ls.store_window(a.lms_win_out + c * lms::kTaps, n);
+#pragma unroll
+      for (int k = lane; k < lms::kDelay; k += 32)
+        a.lms_delay_out[c * lms::kDelay + k] = ls.at(n - lms::kDelay + k);
+    }
+  }
+}
+
 // Launch on `stream` of CUDA device `device`, one block per channel; returns
 // the cudaError_t of the launch (0 on success).
 template <Demod kDemod, bool kNB, Nr kNR = Nr::kNone, bool kEmitR = kNR != Nr::kDenoise>
 int launch(const ChainArgs& a, int channels, int device, void* stream) {
-  constexpr int smem = smem_floats<kNB, kNR>() * (int)sizeof(float);
-  static_assert(smem <= 232448, "shared memory of one H100 block");
   cudaError_t err = cudaSetDevice(device);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(sweep_chain_kernel<kDemod, kNB, kNR, kEmitR>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  sweep_chain_kernel<kDemod, kNB, kNR, kEmitR>
-      <<<channels, kThreads, smem, (cudaStream_t)stream>>>(a);
+  if constexpr (kDemod == Demod::kSAM && kNR != Nr::kSpectral) {
+    constexpr int smem = sam_smem_floats<kNB, kNR>() * (int)sizeof(float);
+    static_assert(smem <= 232448, "shared memory of one H100 block");
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(sam_chain_kernel<kNB, kNR>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    sam_chain_kernel<kNB, kNR><<<channels, kSamThreads, smem, (cudaStream_t)stream>>>(a);
+  } else {
+    constexpr int smem = smem_floats<kNB, kNR>() * (int)sizeof(float);
+    static_assert(smem <= 232448, "shared memory of one H100 block");
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(sweep_chain_kernel<kDemod, kNB, kNR, kEmitR>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    sweep_chain_kernel<kDemod, kNB, kNR, kEmitR>
+        <<<channels, kThreads, smem, (cudaStream_t)stream>>>(a);
+  }
   return (int)cudaGetLastError();
 }
 

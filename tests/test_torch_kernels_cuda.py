@@ -11,10 +11,15 @@ The NR bank's staged routes are held to the port's ReceiverBank at 2e-3
 (docs/CHIP_PARITY.md). The SAM kernels (K5 sam_pll, K6 sweep_chain_sam and
 sweep_chain_sam_nb, K7 sam_wide and sam_wide_nb) run on a locked-carrier
 scene, the PLL being chaotic on noise, at 1e-4, with the plain PLL's
-per-sample loop kept to a few thousand samples. The NR instantiations of
-the lanes kernel (ops/lanes.py: LMS denoise and notch, spectral NR, after
-each demod, with and without the blanker) run on the same locked scenes, at
-2e-4 with an LMS stage and 1e-4 with the spectral one. K8
+per-sample loop kept to a few thousand samples; the PLL's pieces through
+csrc/sam.cu's probe: the explicit divide bit for bit against IEEE division
+where the quotient is at least 2^-126 (tiny numerators included), within
+2^-149 below, the atan2 within
+ATAN2_ULPS of the plain one. The
+NR instantiations of the lanes kernel (ops/lanes.py: LMS denoise and notch,
+spectral NR, after each demod, with and without the blanker) run on the
+same locked scenes, at 2e-4 with an LMS stage and 1e-4 with the spectral
+one. K8
 (``sweep.sweep_mix_filter_demod``, kernel sweep_mix_demod) is held to its
 plain version at 1e-4, to K2a with a zero tail bit for bit, across chunk_t
 bit for bit. The single-channel ``Receiver`` on the card is held to the same
@@ -392,6 +397,59 @@ def test_sam_pll_kernel_matches_plain_over_two_segments(cuda_device, channels, n
         _close((got[0], got[2]), (ref[0], ref[2]))
         _phase_close(got[1], ref[1])
         ph, fr = got[1], got[2]
+
+
+def test_probe_divide_equals_ieee_division(cuda_device):
+    """div_rn, the PLL's divide without the slow-path branch, against numpy's
+    float32 division on the CPU over the PLL's operands (sam.probe_operands:
+    signed zeros, subnormal numerators, quotients near the subnormal grid's
+    midpoints): bit for bit wherever the quotient is at least 2^-126, within
+    2^-149 below, the signed zero of a zero numerator kept
+    (csrc/sam_pll.cuh's contract); the compiler's `/` in the
+    same kernel and torch's division on the card bit for bit everywhere. No
+    launch is counted."""
+    num, den = sam.probe_operands(29)
+    a, b = torch.from_numpy(num).to(cuda_device), torch.from_numpy(den).to(cuda_device)
+    before = sam.LAUNCHES
+    q, q_ref, _ = sam.probe(a, b)
+    torch.cuda.synchronize()
+    assert sam.LAUNCHES == before
+    want = num / den
+    normal = np.abs(want) >= np.float32(2.0 ** -126)
+    for got in (q_ref, a / b):
+        np.testing.assert_array_equal(got.cpu().numpy().view(np.int32), want.view(np.int32))
+    got = q.cpu().numpy()
+    np.testing.assert_array_equal(got[normal].view(np.int32), want[normal].view(np.int32))
+    assert float(np.abs(got[~normal].astype(np.float64) - want[~normal]).max()) <= 2.0 ** -149
+    zero = num == 0
+    assert np.signbit(num[zero]).any() and (~np.signbit(num[zero])).any()
+    np.testing.assert_array_equal(np.signbit(got[zero]), np.signbit(want[zero]))
+    assert (~normal).sum() > 100_000
+
+
+ATAN2_ULPS = 4   # the kernel's FMAs and the plain version's separate products
+
+
+def test_probe_atan2_matches_plain(cuda_device):
+    """The device atan2_poly against ops/sam.atan2_poly on the CPU: the same
+    algebra, the kernel's products fused into FMAs, so within ATAN2_ULPS ulps
+    of the plain result (and its divide equal to the plain's). Inputs: normal
+    pairs, the axes and the origin, the octant boundaries |y| = |x| and
+    |y| = tan(pi/8) |x|, and a locked PLL's (vr, vi), vi small."""
+    rng = np.random.default_rng(31)
+    y = rng.standard_normal(1 << 18).astype(np.float32)
+    x = rng.standard_normal(1 << 18).astype(np.float32)
+    t = np.float32(0.41421356)
+    y[:8], x[:8] = [0, 1, -1, 0, 0, 1, -1, 0], [0, 0, 0, 1, -1, 1, -1, -1]
+    y[8:4096] = x[8:4096] * rng.choice([-1, 1], 4088)
+    y[4096:8192] = x[4096:8192] * t * rng.choice([-1, 1], 4096)
+    y[8192:16384] *= 1e-3
+    a, b = torch.from_numpy(y).to(cuda_device), torch.from_numpy(x).to(cuda_device)
+    got = sam.probe(a, b)[2].cpu().numpy()
+    want = sam.atan2_poly(torch.from_numpy(y), torch.from_numpy(x)).numpy()
+    ulps = np.abs(got.astype(np.float64) - want) / np.spacing(np.abs(want).astype(np.float32))
+    assert float(ulps.max()) <= ATAN2_ULPS
+    np.testing.assert_allclose(got, np.arctan2(y, x), atol=1e-6, rtol=0)
 
 
 def _sam_bank(channels, agc_mode=AGCMode.MEDIUM, **kw):
