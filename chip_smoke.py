@@ -49,14 +49,17 @@ banks against the port's reference chain, and times them:
     channels a block) and with the blanker sam_wide_nb, 1 launch/segment.
     Each kernel against its plain version on a full-width prefix of
     SAM_PREFIX samples (the plain PLL is one host-bound step per sample):
-    threaded as two segments, and the full run's first samples; K5 and
-    sweep_chain_sam also over a long run, SAM_LONG samples as two threaded
-    segments at full width, against the plain versions on the CPU copy of
-    SAM_LONG_ROWS channels spread over the bank; each route against
+    threaded as two segments, and the full run's first samples; K5,
+    sweep_chain_sam, sam_wide and lanes_sam_spectral also over a long run,
+    SAM_LONG samples as two threaded segments at full width, against the
+    plain versions on the CPU copy of SAM_LONG_ROWS channels spread over the
+    bank (sam_wide: its first and last blocks, 16 channels; SAM + spectral
+    frame by frame); each route against
     ``ReceiverBank(mode=SAM)`` on a prefix; K7 against K6 at 1,024 channels
     over two full segments; the PLL step's pieces (csrc/sam.cu's probe: the
     explicit divide bit for bit against IEEE division, the atan2 within
-    ATAN2_ULPS ulps of the plain one); cycles per PLL step;
+    ATAN2_ULPS ulps of the plain one); cycles per PLL step beside the walk's
+    own pace (sam_pll's);
   - K8, ``sweep_mix_filter_demod`` (mix + band-pass + SSB demod from a
     stream start), at tools/bench_sweep.py's shapes (128 channels x 2^19):
     kernel sweep_mix_demod, 1 launch/call, held to its plain version, to
@@ -120,7 +123,7 @@ N_SAM_WIDE = 1024    # bench_full.py config10_sam_1024ch
 SEG_WIDE = 1 << 17   # config10's segment (bench_full.py seg_override)
 SEG_NR = 1 << 17     # the NR routes beside configs 3, 7 and 8 (a cut, PERF.md section 4)
 SAM_PREFIX = 2048    # samples of the per-sample plain PLL held to the kernels
-SAM_LONG = 1 << 17   # the long run of K5 and sweep_chain_sam, two threaded segments
+SAM_LONG = 1 << 17   # the long run of the PLL kernels, two threaded segments
 SAM_LONG_ROWS = 8    # its channels, spread over the bank, their plain loop on the CPU
 ATAN2_ULPS = 4       # device atan2 vs plain: the kernel's FMAs against separate products
 N_AM = 64            # bench_full.py config1_am_64ch
@@ -1417,6 +1420,7 @@ def main() -> None:
         "sweep_chain_sam_nb", bank6nb, xr6nb, xi6nb, st0, "SAM config6 fold=True + blanker",
         SEG_LEN))
 
+    check(SAM_LONG <= SEG_WIDE, "the long runs take config10's and the NR routes' scenes")
     xr10, xi10, _ = locked_scene(N_SAM_WIDE, SEG_WIDE, gen, nco10)
     bank10 = FusedSAMBank(cfg_sam, freqs10)
     check((bank10.route, bank10.groups) == ("wide", 8), f"config10 route {bank10.route} "
@@ -1428,6 +1432,34 @@ def main() -> None:
     st0 = bank10nb.init_state()._replace(nb_avg=torch.full((N_SAM_WIDE,), mean10, device="cuda"))
     sam_ends["sam_wide_nb"] = (bank10nb, xr10nb, xi10nb, sam_kernel_checks(
         "sam_wide_nb", bank10nb, xr10nb, xi10nb, st0, "SAM config10 + blanker", SEG_WIDE))
+    # the long run of K7: config10's bank over SAM_LONG samples as two threaded
+    # segments, its first and last blocks (16 channels, G = 8) against the
+    # plain chain on the CPU on K7's re-seed schedule (16 channels alone
+    # would take K6's)
+    rows_w = list(range(8)) + list(range(N_SAM_WIDE - 8, N_SAM_WIDE))
+    t = time.perf_counter()
+    bank_h = FusedSAMBank(cfg_sam, [freqs10[k] for k in rows_w], device="cpu")
+    bank_h.reseed_schedule = bank10.reseed_schedule
+    st_k, st_h, d_k7 = bank10.init_state(), bank_h.init_state(), 0.0
+    for h in range(2):
+        xs = (xr10[:, h * half_l:(h + 1) * half_l].contiguous(),
+              xi10[:, h * half_l:(h + 1) * half_l].contiguous())
+        out_k, st_k = bank10.process_planar(*xs, st_k)
+        out_h, st_h = bank_h.process_planar(*(x[rows_w].cpu() for x in xs), st_h)
+        d_k7 = max(d_k7, max_diff([out_k[k][rows_w].cpu() for k in ("audio_l", "audio_r")]
+                                  + [st_k.sam_freq[rows_w].cpu(), st_k.sam_dc[rows_w].cpu(),
+                                     st_k.agc_env[rows_w].cpu(), st_k.audio_tail[rows_w].cpu()],
+                                  [out_h["audio_l"], out_h["audio_r"], st_h.sam_freq[:len(rows_w)],
+                                   st_h.sam_dc, st_h.agc_env, st_h.audio_tail]),
+                   phase_diff(st_k.sam_phase[rows_w].cpu(), st_h.sam_phase[:len(rows_w)]))
+    say(f"check sam_wide long run: {len(rows_w)} of {N_SAM_WIDE} ch (blocks 0 and "
+        f"{N_SAM_WIDE // 8 - 1}, G = 8) x {SAM_LONG} samples as 2 threaded segments, the plain "
+        f"chain on the CPU in {time.perf_counter() - t:.1f} s: max |kernel - plain| over L, R, "
+        f"sam_freq, sam_dc, env, audio_tail, sam_phase (wrap-aware) = {d_k7:.3e} (tolerance "
+        f"{TOL:g})")
+    check(d_k7 <= TOL, f"sam_wide disagrees with the plain chain over the long run: {d_k7:.3e}")
+    err["sam_wide"] = max(err["sam_wide"], d_k7)
+    del out_k, out_h, st_k, st_h, bank_h
 
     # K7 against K6 (wide_groups=1, one channel a block) at config10, two
     # threaded full segments: their re-seed periods (256, 1,024) differ
@@ -1645,6 +1677,67 @@ def main() -> None:
         nr_route_checks(b, x_r, x_i, st0, f"{c_nr.mode.name} + {c_nr.nr.name}"
                         f"{' + blanker' if nb else ''} fold=True", SEG_NR)
     check(sorted(nr_ends) == sorted(lanes.KERNELS), f"routes driven {sorted(nr_ends)}")
+
+    # the long run of SAM + spectral: the 128-channel bank over SAM_LONG
+    # samples as two threaded segments, SAM_LONG_ROWS channels spread over it
+    # against the plain chain on the CPU, frame by frame (spectral_diff)
+    margins = []
+
+    def plain_spectral(*args):
+        """lanes.sweep_lanes_chain_plain on SAM + spectral arguments, and each
+        frame's bins near the plain floor (floor_margins) into margins, from
+        one pass of the per-sample plain PLL."""
+        *chain, dc0, sam_a, _, spec = args
+        og = float(np.float32(chain[14]))
+        chain[14] = 1.0   # the spectral stage sees [l | r] before the output gain
+        l, r, *carries = sweep.chain_plain(*chain, dc0, sam=sam_a)
+        _, _, mag, nfloor = sweep.spectral_floor(l, r, spec.w_fwd, spec.nfloor0, spec.tail_l,
+                                                 spec.tail_r, spec.nr_level)
+        nf = nfloor.clamp(min=0.0)
+        margins.append((((mag - nf[..., None]).abs() <= FLIP_MARGIN * nf[..., None]).sum(-1),
+                        nf))
+        yl, yr, *spec_out = sweep.spectral_plain(l, r, spec)
+        return lanes.LanesOut(yl * og, yr * og, *carries[:4], None, None, None, *spec_out,
+                              *(carries[4:] or (None, None)))
+
+    b_s, x_r, x_i, _ = nr_ends["lanes_sam_spectral"]
+    check(x_r.shape[1] >= SAM_LONG, "the SAM + spectral scene covers the long run")
+    rows_s = list(range(0, N_CHANNELS, N_CHANNELS // SAM_LONG_ROWS))
+    t = time.perf_counter()
+    bank_h = FusedNRBank(b_s.config, [bank_freqs["lanes_sam_spectral"][k] for k in rows_s],
+                         device="cpu")
+    st_k, st_h, d_sp, near_frames, sp_ok = b_s.init_state(), bank_h.init_state(), 0.0, 0, True
+    for h in range(2):
+        xs = (x_r[:, h * half_l:(h + 1) * half_l].contiguous(),
+              x_i[:, h * half_l:(h + 1) * half_l].contiguous())
+        out_k, st_k = b_s.process_planar(*xs, st_k)
+        kernel_run, lanes.sweep_lanes_chain = lanes.sweep_lanes_chain, plain_spectral
+        try:
+            out_h, st_h = bank_h.process_planar(*(x[rows_s].cpu() for x in xs), st_h)
+        finally:
+            lanes.sweep_lanes_chain = kernel_run
+        d, n_near, _, ok = spectral_diff(
+            [out_k[k][rows_s].cpu() for k in ("audio_l", "audio_r")],
+            [out_h["audio_l"], out_h["audio_r"]], *margins[-1], b_s.params.output_gain, TOL)
+        d_sp, near_frames, sp_ok = max(d_sp, d), near_frames + n_near, sp_ok and ok
+        c_s = len(rows_s)
+        d_sp = max(d_sp, max_diff(
+            [st_k.audio_tail[rows_s].cpu(), st_k.agc_env[rows_s].cpu(), st_k.dc[rows_s].cpu(),
+             st_k.pll[1, rows_s].cpu(), st_k.nfloor[rows_s].cpu(),
+             st_k.spec_tail_l[rows_s].cpu(), st_k.spec_tail_r[rows_s].cpu()],
+            [st_h.audio_tail, st_h.agc_env, st_h.dc[:c_s], st_h.pll[1, :c_s], st_h.nfloor,
+             st_h.spec_tail_l, st_h.spec_tail_r]),
+            phase_diff(st_k.pll[0, rows_s].cpu(), st_h.pll[0, :c_s]))
+    say(f"check lanes_sam_spectral long run: {len(rows_s)} of {N_CHANNELS} ch (rows {rows_s}) x "
+        f"{SAM_LONG} samples as 2 threaded segments, the plain chain on the CPU in "
+        f"{time.perf_counter() - t:.1f} s: max |kernel - plain| over the frames of L, R with no "
+        f"bin near the floor and every carry (the PLL phase wrap-aware) = {d_sp:.3e} (tolerance "
+        f"{TOL:g}); {near_frames} frames with a bin near the floor, all within the flip bound: "
+        f"{sp_ok}")
+    check(d_sp <= TOL and sp_ok, f"lanes_sam_spectral disagrees with the plain chain over the "
+          f"long run: {d_sp:.3e}, or a frame outside its flip bound")
+    err["lanes_sam_spectral"] = max(err["lanes_sam_spectral"], d_sp)
+    del out_k, out_h, st_k, st_h, bank_h, margins
 
     # 4k. K8, sweep_mix_filter_demod, at tools/bench_sweep.py's shapes: 128 ch
     # x 2^19, the SSB operator of a 300-4000 Hz band, DDS increment
@@ -2125,11 +2218,15 @@ def main() -> None:
         f"n x {chain_cycles:.1f} / {sm_max:.0f} MHz: "
         + ", ".join(f"{k} {timing[k]['steps'] * chain_cycles / (sm_max * 1e3):.3f} ms"
                     for k in pll_kernels))
+    cyc = {k: timing[k]['ms'] * 1e-3 / timing[k]['steps'] * sm_max * 1e6 for k in pll_kernels}
     say("PLL step (csrc/sam_pll.cuh): cycles per PLL step (the kernel's time over its n steps "
-        f"at {sm_max:.0f} MHz; the SAM x LMS routes walk the PLL and the LMS side by side, "
-        "SAM + spectral one after the other) "
-        + ", ".join(f"{k} {timing[k]['ms'] * 1e-3 / timing[k]['steps'] * sm_max * 1e6:.1f}"
-                    for k in pll_kernels)
+        f"at {sm_max:.0f} MHz; every chain kernel walks the PLL on a warp of its own a chunk "
+        "ahead of the rest of its chain, the SAM x LMS routes the LMS beside it), and beside each "
+        "the excess "
+        f"over the walk alone (sam_pll, {cyc['sam_pll']:.1f}): near 0 the walk paces the "
+        "kernel, well above it the rest of the chain does: "
+        + ", ".join(f"{k} {v:.1f} ({v - cyc['sam_pll']:+.1f})" for k, v in cyc.items()
+                    if k != "sam_pll")
         + "; ptxas: " + "; ".join(
             f"{k} {ptxas.get(k + (' (G=8)' if k.startswith('sam_wide') else ''), 'not in the build log')}"
             for k in pll_kernels))

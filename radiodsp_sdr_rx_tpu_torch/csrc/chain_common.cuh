@@ -35,6 +35,44 @@ constexpr int kLdSpec = 2 * kBlk + 1;                 // padded spectrum row str
 
 static_assert(kRows == 8 * (kThreads / 32), "each warp owns 8 rows of a product");
 
+// The 256 threads that run the products and scans (the chain): their
+// barrier, the block they live in, and each thread's index in the chain,
+// 0..255, as the products and scans read it (its lane is its thread's):
+//   BlockSync  the block of the 256 (K1-K4, K8, K6's SSB and AM routes);
+//   ChainSync  a PLL kernel's block of nine warps: the chain on warps 0-7,
+//              the walk (walk_ahead below) on warp 8, chain index 256-287;
+//   SoloSync   a PLL kernel's block of twelve warps whose walking warp has
+//              its scheduler to itself: an SM schedules warp w of a block on
+//              its quarter w mod 4, so the walk runs on warp 0, beside only
+//              the idle warps 4, 8 (and 11), and the chain's warps 0-7 on
+//              warps 1-3, 5-7, 9 and 10 (kSoloMap: nibble w holds warp w's
+//              chain index / 32; 288-383 idle). Beside two chain warps the
+//              walker's hundred instructions a step take their issue slots;
+//              alone, it leaves three chain warps on two quarters instead.
+// The PLL kernels' chain meets at barrier 2 (barrier 0 is __syncthreads, 1
+// the LMS walk's).
+// (tid() keeps threadIdx.x's unsigned type where it is threadIdx.x: the
+// index arithmetic's type steers ptxas' register count, and with it how many
+// blocks of a kernel share an SM.)
+struct BlockSync {
+  static constexpr int kBlock = kThreads;
+  __device__ __forceinline__ static unsigned tid() { return threadIdx.x; }
+  __device__ __forceinline__ static void sync() { __syncthreads(); }
+};
+struct ChainSync {
+  static constexpr int kBlock = kThreads + 32;
+  __device__ __forceinline__ static unsigned tid() { return threadIdx.x; }
+  __device__ __forceinline__ static void sync() { asm volatile("bar.sync 2, 256;" ::: "memory"); }
+};
+constexpr unsigned long long kSoloMap = 0xb76a54392108ull;
+struct SoloSync {
+  static constexpr int kBlock = kThreads + 128;
+  __device__ __forceinline__ static int tid() {
+    return (int)((kSoloMap >> (4 * (threadIdx.x >> 5))) & 15) * 32 + (threadIdx.x & 31);
+  }
+  __device__ __forceinline__ static void sync() { asm volatile("bar.sync 2, 256;" ::: "memory"); }
+};
+
 // How a product reads its A operand A(r, k), r the row of the chunk, from
 // the buffers lo and hi:
 //   kFrames: the overlap-save frames of two row buffers whose row 0 is the
@@ -49,18 +87,20 @@ enum class ALayout { kFrames, kSpectrum };
 // kFrames with kRPC < kRows: the chunk's rows are kRows / kRPC channels of
 // kRPC rows each, and each channel's rows sit after its own carry row, so
 // chunk row r = g*kRPC + i reads buffer rows r + g and r + g + 1
-// (sam_wide.cu's layout).
-template <int N, ALayout kA = ALayout::kFrames, int kRPC = kRows>
+// (sam_wide.cu's layout). kTK rows of the operator a K tile (kKT, or half of
+// it where the upper half of Bs holds something else).
+template <int N, ALayout kA = ALayout::kFrames, int kRPC = kRows, int kTK = kKT,
+          class Sync = BlockSync>
 struct Tile {
-  static constexpr int BV = kKT * N / 4 / kThreads;   // float4 of W per thread
-  static constexpr int AV = kKT * kRows / kThreads;   // A values per thread
+  static constexpr int BV = kTK * N / 4 / kThreads;   // float4 of W per thread
+  static constexpr int AV = kTK * kRows / kThreads;   // A values per thread
   float4 b[BV];
   float a[AV];
 
   __device__ __forceinline__ void fetch(const float* lo, const float* hi,
                                         const float4* __restrict__ w4, int t) {
-    const int tid = threadIdx.x;
-    const int k0 = t * kKT;
+    const int tid = Sync::tid();
+    const int k0 = t * kTK;
     if constexpr (kA == ALayout::kFrames) {
       const float* src = (k0 >= 256) ? hi : lo;
       const int r = tid % kRows;
@@ -76,11 +116,11 @@ struct Tile {
     }
 #pragma unroll
     for (int v = 0; v < BV; ++v)
-      b[v] = __ldg(w4 + (size_t)t * (kKT * N / 4) + tid + v * kThreads);
+      b[v] = __ldg(w4 + (size_t)t * (kTK * N / 4) + tid + v * kThreads);
   }
 
   __device__ __forceinline__ void stash(float* as, float* bs) const {
-    const int tid = threadIdx.x;
+    const int tid = Sync::tid();
 #pragma unroll
     for (int v = 0; v < AV; ++v) as[(tid / kRows + 4 * v) * kRows + tid % kRows] = a[v];
 #pragma unroll
@@ -88,39 +128,35 @@ struct Tile {
   }
 };
 
-// The barrier of the 256 threads that run the products and scans: the whole
-// block's, or (sweep_chain.cuh's SAM kernel, whose block has one more warp)
-// a named barrier of those 256 threads.
-struct BlockSync {
-  __device__ __forceinline__ static void sync() { __syncthreads(); }
-};
-
-// acc[i][4q+j] = sum_k A(8*warp+i, k) * w[k][128q + 4*lane + j], fp32 FMA.
-// Ends with Sync::sync(), so the caller may overwrite what A read.
-template <int N, ALayout kA = ALayout::kFrames, int kRPC = kRows, class Sync = BlockSync>
+// acc[i][4q+j] = sum_k A(8*warp+i, k) * w[k][128q + 4*lane + j], fp32 FMA,
+// the operator streamed in K tiles of kTK rows through As and Bs (two tiles
+// each). Ends with Sync::sync(), so the caller may overwrite what A read.
+template <int N, ALayout kA = ALayout::kFrames, int kRPC = kRows, class Sync = BlockSync,
+          int kTK = kKT>
 __device__ __forceinline__ void chunk_gemm(const float* lo, const float* hi,
                                            const float* __restrict__ w, int K,
                                            float* As, float* Bs,
                                            float (&acc)[8][N / 32]) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  static_assert(kKT % kTK == 0 && kTK * kRows % kThreads == 0, "a K tile of whole steps");
+  const int lane = Sync::tid() & 31, warp = Sync::tid() >> 5;
   const float4* w4 = reinterpret_cast<const float4*>(w);
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
     for (int j = 0; j < N / 32; ++j) acc[i][j] = 0.f;
 
-  Tile<N, kA, kRPC> next;
+  Tile<N, kA, kRPC, kTK, Sync> next;
   next.fetch(lo, hi, w4, 0);
   next.stash(As, Bs);
   Sync::sync();
-  const int tiles = K / kKT;
+  const int tiles = K / kTK;
   for (int t = 0; t < tiles; ++t) {
     const int cur = t & 1;
     if (t + 1 < tiles) next.fetch(lo, hi, w4, t + 1);
-    const float* as = As + cur * kKT * kRows + warp * 8;
-    const float* bs = Bs + cur * kKT * 256 + lane * 4;
+    const float* as = As + cur * kTK * kRows + warp * 8;
+    const float* bs = Bs + cur * kTK * 256 + lane * 4;
 #pragma unroll
-    for (int kk = 0; kk < kKT; ++kk) {
+    for (int kk = 0; kk < kTK; ++kk) {
       const float4 a0 = *reinterpret_cast<const float4*>(as + kk * kRows);
       const float4 a1 = *reinterpret_cast<const float4*>(as + kk * kRows + 4);
       const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
@@ -136,8 +172,31 @@ __device__ __forceinline__ void chunk_gemm(const float* lo, const float* hi,
         }
       }
     }
-    if (t + 1 < tiles) next.stash(As + (cur ^ 1) * kKT * kRows, Bs + (cur ^ 1) * kKT * 256);
+    if (t + 1 < tiles) next.stash(As + (cur ^ 1) * kTK * kRows, Bs + (cur ^ 1) * kTK * 256);
     Sync::sync();
+  }
+}
+
+// The PLL kernels' pipeline (sweep_chain.cuh's sam_chain_kernel, sam_wide.cu)
+// over `chunks` chunks: the walking warp (chain index 256-287) walks chunk k
+// while the chain runs chunk k-1's back (the chain after the PLL) and then
+// chunk k+1's front (the chain before it), one __syncthreads a chunk; front
+// and back meet at Sync::sync(), walk never waits inside a chunk. Chunk k
+// lives in slot k & 1: front(k+1) refills the slot back(k-1) has just left.
+// walk is called on every thread past the chain (the idle warps too).
+template <class Sync, class Front, class Walk, class Back>
+__device__ __forceinline__ void walk_ahead(int chunks, Front front, Walk walk, Back back) {
+  const bool chain = (int)Sync::tid() < kThreads;
+  if (chain) front(0);
+  __syncthreads();
+  for (int k = 0; k <= chunks; ++k) {
+    if (chain) {
+      if (k > 0) back(k - 1);
+      if (k + 1 < chunks) front(k + 1);
+    } else if (k < chunks) {
+      walk(k);
+    }
+    __syncthreads();
   }
 }
 
@@ -197,13 +256,13 @@ __device__ __forceinline__ void mix(float x, float y, uint32_t phase, float g_i,
 // Store acc rows of a product to device memory as float4, times `gain`:
 // row r of the chunk goes to out + (row0 + r) * 128, column 4*lane + 128*q,
 // for the first kParts 128-column parts q.
-template <int N, int kParts = N / 128>
+template <int N, int kParts = N / 128, class Sync = BlockSync>
 __device__ __forceinline__ void store_rows(const float (&acc)[8][N / 32],
                                            float* __restrict__ out_lo,
                                            float* __restrict__ out_hi,
                                            size_t base, int row0, int rows,
                                            float gain) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int lane = Sync::tid() & 31, warp = Sync::tid() >> 5;
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     const int r = warp * 8 + i;

@@ -13,24 +13,40 @@
 // same carries. Only the re-seed schedule the caller passes differs: the JAX
 // wide kernel re-seeds every 256 samples, the lanes kernel every 1,024.
 //
-// What bounds it on an H100: the PLL's chain of dependent steps (sam.cu), as
-// in K6, and not the 3,072 flops and 16 B per sample of the rest. K6 runs one
-// channel per block, so a 1,024-channel bank would run the serial chain in
-// eight waves of 128 blocks.
+// What bounds it on an H100: the PLL's chain of dependent steps (sam_pll.cuh),
+// n of them per segment whatever the channel count, and the 3,072 flops and
+// 16 B per sample of the rest. K6 runs one channel per block, so a
+// 1,024-channel bank would run the serial chain in eight waves of 128 blocks.
 //
 // What the design does about it, the card's counterpart of the TPU's
 // sublane trick: a block owns G channels and walks time in chunks of 64 rows
 // of 128 samples as K1 does, but the 64 rows are R = 64/G rows of each of its
 // G channels, so the two products keep K1's 64-row shape (chain_common.cuh's
-// chunk_gemm with each channel's rows after its own carry row). Threads 0..G-1
-// of warp 0 then run the G channels' PLLs side by side, one thread each, so
-// the bank pays the serial chain once per G channels: 128 blocks of 8 for
-// 1,024 channels, one wave. The DC blocker, the AGC and the blanker's average
-// are the segmented scans of K1 with one carry per channel: each thread scans
-// its 32-sample segment from zero, thread g runs channel g's segment ends
-// serially into the carries (4R of them, a few against the PLL's 128R steps)
-// and each thread re-runs its segment from the true carry. Channels past the
-// end read zeros and store nothing.
+// chunk_gemm with each channel's rows after its own carry row: channel g's
+// rows g*(R+1) + 0..R of a buffer). Lanes 0..G-1 of a ninth warp walk the
+// G channels' PLLs side by side, one lane each, so the bank pays the serial
+// chain once per G channels: 128 blocks of 8 for 1,024 channels, one wave.
+// The walk runs a chunk ahead of the rest of the chain, as sweep_chain.cuh's
+// sam_chain_kernel does (chain_common.cuh's walk_ahead): while the walking
+// warp walks chunk k+1, the chain's eight warps run chunk k's DC blocker,
+// AGC, PBT and output, then chunk k+2's scale, [blanker,] mix and band-pass,
+// meeting at a named barrier. The block is SoloSync's, twelve warps, the
+// walking warp alone on its scheduler: beside chain warps, its hundred
+// instructions a step took their issue slots, and the chain, which paces
+// K7, slowed with them. Chunk k lives in slot k & 1 of [I rows | Q
+// rows]: the mix writes them, the band-pass writes zr over the I rows and zi
+// over the Q rows (each channel's last mixed row saved first in its mixed
+// carry row, the next chunk's row 0), the walk writes vr over zr, and the
+// back reads it there, each channel's last audio row saved in its audio carry
+// row. The DC blocker, the AGC and the blanker's average are the segmented
+// scans of K1 with one carry per channel: each thread scans its 32-sample
+// segment from zero, thread g runs channel g's segment ends serially into the
+// carries (4R of them, a few against the PLL's 128R steps) and each thread
+// re-runs its segment from the true carry; the blanker's scan stays in the
+// front, since it feeds the mix. Channels past the end read zeros and store
+// nothing, and a partial last chunk (fewer than R rows a channel) never
+// reaches a carry. Shared memory (sam_wide_smem below), G = 8 with the
+// blanker: 51,792 floats, 207,168 B of the 232,448 B a block may have.
 
 #include "chain_args.cuh"
 #include "chain_common.cuh"
@@ -50,100 +66,108 @@ __device__ __forceinline__ float scan_channel(float* seg, int nseg, float carry,
   return carry;
 }
 
-template <int G>
-constexpr int smem_floats(bool nb) {
-  return kAsFloats + kBsFloats + 3 * (kRows + G) * kLd + kThreads + 6 * G + (nb ? G * kBlk : 0);
+// As, Bs, two slots of [I rows | Q rows] of 64 + G rows each, scan segment
+// ends, 4 carries and 2 phase words a channel, the mixed carry rows [re | im]
+// and the audio carry rows of the G channels; the blanker adds the keep masks
+// of their last rows
+// The block: the chain's eight warps and the walking warp on a scheduler of
+// its own (chain_common.cuh's SoloSync)
+using Sync = SoloSync;
+
+template <int G, bool kNB>
+constexpr int sam_wide_smem() {
+  return kAsFloats + kBsFloats + 4 * (kRows + G) * kLd + kThreads + 6 * G + 3 * G * kBlk +
+         (kNB ? G * kBlk : 0);
 }
 
 template <int G, bool kNB>
-__global__ void __launch_bounds__(kThreads, 1) sam_wide_kernel(
-    const float* __restrict__ xr, const float* __restrict__ xi,
-    const long long* __restrict__ inc, const long long* __restrict__ phase0,
-    const float* __restrict__ w_sb, const float* __restrict__ w_pbt,
-    const float* __restrict__ tail_r, const float* __restrict__ tail_i,
-    const float* __restrict__ atail_in, const float* __restrict__ env0,
-    const float* __restrict__ dc0, const float* __restrict__ pll0,
-    float* __restrict__ out_l, float* __restrict__ out_r,
-    float* __restrict__ atail_out, float* __restrict__ env_out,
-    float* __restrict__ dc_out, float* __restrict__ pll_out, int channels, int n,
-    double release, float target, float max_gain, int agc_enabled, float out_gain,
-    float g_i, float g_q, const float* __restrict__ nb_avg0,
-    const float* __restrict__ nb_mask0, float* __restrict__ nb_avg_out,
-    float* __restrict__ nb_mask_out, double nb_a, float nb_thresh, PllGains gains,
-    Reseed reseed) {
+__global__ void __launch_bounds__(Sync::kBlock, 1) sam_wide_kernel(const ChainArgs a,
+                                                                    int channels) {
   constexpr int R = kRows / G;       // rows of each channel in a chunk
   constexpr int kBuf = (kRows + G) * kLd;
   extern __shared__ __align__(16) float smem[];
   float* As = smem;
   float* Bs = As + kAsFloats;
-  float* Mr = Bs + kBsFloats;   // mixed I rows; channel g's rows g*(R+1) + 0..R
-  float* Mi = Mr + kBuf;        // mixed Q rows, then zi
-  float* Ab = Mi + kBuf;        // zr, then vr, then the audio, AGC applied in place
-  float* seg = Ab + kBuf;       // scan segment ends, then carries into segments
+  float* slots = Bs + kBsFloats;  // chunk k in slot k & 1: I rows, then Q rows
+  float* seg = slots + 4 * kBuf;  // scan segment ends, then carries into segments
   float* env_c = seg + kThreads;  // per channel: AGC envelope
   float* nbavg = env_c + G;       // blanker average
   float* dcx = nbavg + G;         // DC blocker: last input
   float* dcy = dcx + G;           // DC blocker: last output
   uint32_t* words = reinterpret_cast<uint32_t*>(dcy + G);   // [phase0 | inc]
-  float* keep_row = dcy + 3 * G;  // nb: keep mask of the last row so far
+  float* mc = dcy + 3 * G;        // per channel: the mixed rows' carry row [re | im]
+  float* ac = mc + 2 * G * kBlk;  // per channel: the audio rows' carry row
+  float* keep_row = ac + G * kBlk;  // nb: keep mask of the last row so far
 
-  const int c0 = blockIdx.x * G, tid = threadIdx.x;
-  const float rel = (float)release;
-  const float rel_seg = (float)pow(release, (double)kSegLen);
-  const float nb_af = (float)nb_a, nb_om = (float)(1.0 - nb_a);
-  const float nb_seg = (float)pow(nb_a, (double)kSegLen);
+  const int c0 = blockIdx.x * G, tid = Sync::tid(), warp = tid >> 5, lane = tid & 31;
+  const int n = a.n, nrows = n / kBlk, chunks = (nrows + R - 1) / R;
+  const float rel = (float)a.release;
+  const float rel_seg = (float)pow(a.release, (double)kSegLen);
+  const float nb_af = (float)a.nb_a, nb_om = (float)(1.0 - a.nb_a);
+  const float nb_seg = (float)pow(a.nb_a, (double)kSegLen);
   const float dc_pf = (float)kDcPole;
   const float dc_seg = (float)pow(kDcPole, (double)kSegLen);
 
-  // the carried raw tails, re-scaled and re-mixed at positions -128..-1
   if (tid < G) {
     const int c = c0 + tid;
     const bool ok = c < channels;
-    words[tid] = ok ? (uint32_t)phase0[c] : 0u;
-    words[G + tid] = ok ? (uint32_t)inc[c] : 0u;
-    env_c[tid] = ok ? env0[c] : 0.f;
-    nbavg[tid] = ok && kNB ? nb_avg0[c] : 0.f;
-    dcx[tid] = ok ? dc0[2 * c] : 0.f;
-    dcy[tid] = ok ? dc0[2 * c + 1] : 0.f;
+    words[tid] = ok ? (uint32_t)a.phase0[c] : 0u;
+    words[G + tid] = ok ? (uint32_t)a.inc[c] : 0u;
+    env_c[tid] = ok ? a.env0[c] : 0.f;
+    nbavg[tid] = ok && kNB ? a.nb_avg0[c] : 0.f;
+    dcx[tid] = ok ? a.dc0[2 * c] : 0.f;
+    dcy[tid] = ok ? a.dc0[2 * c + 1] : 0.f;
   }
   __syncthreads();
-  for (int e = tid; e < G * kBlk; e += kThreads) {
+  // the carried raw tails, re-scaled and re-mixed at positions -128..-1, and
+  // the audio tails
+  for (int e = tid; e < G * kBlk; e += Sync::kBlock) {
     const int g = e / kBlk, j = e % kBlk, c = c0 + g;
-    const int o = g * (R + 1) * kLd + j;
-    float vr = 0.f, vi = 0.f, a = 0.f;
+    float vr = 0.f, vi = 0.f, at = 0.f;
     if (c < channels) {
       const size_t t = (size_t)c * kBlk + j;
-      mix(tail_r[t], tail_i[t], words[g] + (uint32_t)(j - kBlk) * words[G + g], g_i, g_q,
-          vr, vi);
+      mix(a.tail_r[t], a.tail_i[t], words[g] + (uint32_t)(j - kBlk) * words[G + g], a.g_i,
+          a.g_q, vr, vi);
       if constexpr (kNB) {
-        vr *= nb_mask0[t];
-        vi *= nb_mask0[t];
+        vr *= a.nb_mask0[t];
+        vi *= a.nb_mask0[t];
       }
-      a = atail_in[t];
+      at = a.atail_in[t];
     }
-    Mr[o] = vr;
-    Mi[o] = vi;
-    Ab[o] = a;
+    mc[g * 2 * kBlk + j] = vr;
+    mc[g * 2 * kBlk + kBlk + j] = vi;
+    ac[g * kBlk + j] = at;
   }
 
-  // threads 0..G-1 run the PLLs, their state in registers across chunks
+  // lanes 0..G-1 of the walking warp walk the PLLs, their state in registers
+  // across chunks
+  const bool walker = warp == kThreads / 32 && lane < G;
   Pll pll{};
   int next_seed = 0;
-  if (tid < G && c0 + tid < channels) {
-    pll.phase = pll0[c0 + tid];
-    pll.freq = pll0[channels + c0 + tid];
+  if (walker && c0 + lane < channels) {
+    pll.phase = a.pll0[c0 + lane];
+    pll.freq = a.pll0[channels + c0 + lane];
   }
+  __syncthreads();
 
   // the thread's scan segment: chunk row i = g*R + r, quarter of the row
   const int si = tid % kRows, quarter = tid / kRows;
   const int sg = si / R, sr = si % R, s = si * kSegsPerRow + quarter;
   const int srow = sg * (R + 1) + 1 + sr;   // its buffer row
 
-  const int nrows = n / kBlk;
-  for (int row0 = 0; row0 < nrows; row0 += R) {
-    const int rows = min(R, nrows - row0);
-
-    // 1. scale [+ blank] + mix into each channel's rows 1..R (zeros past the end)
+  // the chain: chunk k's scale [+ blank] + mix into each channel's rows 1..R
+  // (zeros past the end) and the band-pass, zr over the I rows and zi over
+  // the Q rows
+  auto front = [&](int k) {
+    float* Sr = slots + (k & 1) * 2 * kBuf;
+    float* Si = Sr + kBuf;
+    const int row0 = k * R, rows = min(R, nrows - row0);
+    Sync::sync();   // chunk k-2's back has read the slot
+    for (int e = tid; e < G * kBlk; e += kThreads) {
+      const int g = e / kBlk, j = e % kBlk, o = g * (R + 1) * kLd + j;
+      Sr[o] = mc[g * 2 * kBlk + j];
+      Si[o] = mc[g * 2 * kBlk + kBlk + j];
+    }
     // element e of the chunk: its buffer offset o, channel g and position pos
     auto in_row = [&](int e, int& o, int& g, int& pos) {
       const int i = e / kBlk, j = e % kBlk, r = i % R;
@@ -158,40 +182,40 @@ __global__ void __launch_bounds__(kThreads, 1) sam_wide_kernel(
         int o, g, pos;
         const bool ok = in_row(e, o, g, pos);
         const size_t at = (size_t)(c0 + g) * n + pos;
-        Mr[o] = ok ? xr[at] * g_i : 0.f;
-        Mi[o] = ok ? xi[at] * g_q : 0.f;
+        Sr[o] = ok ? a.xr[at] * a.g_i : 0.f;
+        Si[o] = ok ? a.xi[at] * a.g_q : 0.f;
       }
-      __syncthreads();
+      Sync::sync();
       {
-        float* pr = Mr + srow * kLd + quarter * kSegLen;
-        float* pi = Mi + srow * kLd + quarter * kSegLen;
+        float* pr = Sr + srow * kLd + quarter * kSegLen;
+        float* pi = Si + srow * kLd + quarter * kSegLen;
         float y = 0.f;
-        for (int k = 0; k < kSegLen; ++k)
-          y = nb_af * y + nb_om * sqrtf(pr[k] * pr[k] + pi[k] * pi[k]);
+        for (int q = 0; q < kSegLen; ++q)
+          y = nb_af * y + nb_om * sqrtf(pr[q] * pr[q] + pi[q] * pi[q]);
         seg[s] = y;
-        __syncthreads();
+        Sync::sync();
         if (tid < G) scan_channel<true>(seg + tid * R * kSegsPerRow, rows * kSegsPerRow,
                                         nbavg[tid], nb_seg);
-        __syncthreads();
+        Sync::sync();
         y = seg[s];
-        for (int k = 0; k < kSegLen; ++k) {
-          const float m = sqrtf(pr[k] * pr[k] + pi[k] * pi[k]);
+        for (int q = 0; q < kSegLen; ++q) {
+          const float m = sqrtf(pr[q] * pr[q] + pi[q] * pi[q]);
           y = nb_af * y + nb_om * m;
-          const bool keep = m <= y * nb_thresh + 1e-12f;
+          const bool keep = m <= y * a.nb_thresh + 1e-12f;
           if (!keep) {
-            pr[k] = 0.f;
-            pi[k] = 0.f;
+            pr[q] = 0.f;
+            pi[q] = 0.f;
           }
-          if (sr + 1 == rows) keep_row[sg * kBlk + quarter * kSegLen + k] = keep ? 1.f : 0.f;
+          if (sr + 1 == rows) keep_row[sg * kBlk + quarter * kSegLen + q] = keep ? 1.f : 0.f;
         }
         if (sr + 1 == rows && quarter == kSegsPerRow - 1) nbavg[sg] = y;
       }
-      __syncthreads();
+      Sync::sync();
 #pragma unroll 4
       for (int e = tid; e < kRows * kBlk; e += kThreads) {
         int o, g, pos;
         if (in_row(e, o, g, pos))
-          mix(Mr[o], Mi[o], words[g] + (uint32_t)pos * words[G + g], 1.f, 1.f, Mr[o], Mi[o]);
+          mix(Sr[o], Si[o], words[g] + (uint32_t)pos * words[G + g], 1.f, 1.f, Sr[o], Si[o]);
       }
     } else {
 #pragma unroll 4
@@ -200,158 +224,163 @@ __global__ void __launch_bounds__(kThreads, 1) sam_wide_kernel(
         float vr = 0.f, vi = 0.f;
         if (in_row(e, o, g, pos)) {
           const size_t at = (size_t)(c0 + g) * n + pos;
-          mix(xr[at], xi[at], words[g] + (uint32_t)pos * words[G + g], g_i, g_q, vr, vi);
+          mix(a.xr[at], a.xi[at], words[g] + (uint32_t)pos * words[G + g], a.g_i, a.g_q, vr,
+              vi);
         }
-        Mr[o] = vr;
-        Mi[o] = vi;
+        Sr[o] = vr;
+        Si[o] = vi;
       }
     }
-    __syncthreads();
+    Sync::sync();
 
-    // 2. complex band-pass: zr into the audio rows, zi into the Q rows, once
-    // each channel's last mixed row has moved to its carry row
-    {
-      const int lane = tid & 31, warp = tid >> 5;
-      float acc[8][8];
-      chunk_gemm<256, ALayout::kFrames, R>(Mr, Mi, w_sb, 512, As, Bs, acc);
-      for (int e = tid; e < G * kBlk; e += kThreads) {
-        const int g = e / kBlk, j = e % kBlk, o = g * (R + 1) * kLd + j;
-        Mr[o] = Mr[o + rows * kLd];
-        Mi[o] = Mi[o + rows * kLd];
-      }
-      __syncthreads();
+    // the complex band-pass; each channel's last mixed row moves to its carry
+    // row before zi overwrites the Q rows
+    float acc[8][8];
+    chunk_gemm<256, ALayout::kFrames, R, Sync>(Sr, Si, a.w_band, 512, As, Bs, acc);
+    for (int e = tid; e < G * kBlk; e += kThreads) {
+      const int g = e / kBlk, j = e % kBlk, o = (g * (R + 1) + rows) * kLd + j;
+      mc[g * 2 * kBlk + j] = Sr[o];
+      mc[g * 2 * kBlk + kBlk + j] = Si[o];
+    }
+    Sync::sync();
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int r = warp * 8 + i;
+    for (int i = 0; i < 8; ++i) {
+      const int r = warp * 8 + i;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int o = (r + r / R + 1) * kLd + lane * 4 + j;
-          Ab[o] = acc[i][j];
-          Mi[o] = acc[i][4 + j];
-        }
+      for (int j = 0; j < 4; ++j) {
+        const int o = (r + r / R + 1) * kLd + lane * 4 + j;
+        Sr[o] = acc[i][j];
+        Si[o] = acc[i][4 + j];
       }
     }
-    __syncthreads();
+  };
 
-    // 3. the G PLLs side by side, each over its channel's rows in time order
-    if (tid < G) {
-      for (int r = 0; r < rows; ++r) {
-        float* a = Ab + (tid * (R + 1) + 1 + r) * kLd;
-        const float* b = Mi + (tid * (R + 1) + 1 + r) * kLd;
-        walk_row(pll, gains, reseed, next_seed, (row0 + r) * kBlk, kBlk, a, b, a);
-      }
+  // the walking warp's lanes 0..G-1: the G PLLs side by side over chunk k,
+  // each over its channel's rows in time order, vr over zr
+  auto walk = [&](int k) {
+    if (!walker) return;
+    float* Sr = slots + (k & 1) * 2 * kBuf;
+    const int row0 = k * R, rows = min(R, nrows - row0);
+    for (int r = 0; r < rows; ++r) {
+      float* p = Sr + (lane * (R + 1) + 1 + r) * kLd;
+      walk_row(pll, a.gains, a.reseed, next_seed, (row0 + r) * kBlk, kBlk, p, p + kBuf, p);
     }
-    __syncthreads();
+  };
 
-    // 4. DC blocker in place; each thread reads the input just before its
+  // the chain: chunk k's DC blocker, AGC, PBT and output from vr
+  auto back = [&](int k) {
+    float* Sr = slots + (k & 1) * 2 * kBuf;
+    const int row0 = k * R, rows = min(R, nrows - row0);
+    // each channel's row 0, which only PBT reads
+    for (int e = tid; e < G * kBlk; e += kThreads) {
+      const int g = e / kBlk, j = e % kBlk;
+      Sr[g * (R + 1) * kLd + j] = ac[g * kBlk + j];
+    }
+
+    // the DC blocker in place; each thread reads the input just before its
     // segment before any thread overwrites one
     {
-      float* a = Ab + srow * kLd + quarter * kSegLen;
-      const float prev = quarter ? a[-1] : (sr ? a[-kLd + kBlk - 1] : dcx[sg]);
-      float y = 0.f, p = prev;
-      for (int k = 0; k < kSegLen; ++k) {
-        const float v = a[k];
-        y = (v - p) + dc_pf * y;
-        p = v;
+      float* p = Sr + srow * kLd + quarter * kSegLen;
+      const float prev = quarter ? p[-1] : (sr ? p[-kLd + kBlk - 1] : dcx[sg]);
+      float y = 0.f, q = prev;
+      for (int m = 0; m < kSegLen; ++m) {
+        const float v = p[m];
+        y = (v - q) + dc_pf * y;
+        q = v;
       }
       seg[s] = y;
-      __syncthreads();
+      Sync::sync();
       if (tid < G) scan_channel<true>(seg + tid * R * kSegsPerRow, rows * kSegsPerRow,
                                       dcy[tid], dc_seg);
-      __syncthreads();
+      Sync::sync();
       y = seg[s];
-      p = prev;
-      for (int k = 0; k < kSegLen; ++k) {
-        const float v = a[k];
-        y = (v - p) + dc_pf * y;
-        p = v;
-        a[k] = y;
+      q = prev;
+      for (int m = 0; m < kSegLen; ++m) {
+        const float v = p[m];
+        y = (v - q) + dc_pf * y;
+        q = v;
+        p[m] = y;
       }
       if (sr + 1 == rows && quarter == kSegsPerRow - 1) {
-        dcx[sg] = p;
+        dcx[sg] = q;
         dcy[sg] = y;
       }
     }
-    __syncthreads();
+    Sync::sync();
 
-    // 5. AGC
+    // AGC in place
     {
-      float* a = Ab + srow * kLd + quarter * kSegLen;
+      float* p = Sr + srow * kLd + quarter * kSegLen;
       float e = 0.f;
-      for (int k = 0; k < kSegLen; ++k) e = fmaxf(fabsf(a[k]), e * rel);
+      for (int m = 0; m < kSegLen; ++m) e = fmaxf(fabsf(p[m]), e * rel);
       seg[s] = e;
-      __syncthreads();
+      Sync::sync();
       if (tid < G) scan_channel<false>(seg + tid * R * kSegsPerRow, rows * kSegsPerRow,
                                        env_c[tid], rel_seg);
-      __syncthreads();
+      Sync::sync();
       e = seg[s];
-      for (int k = 0; k < kSegLen; ++k) {
-        const float v = a[k];
+      for (int m = 0; m < kSegLen; ++m) {
+        const float v = p[m];
         e = fmaxf(fabsf(v), e * rel);
-        if (agc_enabled) a[k] = v * fminf(target / fmaxf(e, 1e-12f), max_gain);
+        if (a.agc_enabled) p[m] = v * fminf(a.target / fmaxf(e, 1e-12f), a.max_gain);
       }
       if (sr + 1 == rows && quarter == kSegsPerRow - 1) env_c[sg] = e;
     }
-    __syncthreads();
+    Sync::sync();
 
-    // 6. PBT -> [L|R], output gain, straight to device memory
-    {
-      const int lane = tid & 31, warp = tid >> 5;
-      float acc[8][8];
-      chunk_gemm<256, ALayout::kFrames, R>(Ab, Ab, w_pbt, 256, As, Bs, acc);
+    // PBT -> [L|R], output gain, straight to device memory; each channel's
+    // last audio row becomes its carry row (the product has read them all)
+    float acc[8][8];
+    chunk_gemm<256, ALayout::kFrames, R, Sync>(Sr, Sr, a.w_pbt, 256, As, Bs, acc);
+    for (int e = tid; e < G * kBlk; e += kThreads) {
+      const int g = e / kBlk, j = e % kBlk;
+      ac[g * kBlk + j] = Sr[(g * (R + 1) + rows) * kLd + j];
+    }
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int r = (warp * 8 + i) % R, g = (warp * 8 + i) / R;
-        if (r < rows && c0 + g < channels) {
-          const size_t o = (size_t)(c0 + g) * n + (size_t)(row0 + r) * kBlk + lane * 4;
-          *reinterpret_cast<float4*>(out_l + o) =
-              make_float4(acc[i][0] * out_gain, acc[i][1] * out_gain,
-                          acc[i][2] * out_gain, acc[i][3] * out_gain);
-          *reinterpret_cast<float4*>(out_r + o) =
-              make_float4(acc[i][4] * out_gain, acc[i][5] * out_gain,
-                          acc[i][6] * out_gain, acc[i][7] * out_gain);
-        }
+    for (int i = 0; i < 8; ++i) {
+      const int r = (warp * 8 + i) % R, g = (warp * 8 + i) / R;
+      if (r < rows && c0 + g < channels) {
+        const size_t o = (size_t)(c0 + g) * n + (size_t)(row0 + r) * kBlk + lane * 4;
+        *reinterpret_cast<float4*>(a.out_l + o) =
+            make_float4(acc[i][0] * a.out_gain, acc[i][1] * a.out_gain,
+                        acc[i][2] * a.out_gain, acc[i][3] * a.out_gain);
+        *reinterpret_cast<float4*>(a.out_r + o) =
+            make_float4(acc[i][4] * a.out_gain, acc[i][5] * a.out_gain,
+                        acc[i][6] * a.out_gain, acc[i][7] * a.out_gain);
       }
     }
+  };
 
-    // 7. each channel's last audio row becomes its carry row
-    for (int e = tid; e < G * kBlk; e += kThreads) {
-      const int o = (e / kBlk) * (R + 1) * kLd + e % kBlk;
-      Ab[o] = Ab[o + rows * kLd];
-    }
-    __syncthreads();
-  }
+  walk_ahead<Sync>(chunks, front, walk, back);
 
-  for (int e = tid; e < G * kBlk; e += kThreads) {
+  for (int e = tid; e < G * kBlk; e += Sync::kBlock) {
     const int g = e / kBlk, j = e % kBlk, c = c0 + g;
     if (c < channels) {
-      atail_out[(size_t)c * kBlk + j] = Ab[g * (R + 1) * kLd + j];
-      if constexpr (kNB) nb_mask_out[(size_t)c * kBlk + j] = keep_row[g * kBlk + j];
+      a.atail_out[(size_t)c * kBlk + j] = ac[g * kBlk + j];
+      if constexpr (kNB) a.nb_mask_out[(size_t)c * kBlk + j] = keep_row[g * kBlk + j];
     }
   }
   if (tid < G && c0 + tid < channels) {
     const int c = c0 + tid;
-    env_out[c] = env_c[tid];
-    dc_out[2 * c] = dcx[tid];
-    dc_out[2 * c + 1] = dcy[tid];
-    pll_out[c] = pll.phase;
-    pll_out[channels + c] = pll.freq;
-    if constexpr (kNB) nb_avg_out[c] = nbavg[tid];
+    a.env_out[c] = env_c[tid];
+    a.dc_out[2 * c] = dcx[tid];
+    a.dc_out[2 * c + 1] = dcy[tid];
+    if constexpr (kNB) a.nb_avg_out[c] = nbavg[tid];
+  }
+  if (walker && c0 + lane < channels) {
+    a.pll_out[c0 + lane] = pll.phase;
+    a.pll_out[channels + c0 + lane] = pll.freq;
   }
 }
 
 template <int G, bool kNB>
 cudaError_t launch(const ChainArgs& a, int channels, cudaStream_t stream) {
-  const int smem = smem_floats<G>(kNB) * (int)sizeof(float);
+  constexpr int smem = sam_wide_smem<G, kNB>() * (int)sizeof(float);
+  static_assert(smem <= 232448, "shared memory of one H100 block");
   cudaError_t err = cudaFuncSetAttribute(sam_wide_kernel<G, kNB>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  sam_wide_kernel<G, kNB><<<(channels + G - 1) / G, kThreads, smem, stream>>>(
-      a.xr, a.xi, a.inc, a.phase0, a.w_band, a.w_pbt, a.tail_r, a.tail_i, a.atail_in, a.env0,
-      a.dc0, a.pll0, a.out_l, a.out_r, a.atail_out, a.env_out, a.dc_out, a.pll_out, channels,
-      a.n, a.release, a.target, a.max_gain, a.agc_enabled, a.out_gain, a.g_i, a.g_q,
-      a.nb_avg0, a.nb_mask0, a.nb_avg_out, a.nb_mask_out, a.nb_a, a.nb_thresh, a.gains,
-      a.reseed);
+  sam_wide_kernel<G, kNB><<<(channels + G - 1) / G, Sync::kBlock, smem, stream>>>(a, channels);
   return cudaGetLastError();
 }
 

@@ -74,29 +74,36 @@
 // in shared memory or registers from chunk to chunk. In the AM band-pass each
 // thread's 8 columns are j and j+128 for four j, so the same thread holds zr
 // and zi of a sample and writes its envelope straight into the audio rows.
-// SAM runs in sam_chain_kernel, a block of 288 threads: warp 8's lane 0
-// walks the PLL over chunk k+1 while warps 0-7 run chunk k's DC blocker,
-// [notch,] AGC, PBT product [and denoise], then chunk k+2's mix and
-// band-pass; the block meets at one barrier a chunk and warps 0-7 at a named
-// barrier of their own (ChainSync). A chunk's rows live in one of two slots
-// of [I rows | Q rows]: the mix writes them, the band-pass writes zr over
-// the I rows and zi over the Q rows (the mixed rows' last row saved first as
-// the next chunk's row 0), the PLL writes vr over zr, and the DC blocker,
-// AGC and PBT read it there, the audio rows' last row saved in a carry row;
-// denoise writes L over the dead zi. Shared memory of the SAM routes:
-// 177.7 KB (sam), 178.2 KB (+ blanker), 196.0 KB (+ denoise or notch),
-// 196.5 KB (+ blanker and denoise or notch) of the 227 KB. SAM + spectral
-// needs pass A's spectrum beside the four rows buffers (240 KB), so it stays
-// in sweep_chain_kernel, where thread 0 walks the chunk after its band-pass
-// (zr in the audio rows, zi in the dead mixed Q rows) while the other 255
-// threads wait, and the rest of the chain follows. The LMS stages run on warps 0-2
+// SAM runs in sam_chain_kernel, every NR stage included: lane 0 of a ninth
+// warp walks the PLL over chunk k+1 while the chain's eight warps run chunk
+// k's DC blocker, [notch,] AGC, PBT product [and denoise or the spectral
+// stage], then chunk k+2's mix and band-pass (chain_common.cuh's
+// walk_ahead); the block meets at one barrier a chunk and the chain at a
+// named barrier of its own. The block is ChainSync's, 288 threads, the walk
+// on warp 8; on the spectral routes SoloSync's, 384 threads, the walk alone
+// on its scheduler, since their chain's products (four a chunk) took the
+// walker's issue slots and slowed the walk, which paces them (about 198
+// cycles a step against 153 alone on the H100). A chunk's rows live in one of two
+// slots of [I rows | Q rows]: the mix writes them, the band-pass writes zr
+// over the I rows and zi over the Q rows (the mixed rows' last row saved
+// first as the next chunk's row 0), the PLL writes vr over zr, and the DC
+// blocker, AGC and PBT read it there, the audio rows' last row saved in a
+// carry row; denoise writes L over the dead zi, the spectral stage l over vr
+// and r over zi. Shared memory (bytes of the 232,448 one block may have):
+// sam 177,712, + blanker 178,224, + denoise or notch 196,156, + both
+// 196,668, + spectral 228,656, + spectral and blanker 229,168. The spectral
+// routes fit because pass A's spectrum lies over the upper half of the
+// operator tiles Bs and 49,408 B after them: pass A streams its operator in
+// K tiles of 16 rows before the spectrum exists, pass B and W_inv in tiles
+// of 8 rows through the lower half (spectral_rows' kTK), each sum in the same
+// order. The LMS stages run on warps 0-2
 // (lms_step.cuh's walk), in place, 32 samples (two groups) a tile: notch
 // over the audio rows, denoise over L, which the PBT product writes into
 // the dead mixed I rows. The lags warp takes each tile's inputs into the
 // LMS's ring of the last 256 (in its scratch, 18 KB of shared memory) with
 // their desired samples x[t-128] before the predictor, two tiles behind,
 // overwrites them with the outputs, so the in-place walk needs no pristine
-// copy of its input. The spectral stage is K4's: the mixed
+// copy of its input. The spectral stage is K4's (spectral_rows): the mixed
 // rows' last row waits in its own buffer, PBT writes l and r into the mixed
 // rows, W_fwd runs as two passes of 256 columns (its columns permuted by the
 // wrapper so that a pass holds sr and si of 128 bins and one thread holds sr
@@ -106,18 +113,20 @@
 // its rows' VAD bins (shuffles), one thread runs the 64-row one-pole scan
 // from the carry, and only then is any bin scaled. W_inv reads the two
 // spectrum halves in their natural row order (ALayout::kSpectrum). Shared
-// memory is the constraint there: 211.5 KB of the 227 KB with SAM and the
-// blanker. The AGC, the blanker's average and the DC blocker are scans over
+// memory of the SSB and AM spectral routes: 211,500 B with the blanker. The
+// AGC, the blanker's average and the DC blocker are scans over
 // the chunk, run as 256 segments of 32 samples: each thread scans its
 // segment from zero, warp 0 scans the segment ends (a decaying max for the
 // AGC, a decaying sum for the other two) and each thread re-runs its segment
 // from the true carry, so every sample follows the sequential recurrence.
 // Segments past the end of a partial last chunk come after every valid one
 // and never reach a carry. Hiding the LMS's walk behind the products on the
-// routes without SAM, the PLL's on the SAM + spectral routes, and a
-// TF32/3xTF32 tensor-core design of the products are later work.
+// routes without SAM, and a TF32/3xTF32 tensor-core design of the products
+// are later work.
 
 #pragma once
+
+#include <type_traits>
 
 #include "chain_args.cuh"
 #include "chain_common.cuh"
@@ -194,9 +203,11 @@ __device__ __forceinline__ void lms_walk(lms::Predictor& pr, lms::Lags& lg, lms:
   lms::walk(pr, lg, ls, pos0, rows * kBlk, io, delay, first, mu, notch);
 }
 
-// The chunk phases 1, 2b and 3 of both kernels, each on a barrier policy:
-// the whole block's in sweep_chain_kernel (BlockSync), the named barrier of
-// warps 0-7 in sam_chain_kernel (ChainSync).
+// The chunk phases 1, 2b and 3 of both kernels, each on a barrier policy
+// (chain_common.cuh), which also gives each thread its index in the chain:
+// the whole block's in sweep_chain_kernel (BlockSync), the chain's named
+// barrier in sam_chain_kernel (ChainSync, or SoloSync on the spectral
+// routes).
 //
 // The per-block constants of the chunk phases: the DDS phase and increment,
 // the AGC's release, the blanker's one-pole factor, the DC blocker's pole,
@@ -237,7 +248,7 @@ template <bool kNB, class Sync>
 __device__ __forceinline__ void mix_rows(const ChainArgs& a, const ChunkConsts& cc, float* Mr,
                                          float* Mi, float* keep_row, float* seg, float* env_c,
                                          size_t base, int row0, int rows) {
-  const int tid = threadIdx.x, warp = tid >> 5;
+  const int tid = Sync::tid(), warp = tid >> 5;
   const uint32_t ph0 = cc.ph0, dph = cc.dph;
   const float nb_af = cc.nb_af, nb_om = cc.nb_om, nb_seg = cc.nb_seg;
   if constexpr (kNB) {
@@ -317,7 +328,7 @@ __device__ __forceinline__ void mix_rows(const ChainArgs& a, const ChunkConsts& 
 template <class Sync>
 __device__ __forceinline__ void dc_rows(const ChunkConsts& cc, float* Ab, int rows, float* seg,
                                         float* env_c) {
-  const int tid = threadIdx.x, warp = tid >> 5;
+  const int tid = Sync::tid(), warp = tid >> 5;
   const float dc_pf = cc.dc_pf, dc_seg = cc.dc_seg;
   const int r = tid % kRows, quarter = tid / kRows;
   const int s = r * kSegsPerRow + quarter;
@@ -354,7 +365,7 @@ __device__ __forceinline__ void dc_rows(const ChunkConsts& cc, float* Ab, int ro
 template <class Sync>
 __device__ __forceinline__ void agc_rows(const ChainArgs& a, const ChunkConsts& cc, float* Ab,
                                          int rows, float* seg, float* env_c) {
-  const int tid = threadIdx.x, warp = tid >> 5;
+  const int tid = Sync::tid(), warp = tid >> 5;
   const float rel = cc.rel, rel_seg = cc.rel_seg;
   const int r = tid % kRows, quarter = tid / kRows;
   const int s = r * kSegsPerRow + quarter;
@@ -375,10 +386,117 @@ __device__ __forceinline__ void agc_rows(const ChainArgs& a, const ChunkConsts& 
   Sync::sync();
 }
 
+// 4s-9s. The spectral stage after PBT, on a barrier policy: l and r (lr,
+// the PBT product) into rows 1..kRows of X and Y, whose row 0 takes the l/r
+// carry rows st; W_fwd pass A into Sa with each row's VAD sum, pass B in
+// registers until l and r are dead (st takes their last rows), then over X
+// and Y (Sb = X, 64 rows of kLdSpec); the floor across the chunk's rows from
+// its carry env_c[4] before any bin is scaled; W_inv; the output rows. Pass B
+// and W_inv stream the operator in K tiles of kTK rows, so that with kTK =
+// kKT / 2 Sa may lie over the upper half of Bs (sam_chain_kernel). Ends with
+// Sync::sync() (W_inv's).
+template <class Sync, int kTK>
+__device__ __forceinline__ void spectral_rows(const ChainArgs& a, const float (&lr)[8][8],
+                                              float* X, float* Y, float* Sa, float* fsum,
+                                              float* nfr, float* st, float* env_c, float* As,
+                                              float* Bs, size_t base, int row0, int rows) {
+  const int tid = Sync::tid(), warp = tid >> 5, lane = tid & 31;
+  float* Sb = X;
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      X[(warp * 8 + i + 1) * kLd + lane * 4 + j] = lr[i][j];
+      Y[(warp * 8 + i + 1) * kLd + lane * 4 + j] = lr[i][4 + j];
+    }
+  if (tid < kBlk) {
+    X[tid] = st[tid];
+    Y[tid] = st[kBlk + tid];
+  }
+  Sync::sync();
+
+  // 5s. W_fwd pass A: bins 0..127 -> Sa, and each row's VAD sum over them
+  {
+    float acc[8][8];
+    chunk_gemm<256, ALayout::kFrames, kRows, Sync>(X, Y, a.w_fwd, 512, As, Bs, acc);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      float part = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int bin = lane * 4 + j;
+        float* p = Sa + (warp * 8 + i) * kLdSpec + bin;
+        p[0] = acc[i][j];
+        p[kBlk] = acc[i][4 + j];
+        if (bin >= kVadStart) part += magnitude(acc[i][j], acc[i][4 + j]);
+      }
+      part = warp_sum(part);
+      if (lane == 0) fsum[warp * 8 + i] = part;
+    }
+  }
+
+  // 6s. W_fwd pass B: bins 128..255 stay in registers until l and r are
+  // dead; their last rows are the next chunk's l/r carries
+  float acc_b[8][8];
+  chunk_gemm<256, ALayout::kFrames, kRows, Sync, kTK>(X, Y, a.w_fwd + 512 * 256, 512, As, Bs,
+                                                      acc_b);
+  if (tid < kBlk) {
+    st[tid] = X[rows * kLd + tid];
+    st[kBlk + tid] = Y[rows * kLd + tid];
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    float part = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (kBlk + lane * 4 + j <= kVadEnd) part += magnitude(acc_b[i][j], acc_b[i][4 + j]);
+    part = warp_sum(part);
+    if (lane == 0) fsum[warp * 8 + i] += part;
+  }
+  Sync::sync();
+
+  // 7s. the floor across the chunk's rows, from the carry, before any scale
+  if (tid == 0) {
+    float nf = env_c[4];
+    for (int r = 0; r < kRows; ++r) {
+      if (r < rows) nf = kFloorBeta * (fsum[r] * a.nr_gain) + kFloorA * nf;
+      nfr[r] = r < rows ? fmaxf(nf, 0.f) : 0.f;
+    }
+    env_c[4] = nf;
+  }
+  Sync::sync();
+
+  // 8s. scale every bin: pass B from registers into Sb (over the dead l
+  // and r), pass A in place in Sa
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int r = warp * 8 + i;
+    const float nf = nfr[r];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int bin = lane * 4 + j;
+      float g = subtract_scale(magnitude(acc_b[i][j], acc_b[i][4 + j]), nf);
+      Sb[r * kLdSpec + bin] = acc_b[i][j] * g;
+      Sb[r * kLdSpec + kBlk + bin] = acc_b[i][4 + j] * g;
+      float* p = Sa + r * kLdSpec + bin;
+      const float sr = p[0], si = p[kBlk];
+      g = subtract_scale(magnitude(sr, si), nf);
+      p[0] = sr * g;
+      p[kBlk] = si * g;
+    }
+  }
+  Sync::sync();
+
+  // 9s. W_inv -> [yl | yr] right halves, output gain, straight to device memory
+  float acc[8][8];
+  chunk_gemm<256, ALayout::kSpectrum, kRows, Sync, kTK>(Sa, Sb, a.w_inv, 512, As, Bs, acc);
+  store_rows<256, 2, Sync>(acc, a.out_l, a.out_r, base, row0, rows, a.out_gain);
+}
+
 template <Demod kDemod, bool kNB, Nr kNR, bool kEmitR>
 __global__ void __launch_bounds__(kThreads, 1) sweep_chain_kernel(const ChainArgs a) {
-  constexpr bool kSAM = kDemod == Demod::kSAM;
-  constexpr bool kDsb = kDemod == Demod::kAM || kSAM;  // the complex band-pass and DC blocker
+  static_assert(kDemod != Demod::kSAM, "SAM runs sam_chain_kernel");
+  constexpr bool kDsb = kDemod == Demod::kAM;  // the complex band-pass and DC blocker
   constexpr bool kLMS = is_lms(kNR);
   constexpr bool kSpec = kNR == Nr::kSpectral;
   extern __shared__ __align__(16) float smem[];
@@ -401,7 +519,6 @@ __global__ void __launch_bounds__(kThreads, 1) sweep_chain_kernel(const ChainArg
   float* nfr = fsum + kRows;                      // per row: the floor, clamped at 0
   float* mt = nfr + kRows;                        // the mixed carry row [re | im]
   float* st = mt + 2 * kBlk;                      // the l/r carry rows [l | r]
-  float* Sb = Mr;                                 // pass B's spectrum over Mr and Mi
   float* carry_r = kSpec ? mt : Mr;               // where the mixed rows' last row waits
   float* carry_i = kSpec ? mt + kBlk : Mi;
 
@@ -424,14 +541,6 @@ __global__ void __launch_bounds__(kThreads, 1) sweep_chain_kernel(const ChainArg
       st[tid] = a.stl0[t];
       st[kBlk + tid] = a.str0[t];
     }
-  }
-  // SAM (+ spectral): thread 0 runs the channel's PLL, its state in
-  // registers across chunks
-  Pll pll{};
-  int next_seed = 0;
-  if (kSAM && tid == 0) {
-    pll.phase = a.pll0[c];
-    pll.freq = a.pll0[gridDim.x + c];
   }
   // LMS: warps 0 and 1 run the channel's LMS, the weights and the lag
   // products in their registers across chunks
@@ -464,30 +573,7 @@ __global__ void __launch_bounds__(kThreads, 1) sweep_chain_kernel(const ChainArg
     // 1..kRows. In the am product acc[i][j] and acc[i][4+j] are columns
     // 4*lane+j and 128+4*lane+j: zr and zi of one sample.
     {
-      if constexpr (kSAM) {
-        float acc[8][8];
-        chunk_gemm<256>(Mr, Mi, a.w_band, 512, As, Bs, acc);
-        // the mixed rows' last row moves out now: zi overwrites the Q rows
-        if (tid < kBlk) {
-          carry_r[tid] = Mr[rows * kLd + tid];
-          carry_i[tid] = Mi[rows * kLd + tid];
-        }
-        __syncthreads();
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int o = (warp * 8 + i + 1) * kLd + lane * 4 + j;
-            Ab[o] = acc[i][j];
-            Mi[o] = acc[i][4 + j];
-          }
-        __syncthreads();
-        // 2a. the PLL over the chunk in time order: vr over zr in place
-        if (tid == 0)
-          for (int r = 1; r <= rows; ++r)
-            walk_row(pll, a.gains, a.reseed, next_seed, (row0 + r - 1) * kBlk, kBlk,
-                     Ab + r * kLd, Mi + r * kLd, Ab + r * kLd);
-      } else if constexpr (kDsb) {
+      if constexpr (kDsb) {
         float acc[8][8];
         chunk_gemm<256>(Mr, Mi, a.w_band, 512, As, Bs, acc);
 #pragma unroll
@@ -505,15 +591,15 @@ __global__ void __launch_bounds__(kThreads, 1) sweep_chain_kernel(const ChainArg
           for (int j = 0; j < 4; ++j) Ab[(warp * 8 + i + 1) * kLd + lane * 4 + j] = acc[i][j];
       }
       // the product has read every mixed row (chunk_gemm ends at a barrier):
-      // their last row becomes the next chunk's row 0 now, as SAM's does
-      if (!kSAM && tid < kBlk) {
+      // their last row becomes the next chunk's row 0 now
+      if (tid < kBlk) {
         carry_r[tid] = Mr[rows * kLd + tid];
         carry_i[tid] = Mi[rows * kLd + tid];
       }
     }
     __syncthreads();
 
-    // 2b. am, sam: the DC blocker in place
+    // 2b. am: the DC blocker in place
     if constexpr (kDsb) dc_rows<BlockSync>(cc, Ab, rows, seg, env_c);
 
     // 2c. notch: the LMS error replaces the audio, warps 0 and 1 walking the chunk
@@ -555,99 +641,9 @@ __global__ void __launch_bounds__(kThreads, 1) sweep_chain_kernel(const ChainArg
       }
       __syncthreads();   // the next chunk's mix overwrites the rows just read
     } else {
-      // 4s. spectral: l into Mr, r into Mi (rows 1..kRows), their carries in row 0
-      float* X = Mr;
-      float* Y = Mi;
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          X[(warp * 8 + i + 1) * kLd + lane * 4 + j] = lr[i][j];
-          Y[(warp * 8 + i + 1) * kLd + lane * 4 + j] = lr[i][4 + j];
-        }
-      if (tid < kBlk) {
-        X[tid] = st[tid];
-        Y[tid] = st[kBlk + tid];
-      }
-      __syncthreads();
-
-      // 5s. W_fwd pass A: bins 0..127 -> Sa, and each row's VAD sum over them
-      {
-        float acc[8][8];
-        chunk_gemm<256>(X, Y, a.w_fwd, 512, As, Bs, acc);
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          float part = 0.f;
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int bin = lane * 4 + j;
-            float* p = Sa + (warp * 8 + i) * kLdSpec + bin;
-            p[0] = acc[i][j];
-            p[kBlk] = acc[i][4 + j];
-            if (bin >= kVadStart) part += magnitude(acc[i][j], acc[i][4 + j]);
-          }
-          part = warp_sum(part);
-          if (lane == 0) fsum[warp * 8 + i] = part;
-        }
-      }
-
-      // 6s. W_fwd pass B: bins 128..255 stay in registers until l and r are
-      // dead; their last rows are the next chunk's l/r carries
-      float acc_b[8][8];
-      chunk_gemm<256>(X, Y, a.w_fwd + 512 * 256, 512, As, Bs, acc_b);
-      if (tid < kBlk) {
-        st[tid] = X[rows * kLd + tid];
-        st[kBlk + tid] = Y[rows * kLd + tid];
-      }
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        float part = 0.f;
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          if (kBlk + lane * 4 + j <= kVadEnd) part += magnitude(acc_b[i][j], acc_b[i][4 + j]);
-        part = warp_sum(part);
-        if (lane == 0) fsum[warp * 8 + i] += part;
-      }
-      __syncthreads();
-
-      // 7s. the floor across the chunk's rows, from the carry, before any scale
-      if (tid == 0) {
-        float nf = env_c[4];
-        for (int r = 0; r < kRows; ++r) {
-          if (r < rows) nf = kFloorBeta * (fsum[r] * a.nr_gain) + kFloorA * nf;
-          nfr[r] = r < rows ? fmaxf(nf, 0.f) : 0.f;
-        }
-        env_c[4] = nf;
-      }
-      __syncthreads();
-
-      // 8s. scale every bin: pass B from registers into Sb (over the dead l
-      // and r), pass A in place in Sa
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int r = warp * 8 + i;
-        const float nf = nfr[r];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int bin = lane * 4 + j;
-          float g = subtract_scale(magnitude(acc_b[i][j], acc_b[i][4 + j]), nf);
-          Sb[r * kLdSpec + bin] = acc_b[i][j] * g;
-          Sb[r * kLdSpec + kBlk + bin] = acc_b[i][4 + j] * g;
-          float* p = Sa + r * kLdSpec + bin;
-          const float sr = p[0], si = p[kBlk];
-          g = subtract_scale(magnitude(sr, si), nf);
-          p[0] = sr * g;
-          p[kBlk] = si * g;
-        }
-      }
-      __syncthreads();
-
-      // 9s. W_inv -> [yl | yr] right halves, output gain, straight to device memory
-      {
-        float acc[8][8];
-        chunk_gemm<256, ALayout::kSpectrum>(Sa, Sb, a.w_inv, 512, As, Bs, acc);
-        store_rows<256>(acc, a.out_l, a.out_r, base, row0, rows, a.out_gain);
-      }
+      // 4s-9s. spectral: l into Mr, r into Mi, pass B's spectrum over them
+      spectral_rows<BlockSync, kKT>(a, lr, Mr, Mi, Sa, fsum, nfr, st, env_c, As, Bs, base,
+                                    row0, rows);
       // the mixed carry back into row 0, over pass B's spectrum (W_inv has
       // read it: chunk_gemm ends at a barrier)
       if (tid < kBlk) {
@@ -667,10 +663,6 @@ __global__ void __launch_bounds__(kThreads, 1) sweep_chain_kernel(const ChainArg
       a.dc_out[2 * c] = env_c[2];
       a.dc_out[2 * c + 1] = env_c[3];
     }
-  }
-  if (kSAM && tid == 0) {
-    a.pll_out[c] = pll.phase;
-    a.pll_out[gridDim.x + c] = pll.freq;
   }
   if constexpr (kLMS) {
     // the weights, the window and the delay line: the segment's last 128 inputs
@@ -692,43 +684,56 @@ __global__ void __launch_bounds__(kThreads, 1) sweep_chain_kernel(const ChainArg
   }
 }
 
-// The SAM routes but SAM + spectral: warps 0-7 run the chain, warp 8's lane
-// 0 the PLL, a chunk apart (the header's description).
-constexpr int kSamThreads = kThreads + 32;
-
-// warps 0-7 of sam_chain_kernel's block, barrier 2 (barrier 0 is
-// __syncthreads, 1 the LMS walk's)
-struct ChainSync {
-  __device__ __forceinline__ static void sync() { asm volatile("bar.sync 2, 256;" ::: "memory"); }
-};
+// The SAM routes: the chain's eight warps and lane 0 of a ninth, which walks
+// the PLL, a chunk apart (chain_common.cuh's walk_ahead; the header's
+// description). The spectral routes, whose chain issues the most on the
+// walker's scheduler, take SoloSync's block, the walker alone on its
+// scheduler; the others ChainSync's.
+template <Nr kNR>
+using SamSync = std::conditional_t<kNR == Nr::kSpectral, SoloSync, ChainSync>;
+//
+// The spectral stage's pass A spectrum (kSpecFloats) lies over the upper half
+// of Bs and the kSpecExtra floats after it, so its pass B and W_inv stream
+// their operators in K tiles of kKT / 2 rows through the lower half.
+constexpr int kSpecExtra = kSpecFloats - kBsFloats / 2;
 
 // As, Bs, two slots of [I rows | Q rows], scan segment ends, 8 carries, the
 // mixed carry row [re | im] and the audio carry row; the blanker adds the
-// keep mask of the last row, the LMS its scratch (16-byte aligned)
+// keep mask of the last row, the LMS its scratch (16-byte aligned), the
+// spectral stage the rest of pass A's spectrum, the per-row floor sums and
+// floors and the l/r carry rows
 template <bool kNB, Nr kNR>
 constexpr int sam_smem_floats() {
   return kAsFloats + kBsFloats + 4 * kRowBuf + kThreads + 8 + 3 * kBlk + (kNB ? kBlk : 0) +
-         (is_lms(kNR) ? lms::kScratchFloats + 3 : 0);
+         (is_lms(kNR) ? lms::kScratchFloats + 3 : 0) +
+         (kNR == Nr::kSpectral ? kSpecExtra + 2 * kRows + 2 * kBlk : 0);
 }
 
 template <bool kNB, Nr kNR>
-__global__ void __launch_bounds__(kSamThreads, 1) sam_chain_kernel(const ChainArgs a) {
-  static_assert(kNR != Nr::kSpectral, "SAM + spectral runs sweep_chain_kernel");
+__global__ void __launch_bounds__(SamSync<kNR>::kBlock, 1) sam_chain_kernel(const ChainArgs a) {
+  using Sync = SamSync<kNR>;
   constexpr bool kLMS = is_lms(kNR);
+  constexpr bool kSpec = kNR == Nr::kSpectral;
   extern __shared__ __align__(16) float smem[];
   float* As = smem;
   float* Bs = As + kAsFloats;
-  float* slots = Bs + kBsFloats;  // chunk k in slot k & 1: I rows, then Q rows
+  float* Sa = Bs + kBsFloats / 2;   // spectral: pass A's spectrum
+  float* slots = Bs + kBsFloats + (kSpec ? kSpecExtra : 0);  // chunk k in slot k & 1: I rows,
+                                                              // then Q rows
   float* seg = slots + 4 * kRowBuf;
   float* env_c = seg + kThreads;  // [0] AGC envelope, [1] blanker average,
-                                  // [2] [3] DC blocker: last input, last output
+                                  // [2] [3] DC blocker: last input, last output,
+                                  // [4] spectral floor
   float* mc = env_c + 8;          // the mixed rows' carry row [re | im]
   float* ac = mc + 2 * kBlk;      // the audio rows' carry row
   float* keep_row = ac + kBlk;    // nb: keep mask of the last row so far
   float* tail = keep_row + (kNB ? kBlk : 0);
   lms::Scratch& ls = *reinterpret_cast<lms::Scratch*>(smem + ((tail - smem + 3) & ~3));
+  float* fsum = tail;             // spectral: per row, the VAD band's magnitude sum
+  float* nfr = fsum + kRows;      // per row: the floor, clamped at 0
+  float* st = nfr + kRows;        // the l/r carry rows [l | r]
 
-  const int c = blockIdx.x, tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int c = blockIdx.x, tid = Sync::tid(), warp = tid >> 5, lane = tid & 31;
   const int n = a.n;
   const size_t base = (size_t)c * n;
   const ChunkConsts cc = chunk_consts<kNB, true>(a, c);
@@ -744,6 +749,10 @@ __global__ void __launch_bounds__(kSamThreads, 1) sam_chain_kernel(const ChainAr
       mc[kBlk + tid] *= a.nb_mask0[t];
     }
     ac[tid] = a.atail_in[t];
+    if constexpr (kSpec) {
+      st[tid] = a.stl0[t];
+      st[kBlk + tid] = a.str0[t];
+    }
   }
   // the PLL thread's state in registers across chunks
   Pll pll{};
@@ -765,28 +774,29 @@ __global__ void __launch_bounds__(kSamThreads, 1) sam_chain_kernel(const ChainAr
     if constexpr (kNB) env_c[1] = a.nb_avg0[c];
     env_c[2] = a.dc0[2 * c];
     env_c[3] = a.dc0[2 * c + 1];
+    if constexpr (kSpec) env_c[4] = a.nfl0[c];
   }
   __syncthreads();
 
-  // warps 0-7: chunk k's mix [and blanker] and band-pass into its slot, zr
+  // the chain: chunk k's mix [and blanker] and band-pass into its slot, zr
   // over the I rows and zi over the Q rows
   auto front = [&](int k) {
     float* Sr = slots + (k & 1) * 2 * kRowBuf;
     float* Si = Sr + kRowBuf;
     const int row0 = k * kRows, rows = min(kRows, nrows - row0);
-    ChainSync::sync();   // chunk k-2's tail has read the slot
+    Sync::sync();   // chunk k-2's tail has read the slot
     if (tid < kBlk) {
       Sr[tid] = mc[tid];
       Si[tid] = mc[kBlk + tid];
     }
-    mix_rows<kNB, ChainSync>(a, cc, Sr, Si, keep_row, seg, env_c, base, row0, rows);
+    mix_rows<kNB, Sync>(a, cc, Sr, Si, keep_row, seg, env_c, base, row0, rows);
     float acc[8][8];
-    chunk_gemm<256, ALayout::kFrames, kRows, ChainSync>(Sr, Si, a.w_band, 512, As, Bs, acc);
+    chunk_gemm<256, ALayout::kFrames, kRows, Sync>(Sr, Si, a.w_band, 512, As, Bs, acc);
     if (tid < kBlk) {
       mc[tid] = Sr[rows * kLd + tid];
       mc[kBlk + tid] = Si[rows * kLd + tid];
     }
-    ChainSync::sync();
+    Sync::sync();
 #pragma unroll
     for (int i = 0; i < 8; ++i)
 #pragma unroll
@@ -796,8 +806,9 @@ __global__ void __launch_bounds__(kSamThreads, 1) sam_chain_kernel(const ChainAr
         Si[o] = acc[i][4 + j];
       }
   };
-  // warp 8's lane 0: the PLL over chunk k in time order, vr over zr
+  // the walking warp's lane 0: the PLL over chunk k in time order, vr over zr
   auto walk = [&](int k) {
+    if (tid != kThreads) return;
     float* Sr = slots + (k & 1) * 2 * kRowBuf;
     const float* Si = Sr + kRowBuf;
     const int row0 = k * kRows, rows = min(kRows, nrows - row0);
@@ -805,22 +816,23 @@ __global__ void __launch_bounds__(kSamThreads, 1) sam_chain_kernel(const ChainAr
       walk_row(pll, a.gains, a.reseed, next_seed, (row0 + r - 1) * kBlk, kBlk, Sr + r * kLd,
                Si + r * kLd, Sr + r * kLd);
   };
-  // warps 0-7: chunk k's DC blocker, [notch,] AGC, PBT [and denoise] from vr
+  // the chain: chunk k's DC blocker, [notch,] AGC, PBT [and denoise or the
+  // spectral stage] from vr
   auto back = [&](int k) {
     float* Sr = slots + (k & 1) * 2 * kRowBuf;
     float* Si = Sr + kRowBuf;
     const int row0 = k * kRows, rows = min(kRows, nrows - row0);
     if (tid < kBlk) Sr[tid] = ac[tid];   // row 0, which only PBT reads
-    dc_rows<ChainSync>(cc, Sr, rows, seg, env_c);
+    dc_rows<Sync>(cc, Sr, rows, seg, env_c);
     if constexpr (kNR == Nr::kNotch) {
       if (warp < 3)
         lms_walk(pr, lg, ls, Sr, rows, row0 * kBlk, a.lms_delay0 + c * lms::kDelay, lms_first,
                  a.mu, 1);
-      ChainSync::sync();
+      Sync::sync();
     }
-    agc_rows<ChainSync>(a, cc, Sr, rows, seg, env_c);
+    agc_rows<Sync>(a, cc, Sr, rows, seg, env_c);
     float lr[8][8];
-    chunk_gemm<256, ALayout::kFrames, kRows, ChainSync>(Sr, Sr, a.w_pbt, 256, As, Bs, lr);
+    chunk_gemm<256, ALayout::kFrames, kRows, Sync>(Sr, Sr, a.w_pbt, 256, As, Bs, lr);
     if (tid < kBlk) ac[tid] = Sr[rows * kLd + tid];
     if constexpr (kNR == Nr::kDenoise) {
       // L over the dead zi; warps 0-2 replace it by the LMS prediction
@@ -828,33 +840,29 @@ __global__ void __launch_bounds__(kSamThreads, 1) sam_chain_kernel(const ChainAr
       for (int i = 0; i < 8; ++i)
 #pragma unroll
         for (int j = 0; j < 4; ++j) Si[(warp * 8 + i + 1) * kLd + lane * 4 + j] = lr[i][j];
-      ChainSync::sync();
+      Sync::sync();
       if (warp < 3)
         lms_walk(pr, lg, ls, Si, rows, row0 * kBlk, a.lms_delay0 + c * lms::kDelay, lms_first,
                  a.mu, 0);
-      ChainSync::sync();
+      Sync::sync();
 #pragma unroll 4
       for (int e = tid; e < rows * kBlk; e += kThreads) {
         const int r = e / kBlk, j = e % kBlk;
         a.out_l[base + (size_t)(row0 + r) * kBlk + j] =
             Si[(r + 1) * kLd + j] * kDenoiseMakeup * a.out_gain;
       }
+    } else if constexpr (kSpec) {
+      // l over vr, r over the dead zi, pass B's spectrum over both, once the
+      // audio carry row has been read
+      Sync::sync();
+      spectral_rows<Sync, kKT / 2>(a, lr, Sr, Si, Sa, fsum, nfr, st, env_c, As, Bs, base,
+                                        row0, rows);
     } else {
-      store_rows<256, 2>(lr, a.out_l, a.out_r, base, row0, rows, a.out_gain);
+      store_rows<256, 2, Sync>(lr, a.out_l, a.out_r, base, row0, rows, a.out_gain);
     }
   };
 
-  if (tid < kThreads) front(0);
-  __syncthreads();
-  for (int k = 0; k <= chunks; ++k) {
-    if (tid < kThreads) {
-      if (k > 0) back(k - 1);
-      if (k + 1 < chunks) front(k + 1);
-    } else if (tid == kThreads && k < chunks) {
-      walk(k);
-    }
-    __syncthreads();
-  }
+  walk_ahead<Sync>(chunks, front, walk, back);
 
   if (tid < kBlk) {
     a.atail_out[(size_t)c * kBlk + tid] = ac[tid];
@@ -879,6 +887,14 @@ __global__ void __launch_bounds__(kSamThreads, 1) sam_chain_kernel(const ChainAr
         a.lms_delay_out[c * lms::kDelay + k] = ls.at(n - lms::kDelay + k);
     }
   }
+  if constexpr (kSpec) {
+    if (tid < kBlk) {
+      const size_t t = (size_t)c * kBlk + tid;
+      a.stl_out[t] = st[tid];
+      a.str_out[t] = st[kBlk + tid];
+    }
+    if (tid == 0) a.nfl_out[c] = env_c[4];
+  }
 }
 
 // Launch on `stream` of CUDA device `device`, one block per channel; returns
@@ -886,14 +902,14 @@ __global__ void __launch_bounds__(kSamThreads, 1) sam_chain_kernel(const ChainAr
 template <Demod kDemod, bool kNB, Nr kNR = Nr::kNone, bool kEmitR = kNR != Nr::kDenoise>
 int launch(const ChainArgs& a, int channels, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
-  if constexpr (kDemod == Demod::kSAM && kNR != Nr::kSpectral) {
+  if constexpr (kDemod == Demod::kSAM) {
     constexpr int smem = sam_smem_floats<kNB, kNR>() * (int)sizeof(float);
     static_assert(smem <= 232448, "shared memory of one H100 block");
     if (err == cudaSuccess)
       err = cudaFuncSetAttribute(sam_chain_kernel<kNB, kNR>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
-    sam_chain_kernel<kNB, kNR><<<channels, kSamThreads, smem, (cudaStream_t)stream>>>(a);
+    sam_chain_kernel<kNB, kNR><<<channels, SamSync<kNR>::kBlock, smem, (cudaStream_t)stream>>>(a);
   } else {
     constexpr int smem = smem_floats<kNB, kNR>() * (int)sizeof(float);
     static_assert(smem <= 232448, "shared memory of one H100 block");

@@ -1,7 +1,9 @@
 // sweep_spec.cu: the receive chain with spectral-subtraction noise reduction
 // folded in, one channel per thread block: six instantiations of
-// sweep_chain.cuh's kernel, demod {ssb, am, sam} x noise blanker {off, on}
-// (the chain, what bounds it and its design are described there).
+// sweep_chain.cuh's kernels, demod {ssb, am, sam} x noise blanker {off, on},
+// ssb and am on sweep_chain_kernel, sam on sam_chain_kernel, whose walking
+// warp, alone on its scheduler, walks the PLL a chunk ahead of the rest of
+// the chain (the chain, what bounds it and its design are described there).
 //
 // Replaces _spec_chain_kernel (radiodsp_sdr_rx_tpu/ops/pallas_sweep_spec.py:46,
 // wrapper sweep_spec_chain :246), K4, the ssb instantiation without the

@@ -11,7 +11,9 @@ The NR bank's staged routes are held to the port's ReceiverBank at 2e-3
 (docs/CHIP_PARITY.md). The SAM kernels (K5 sam_pll, K6 sweep_chain_sam and
 sweep_chain_sam_nb, K7 sam_wide and sam_wide_nb) run on a locked-carrier
 scene, the PLL being chaotic on noise, at 1e-4, with the plain PLL's
-per-sample loop kept to a few thousand samples; the PLL's pieces through
+per-sample loop kept to a few thousand samples (K7 and SAM + spectral, whose
+walk runs a chunk ahead of the rest of their chain, also on segments whose
+last chunk is partial, SAM + spectral frame by frame); the PLL's pieces through
 csrc/sam.cu's probe: the explicit divide bit for bit against IEEE division
 where the quotient is at least 2^-126 (tiny numerators included), within
 2^-149 below, the atan2 within
@@ -520,6 +522,103 @@ def test_sam_chain_kernels_match_plain_over_two_segments(cuda_device, groups, nb
         out, state = bank.process_planar(xr, xi, state)
         if groups is None:   # the bank's route is the kernel just launched
             assert torch.equal(out["audio_l"], got[0])
+
+
+# K7 walks its PLLs a chunk ahead of the rest of its chain: 35 rows a
+# channel leave a last chunk of 3 rows at every G (R = 64/G rows a channel
+# a chunk), and the channel counts are no multiple of G
+@pytest.mark.parametrize("nb", [False, True])
+@pytest.mark.parametrize("groups, channels", [(2, 5), (4, 7), (8, 13)])
+def test_sam_wide_pipeline_matches_plain_over_two_segments(cuda_device, groups, channels, nb):
+    """K7 against the plain chain on its re-seed schedule over two threaded
+    segments whose last chunk is partial (fewer than R rows of each channel),
+    every output and carry; the blanker on impulses far above its threshold,
+    one on each segment's last sample."""
+    n = 35 * 128
+    assert (n // 128) % (64 // groups) == 3 and channels % groups
+    bank = _sam_bank(channels, AGCMode.FAST, noise_blanker=nb)
+    gen = torch.Generator(device=cuda_device).manual_seed(100 * groups + channels)
+    xr, xi = _locked(channels, n, gen, cuda_device)
+    if nb:
+        for pos in (n // 5, n // 2 + 3, n - 1):
+            xr[:, pos] = 8.0
+            xi[:, pos] = 8.0
+    state = bank.init_state()._replace(
+        nb_avg=torch.full((channels,), float(torch.hypot(xr, xi).mean()), device=cuda_device))
+    for _ in range(2):
+        args = bank.chain_args(xr, xi, state)
+        wide = args[:24] + (groups, sam.reseed_schedule(n, 256, wide=True)) + args[-2:]
+        ref = sam_wide.sweep_sam_wide_plain(*wide)
+        before = (sam_wide.LAUNCHES, sam_wide.LAUNCHES_NB)
+        got = sam_wide.sweep_sam_wide(*wide)
+        torch.cuda.synchronize()
+        assert (sam_wide.LAUNCHES, sam_wide.LAUNCHES_NB) == (before[0] + (not nb),
+                                                            before[1] + nb)
+        assert len(got) == len(ref) == (8 if nb else 6)
+        _close(got[:5] + got[6:], ref[:5] + ref[6:])
+        _close(got[5][1:], ref[5][1:])
+        _phase_close(got[5][0], ref[5][0])
+        if nb:
+            assert float(got[7][:, -1].max()) == 0.0
+        _, state = bank.process_planar(xr, xi, state)
+
+
+def _spectral_close(got, ref, args, out_gain):
+    """L and R against the plain spectral chain frame by frame (128 samples):
+    a frame with no bin within 1e-4 (relative) of the plain floor to ATOL, one
+    with k such bins to ATOL + k * 0.2 * nf * out_gain / 256 (spectral NR
+    scales a bin by 0.2 at or under the floor and by about 0 just above it)."""
+    *chain, dc0, sam_a, _, spec = args
+    chain[14] = 1.0   # the spectral stage sees [l | r] before the output gain
+    l, r = sweep.chain_plain(*chain, dc0, sam=sam_a)[:2]
+    _, _, mag, nfloor = sweep.spectral_floor(l, r, spec.w_fwd, spec.nfloor0, spec.tail_l,
+                                             spec.tail_r, spec.nr_level)
+    nf = nfloor.clamp(min=0.0)
+    near = ((mag - nf[..., None]).abs() <= 1e-4 * nf[..., None]).sum(-1)
+    c = got[0].shape[0]
+    d = torch.stack([(g - w).abs().view(c, -1, 128).amax(-1) for g, w in zip(got, ref)]).amax(0)
+    assert bool(torch.isfinite(d).all())
+    assert bool((d <= ATOL + near * (0.2 * out_gain / 256) * nf).all()), float(d.max())
+
+
+# SAM + spectral walks the PLL a chunk ahead too: 67 rows, a last chunk of 3
+@pytest.mark.parametrize("nb", [False, True])
+def test_sam_spectral_pipeline_matches_plain_over_two_segments(cuda_device, nb):
+    """lanes_sam_spectral[_nb] against the plain chain over two threaded
+    segments whose last 64-row chunk holds 3 rows: the audio frame by frame,
+    every carry to ATOL (the PLL phase wrap-aware); one launch a call."""
+    channels, n = 3, 67 * 128
+    bank = _lanes_bank("sam", "spectral", nb, channels, cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(67 + nb)
+    xr, xi = _locked(channels, n, gen, cuda_device)
+    if nb:
+        for pos in (n // 5, n // 2 + 3, n - 1):
+            xr[:, pos] = 8.0
+            xi[:, pos] = 8.0
+    warm = torch.full((channels,), float(torch.hypot(xr, xi).mean()), device=cuda_device)
+    state = bank.init_state()._replace(nb_avg=warm)
+    for _ in range(2):
+        args = bank.lanes_args(xr, xi, state)
+        ref = lanes.sweep_lanes_chain_plain(*args)
+        before = dict(lanes.LAUNCHES)
+        got = lanes.sweep_lanes_chain(*args)
+        torch.cuda.synchronize()
+        assert {k: v - before[k] for k, v in lanes.LAUNCHES.items() if v != before[k]} == \
+            {bank.kernel: 1}
+        _spectral_close((got.audio_l, got.audio_r), (ref.audio_l, ref.audio_r), args,
+                        bank.params.output_gain)
+        for name, g, r in zip(lanes.LanesOut._fields, got, ref):
+            if g is None or name in ("audio_l", "audio_r"):
+                continue
+            assert bool(torch.isfinite(g).all()), name
+            if name == "pll":
+                _phase_close(g[0], r[0])
+                g, r = g[1], r[1]
+            np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(), atol=ATOL, rtol=0,
+                                       err_msg=name)
+        if nb:
+            assert float(got.nb_mask[:, -1].max()) == 0.0
+        _, state = bank.process_planar(xr, xi, state)
 
 
 @pytest.mark.parametrize("fold, channels, counts", [
