@@ -37,7 +37,10 @@ banks against the port's reference chain, and times them:
     against its plain chain over whole threaded segments (with SAM on a
     prefix of SAM_PREFIX samples: the plain PLL is one host-bound step per
     sample), each bank against ``ReceiverBank``, configs 3 and 7 folded
-    against staged; the LMS kernels' cycles per LMS step;
+    against staged; the LMS kernels' cycles per LMS step; the six spectral
+    routes (K4 and K6's five, whose stage is an in-block FFT) timed beside
+    the bound of the work they do, on the card and on the SMs their bank
+    fills, and the bound of the TPU design's dense DFT products;
   - cross-path parity: the fused SSB, AM and NR banks against
     ``ReceiverBank`` on the same input, at the docs/CHIP_PARITY.md bound;
   - the SAM bank, ``FusedSAMBank``, on locked-carrier scenes (every channel
@@ -145,8 +148,22 @@ NB_FLOPS_PER_SAMPLE = 10  # |x|, the one-pole average, the threshold test
 AM_FLOPS_PER_SAMPLE = 6   # the envelope and the DC blocker
 DC_FLOPS_PER_SAMPLE = 3   # the DC blocker alone
 LMS_FLOPS_PER_SAMPLE = 6 * 96   # the 96-tap dot, the energy and the update
-# K4: the chain's two products (2,048), W_fwd (4,096) and W_inv (2,048)
-SPEC_FLOPS_PER_SAMPLE = 2 * (512 * 128 + 256 * 256 + 512 * 512 + 512 * 256) // 128
+# the spectral stage's work per 128-sample row: one forward and one inverse
+# 256-point FFT of 7,296 flops each (two radix-8 stages of 32 eight-point
+# DFTs of 56 flops and 7 twiddle products of 6, then 64 four-point DFTs of
+# 16), the magnitudes (4 flops a bin, the square root one), the VAD sum
+# (151), the scale (max, divide, subtract, compare and the two products a
+# bin) and the output gain (one product a sample)
+FFT_FLOPS = 2 * 32 * (56 + 7 * 6) + 64 * 16
+SPEC_STAGE_FLOPS_PER_ROW = 2 * FFT_FLOPS + 256 * 4 + 151 + 256 * 6 + 256
+# what the kernels do above it: they keep no spectra across the floor scan
+# and run each row's forward FFT and magnitudes again after it
+SPEC_RECOMPUTE_FLOPS_PER_ROW = FFT_FLOPS + 256 * 4
+# the same stage as the TPU kernel's dense DFT products: W_fwd (512 x 512) and
+# W_inv (512 x 256), 6,144 flops a sample (the bound in brackets, PERF.md)
+SPEC_DENSE_FLOPS_PER_ROW = 2 * (512 * 512 + 512 * 256)
+# K4: the chain's two products (2,048 a sample) and the stage
+SPEC_FLOPS_PER_SAMPLE = (2 * (512 * 128 + 256 * 256) + SPEC_STAGE_FLOPS_PER_ROW) / 128
 # the PLL step: the two products, the atan2 (a divide counted as one), the
 # loop update, the base oscillator's two Horner chains, the rotation
 PLL_FLOPS_PER_SAMPLE = 72
@@ -2029,26 +2046,30 @@ def main() -> None:
             lambda: b.process_planar(x_r, x_i, st), REPS)
     del xr_am, xi_am, xr_amnb, xi_amnb, args
 
-    # K4 at config4's shape (64 ch x 2^19); the library yardstick is its four
-    # products as fp32 torch.matmul
+    # K4 at config4's shape (64 ch x 2^19); the library yardstick is the
+    # chain's two products as fp32 torch.matmul and torch.fft.fft and ifft of
+    # the stage's frames (rows, 256) complex
     samples4 = N_SPEC * SEG_LEN
     rows4 = samples4 // 128
-    w_fwd, w_inv = bank4.w_spec
     f1 = torch.randn((rows4, 512), generator=gen, device="cuda")
     f2 = torch.randn((rows4, 256), generator=gen, device="cuda")
+    fz = torch.randn((rows4, 256), generator=gen, device="cuda", dtype=torch.complex64)
     lib_spec_ms = time_ms(lambda: (torch.matmul(f1, w_ssb), torch.matmul(f2, w_pbt),
-                                   torch.matmul(f1, w_fwd), torch.matmul(f1, w_inv)), REPS)
-    del f1, f2
+                                   torch.fft.ifft(torch.fft.fft(fz))), REPS)
+    del f1, f2, fz
     b4, x_r, x_i, st = ends["config4 fold=True"]
     args = b4.spec_args(x_r, x_i, st)
-    b_ms, b_by = bound(SPEC_FLOPS_PER_SAMPLE * samples4,
-                       4 * samples4 * 4 + 4 * (512 * 128 + 256 * 256 + 512 * 512 + 512 * 256)
-                       + N_SPEC * (2 * 8 + 2 * 128 * 4 + 2 * 128 * 4 + 4 * 4 + 4 * 128 * 4))
+    spec_bytes = (4 * samples4 * 4 + 4 * (512 * 128 + 256 * 256)
+                  + N_SPEC * (2 * 8 + 2 * 128 * 4 + 2 * 128 * 4 + 4 * 4 + 4 * 128 * 4))
+    b_ms, b_by = bound(SPEC_FLOPS_PER_SAMPLE * samples4, spec_bytes + 4 * 512)
+    dense_ms, _ = bound((2 * (512 * 128 + 256 * 256) + SPEC_DENSE_FLOPS_PER_ROW) * rows4,
+                        spec_bytes + 4 * (512 * 512 + 512 * 256))
     timing["sweep_spec_chain"] = dict(
         ms=time_ms(lambda: sweep_spec.sweep_spec_chain(*args), REPS),
         plain_ms=time_ms(lambda: sweep_spec.sweep_spec_chain_plain(*args), 3),
         bound_ms=b_ms, bound_by=b_by, library_ms=lib_spec_ms,
-        flops=SPEC_FLOPS_PER_SAMPLE * samples4, samples=samples4)
+        flops=SPEC_FLOPS_PER_SAMPLE * samples4, samples=samples4, channels=N_SPEC,
+        dense_bound_ms=dense_ms)
     del args
     # the staged spectral stage alone (plain PyTorch, split DFT) at config4's shape
     p4 = ends["config4 fold=False"][0].params
@@ -2138,7 +2159,6 @@ def main() -> None:
     # torch.matmul; the bound adds the LMS's and the PLL's operations to the
     # products'
     lib_nr_ms = {}
-    w_fwd, w_inv = bank4.w_spec
     for kname, (b, x_r, x_i, st) in nr_ends.items():
         c, n = x_r.shape
         samples_k, rows_k = c * n, c * n // 128
@@ -2149,30 +2169,36 @@ def main() -> None:
         if key not in lib_nr_ms:
             f1 = torch.randn((rows_k, 512), generator=gen, device="cuda")
             f2 = torch.randn((rows_k, 256), generator=gen, device="cuda")
-            prods = [(f1, w_band), (f2, w_p)] + ([(f1, w_fwd), (f1, w_inv)] if spectral else [])
-            lib_nr_ms[key] = time_ms(lambda: [torch.matmul(a, w) for a, w in prods], REPS)
-            del f1, f2, prods
+            fz = torch.randn((rows_k, 256), generator=gen, device="cuda",
+                             dtype=torch.complex64) if spectral else None
+            prods = [(f1, w_band), (f2, w_p)]
+            lib_nr_ms[key] = time_ms(lambda: [torch.matmul(a, w) for a, w in prods] + (
+                [torch.fft.ifft(torch.fft.fft(fz))] if spectral else []), REPS)
+            del f1, f2, fz, prods
         per_sample = ((6 if b.demod == "am" else 0)
                       + (PLL_FLOPS_PER_SAMPLE + DC_FLOPS_PER_SAMPLE if b.demod == "sam" else 0)
                       + (NB_FLOPS_PER_SAMPLE if b.config.noise_blanker else 0)
                       + (0 if spectral else LMS_FLOPS_PER_SAMPLE))
         flops = (rows_k * 2 * (512 * w_band.shape[1] + 256 * w_p.shape[1])
-                 + (rows_k * 2 * (512 * 512 + 512 * 256) if spectral else 0)
+                 + (rows_k * SPEC_STAGE_FLOPS_PER_ROW if spectral else 0)
                  + per_sample * samples_k)
         nbytes = ((8 + (4 if denoise else 8)) * samples_k
                   + 4 * (512 * w_band.shape[1] + 256 * w_p.shape[1])
-                  + (4 * (512 * 512 + 512 * 256) if spectral else 0)
                   + c * (2 * 8 + 4 * 128 * 4 + 2 * 4)
                   + (c * 2 * (96 + 96 + 128) * 4 if not spectral else c * 2 * (4 + 2 * 128 * 4))
                   + (c * 2 * 2 * 4 if dsb else 0) + (c * 2 * 2 * 4 if b.demod == "sam" else 0)
                   + (c * (2 * 4 + 2 * 128 * 4) if b.config.noise_blanker else 0))
-        b_ms, b_by = bound(flops, nbytes)
+        b_ms, b_by = bound(flops, nbytes + (4 * 512 if spectral else 0))   # + the twiddles
+        if spectral:
+            dense = bound(flops + rows_k * (SPEC_DENSE_FLOPS_PER_ROW - SPEC_STAGE_FLOPS_PER_ROW),
+                          nbytes + 4 * (512 * 512 + 512 * 256))[0]
         args = b.lanes_args(x_r, x_i, st)
         plain_ms, prefix = nr_plain_prefix[kname]
         timing[kname] = dict(
             ms=time_ms(lambda: lanes.sweep_lanes_chain(*args), REPS),
             plain_ms=plain_ms * (n / prefix), bound_ms=b_ms, bound_by=b_by,
-            library_ms=lib_nr_ms[key], flops=flops, samples=samples_k, seg=n,
+            library_ms=lib_nr_ms[key], flops=flops, samples=samples_k, seg=n, channels=c,
+            **({"dense_bound_ms": dense} if spectral else {}),
             **({"plain_from": prefix} if prefix < n else {}),
             **({} if spectral and b.demod != "sam" else {"steps": n}))
         path_ms[f"NR {b.config.mode.name} + {b.config.nr.name}"
@@ -2206,6 +2232,21 @@ def main() -> None:
                     for k in lms_kernels)
         + "; ptxas: " + "; ".join(f"{k} {ptxas.get(k, 'not in the build log')}"
                                   for k in lms_kernels))
+    spec_kernels = ["sweep_spec_chain"] + [k for k in lanes.KERNELS if "spectral" in k]
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    say("spectral stage (csrc/sweep_chain.cuh's spectral_rows: an in-block 256-point FFT, "
+        f"{SPEC_STAGE_FLOPS_PER_ROW} flops a 128-sample row of the function's work in the "
+        f"bound; the kernels' recompute of the forward FFT and magnitudes, "
+        f"{SPEC_RECOMPUTE_FLOPS_PER_ROW} flops a row more, is overhead above it): "
+        + "; ".join(
+            f"{k} {timing[k]['ms']:.3f} ms, bound {timing[k]['bound_ms']:.3f} ms on the card and "
+            f"{timing[k]['bound_ms'] * n_sms / min(timing[k]['channels'], n_sms):.3f} ms on the "
+            f"{min(timing[k]['channels'], n_sms)} SMs its bank fills (the recompute "
+            f"{timing[k]['samples'] / 128 * SPEC_RECOMPUTE_FLOPS_PER_ROW / timing[k]['flops']:.1%}"
+            f" of the bound's flops; the TPU design's dense DFT "
+            f"products: {timing[k]['dense_bound_ms']:.3f} ms), library "
+            f"{timing[k]['library_ms']:.3f} ms, ptxas {ptxas.get(k, 'not in the build log')}"
+            for k in spec_kernels))
     pll_kernels = ["sam_pll", "sweep_chain_sam", "sweep_chain_sam_nb", "sam_wide",
                    "sam_wide_nb"] + [k for k in lanes.KERNELS if k.startswith("lanes_sam")]
     lat = latency_probe(latency_lib)
@@ -2247,7 +2288,7 @@ def main() -> None:
         + f"; SM clock {sm_now:.0f} MHz after the timing, max {sm_max:.0f} MHz; library: "
         f"torch.matmul (rows,512)@(512,128) {lib1_ms:.3f} ms, (rows,256)@(256,256) "
         f"{lib2_ms:.3f} ms, both {library_ms:.3f} ms, with PBT's L half alone "
-        f"{library_mono_ms:.3f} ms; K4's four products at config4 "
+        f"{library_mono_ms:.3f} ms; K4's two products and fft + ifft of its frames at config4 "
         f"{lib_spec_ms:.3f} ms; the staged spectral stage (planar.spectral_subtract_planar) "
         f"alone at config4 {spec_stage_ms:.3f} ms; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {smi}")

@@ -23,8 +23,8 @@ namespace {
 // str0/out (C, 128); env0/out, nb_avg0/out, nfl0/out (C,); dc0/out (C, 2);
 // pll0/out (2, C); lms_w0/out, lms_win0/out (C, 96); lms_delay0/out
 // (C, 128); lms_first one byte, nonzero for the stream's first segment;
-// w_fwd (2, 512, 256): W_fwd's columns [sr bins 0..127 | si bins 0..127]
-// then [sr bins 128..255 | si bins 128..255]; w_inv (512, 256).
+// fft_tw (2, 256): the spectral stage's FFT twiddles W^j = exp(-2 pi i j /
+// 256), [cos | -sin], float64 rounded to float32.
 struct ChainArgs {
   const float* xr;
   const float* xi;
@@ -55,8 +55,7 @@ struct ChainArgs {
   float* lms_w_out;
   float* lms_win_out;
   float* lms_delay_out;
-  const float* w_fwd;
-  const float* w_inv;
+  const float* fft_tw;
   const float* nfl0;
   const float* stl0;
   const float* str0;

@@ -4,11 +4,9 @@
 // A block of 256 threads works on chunks of 64 rows of 128 samples. Row
 // buffers hold 65 rows at a padded stride of 129 floats: row 0 is the row
 // before the chunk (the framing carry), rows 1..64 the chunk. chunk_gemm
-// multiplies the overlap-save frames of such buffers (or, for the spectral
-// stage's inverse product, two spectrum buffers of 64 rows of 256 values) by
-// an operator held in device memory, streamed through shared memory in K
-// tiles of 16 rows, double-buffered with a register prefetch of the next
-// tile. scan_segment_carries is the carry step of the chunk scans (the AGC,
+// multiplies the overlap-save frames of such buffers by an operator held in
+// device memory, streamed through shared memory in K tiles of 16 rows,
+// double-buffered with a register prefetch of the next tile. scan_segment_carries is the carry step of the chunk scans (the AGC,
 // the blanker's average, the DC blocker). mix() is the
 // DDS NCO mix at a uint32 phase word, read as int32 before the float
 // conversion, with full-accuracy sincosf (no --use_fast_math), as the TPU
@@ -31,7 +29,6 @@ constexpr float kPhaseScale = (float)(6.283185307179586 / 4294967296.0);
 constexpr int kAsFloats = 2 * kKT * kRows;            // frame tiles, k-major
 constexpr int kBsFloats = 2 * kKT * 256;              // operator tiles
 constexpr int kRowBuf = (kRows + 1) * kLd;            // row 0 = carry
-constexpr int kLdSpec = 2 * kBlk + 1;                 // padded spectrum row stride
 
 static_assert(kRows == 8 * (kThreads / 32), "each warp owns 8 rows of a product");
 
@@ -73,50 +70,33 @@ struct SoloSync {
   __device__ __forceinline__ static void sync() { asm volatile("bar.sync 2, 256;" ::: "memory"); }
 };
 
-// How a product reads its A operand A(r, k), r the row of the chunk, from
-// the buffers lo and hi:
-//   kFrames: the overlap-save frames of two row buffers whose row 0 is the
-//     previous chunk's last row: k in [0,128) -> lo[r][k], [128,256) ->
-//     lo[r+1][k-128], [256,384) -> hi[r][k-256], [384,512) -> hi[r+1][k-384];
-//   kSpectrum: [sr bins 0..255 | si bins 0..255] of two spectrum buffers
-//     (64 rows of kLdSpec), lo = [sr | si] of bins 0..127, hi = [sr | si] of
-//     bins 128..255: k in [0,128) -> lo[r][k], [128,256) -> hi[r][k-128],
-//     [256,384) -> lo[r][k-128], [384,512) -> hi[r][k-256].
-enum class ALayout { kFrames, kSpectrum };
-
-// kFrames with kRPC < kRows: the chunk's rows are kRows / kRPC channels of
-// kRPC rows each, and each channel's rows sit after its own carry row, so
-// chunk row r = g*kRPC + i reads buffer rows r + g and r + g + 1
-// (sam_wide.cu's layout). kTK rows of the operator a K tile (kKT, or half of
-// it where the upper half of Bs holds something else).
-template <int N, ALayout kA = ALayout::kFrames, int kRPC = kRows, int kTK = kKT,
-          class Sync = BlockSync>
+// The A operand A(r, k) of a product, r the row of the chunk: the
+// overlap-save frames of two row buffers lo and hi whose row 0 is the previous
+// chunk's last row: k in [0,128) -> lo[r][k], [128,256) -> lo[r+1][k-128],
+// [256,384) -> hi[r][k-256], [384,512) -> hi[r+1][k-384]. With kRPC < kRows
+// the chunk's rows are kRows / kRPC channels of kRPC rows each, and each
+// channel's rows sit after its own carry row, so chunk row r = g*kRPC + i
+// reads buffer rows r + g and r + g + 1 (sam_wide.cu's layout).
+template <int N, int kRPC = kRows, class Sync = BlockSync>
 struct Tile {
-  static constexpr int BV = kTK * N / 4 / kThreads;   // float4 of W per thread
-  static constexpr int AV = kTK * kRows / kThreads;   // A values per thread
+  static constexpr int BV = kKT * N / 4 / kThreads;   // float4 of W per thread
+  static constexpr int AV = kKT * kRows / kThreads;   // A values per thread
   float4 b[BV];
   float a[AV];
 
   __device__ __forceinline__ void fetch(const float* lo, const float* hi,
                                         const float4* __restrict__ w4, int t) {
     const int tid = Sync::tid();
-    const int k0 = t * kTK;
-    if constexpr (kA == ALayout::kFrames) {
-      const float* src = (k0 >= 256) ? hi : lo;
-      const int r = tid % kRows;
-      const int row = r + (kRPC < kRows ? r / kRPC : 0) + ((k0 >> 7) & 1);
-      const int col = (k0 & 127) + tid / kRows;
+    const int k0 = t * kKT;
+    const float* src = (k0 >= 256) ? hi : lo;
+    const int r = tid % kRows;
+    const int row = r + (kRPC < kRows ? r / kRPC : 0) + ((k0 >> 7) & 1);
+    const int col = (k0 & 127) + tid / kRows;
 #pragma unroll
-      for (int v = 0; v < AV; ++v) a[v] = src[row * kLd + col + 4 * v];
-    } else {
-      const float* src = ((k0 >> 7) & 1) ? hi : lo;
-      const int col = (k0 & 127) + ((k0 >> 8) & 1) * kBlk + tid / kRows;
-#pragma unroll
-      for (int v = 0; v < AV; ++v) a[v] = src[(tid % kRows) * kLdSpec + col + 4 * v];
-    }
+    for (int v = 0; v < AV; ++v) a[v] = src[row * kLd + col + 4 * v];
 #pragma unroll
     for (int v = 0; v < BV; ++v)
-      b[v] = __ldg(w4 + (size_t)t * (kTK * N / 4) + tid + v * kThreads);
+      b[v] = __ldg(w4 + (size_t)t * (kKT * N / 4) + tid + v * kThreads);
   }
 
   __device__ __forceinline__ void stash(float* as, float* bs) const {
@@ -129,15 +109,13 @@ struct Tile {
 };
 
 // acc[i][4q+j] = sum_k A(8*warp+i, k) * w[k][128q + 4*lane + j], fp32 FMA,
-// the operator streamed in K tiles of kTK rows through As and Bs (two tiles
+// the operator streamed in K tiles of kKT rows through As and Bs (two tiles
 // each). Ends with Sync::sync(), so the caller may overwrite what A read.
-template <int N, ALayout kA = ALayout::kFrames, int kRPC = kRows, class Sync = BlockSync,
-          int kTK = kKT>
+template <int N, int kRPC = kRows, class Sync = BlockSync>
 __device__ __forceinline__ void chunk_gemm(const float* lo, const float* hi,
                                            const float* __restrict__ w, int K,
                                            float* As, float* Bs,
                                            float (&acc)[8][N / 32]) {
-  static_assert(kKT % kTK == 0 && kTK * kRows % kThreads == 0, "a K tile of whole steps");
   const int lane = Sync::tid() & 31, warp = Sync::tid() >> 5;
   const float4* w4 = reinterpret_cast<const float4*>(w);
 #pragma unroll
@@ -145,18 +123,18 @@ __device__ __forceinline__ void chunk_gemm(const float* lo, const float* hi,
 #pragma unroll
     for (int j = 0; j < N / 32; ++j) acc[i][j] = 0.f;
 
-  Tile<N, kA, kRPC, kTK, Sync> next;
+  Tile<N, kRPC, Sync> next;
   next.fetch(lo, hi, w4, 0);
   next.stash(As, Bs);
   Sync::sync();
-  const int tiles = K / kTK;
+  const int tiles = K / kKT;
   for (int t = 0; t < tiles; ++t) {
     const int cur = t & 1;
     if (t + 1 < tiles) next.fetch(lo, hi, w4, t + 1);
-    const float* as = As + cur * kTK * kRows + warp * 8;
-    const float* bs = Bs + cur * kTK * 256 + lane * 4;
+    const float* as = As + cur * kKT * kRows + warp * 8;
+    const float* bs = Bs + cur * kKT * 256 + lane * 4;
 #pragma unroll
-    for (int kk = 0; kk < kTK; ++kk) {
+    for (int kk = 0; kk < kKT; ++kk) {
       const float4 a0 = *reinterpret_cast<const float4*>(as + kk * kRows);
       const float4 a1 = *reinterpret_cast<const float4*>(as + kk * kRows + 4);
       const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
@@ -172,7 +150,7 @@ __device__ __forceinline__ void chunk_gemm(const float* lo, const float* hi,
         }
       }
     }
-    if (t + 1 < tiles) next.stash(As + (cur ^ 1) * kTK * kRows, Bs + (cur ^ 1) * kTK * 256);
+    if (t + 1 < tiles) next.stash(As + (cur ^ 1) * kKT * kRows, Bs + (cur ^ 1) * kKT * 256);
     Sync::sync();
   }
 }

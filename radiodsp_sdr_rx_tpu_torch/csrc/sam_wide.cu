@@ -236,7 +236,7 @@ __global__ void __launch_bounds__(Sync::kBlock, 1) sam_wide_kernel(const ChainAr
     // the complex band-pass; each channel's last mixed row moves to its carry
     // row before zi overwrites the Q rows
     float acc[8][8];
-    chunk_gemm<256, ALayout::kFrames, R, Sync>(Sr, Si, a.w_band, 512, As, Bs, acc);
+    chunk_gemm<256, R, Sync>(Sr, Si, a.w_band, 512, As, Bs, acc);
     for (int e = tid; e < G * kBlk; e += kThreads) {
       const int g = e / kBlk, j = e % kBlk, o = (g * (R + 1) + rows) * kLd + j;
       mc[g * 2 * kBlk + j] = Sr[o];
@@ -331,7 +331,7 @@ __global__ void __launch_bounds__(Sync::kBlock, 1) sam_wide_kernel(const ChainAr
     // PBT -> [L|R], output gain, straight to device memory; each channel's
     // last audio row becomes its carry row (the product has read them all)
     float acc[8][8];
-    chunk_gemm<256, ALayout::kFrames, R, Sync>(Sr, Sr, a.w_pbt, 256, As, Bs, acc);
+    chunk_gemm<256, R, Sync>(Sr, Sr, a.w_pbt, 256, As, Bs, acc);
     for (int e = tid; e < G * kBlk; e += kThreads) {
       const int g = e / kBlk, j = e % kBlk;
       ac[g * kBlk + j] = Sr[(g * (R + 1) + rows) * kLd + j];

@@ -27,13 +27,15 @@
 //   none:     [L|R] times the output gain;
 //   denoise:  the LMS prediction y of L, times 1.1, times the output gain;
 //             R is neither computed nor stored (the bank copies L);
-//   spectral: per 128-sample row, [prev_l | l | prev_r | r] @ W_fwd(512,512)
-//             -> [sr | si] over 256 bins, mag = sqrt(sr^2 + si^2),
+//   spectral: per 128-sample row, Z = DFT256([prev_l | l] + i [prev_r | r])
+//             (sr + i si over 256 bins), mag = sqrt(sr^2 + si^2),
 //             floor_est = (sum of mag over bins 30..180) * nr_gain,
 //             nf[j] = 0.35*nf[j-1] + 0.65*floor_est[j] across rows, chunks
 //             and segments, scale = 0.2 where mag <= max(nf, 0), else
-//             1 - nf/max(mag, 1e-20), [sr*scale | si*scale] @ W_inv(512,256)
-//             -> the right halves [yl | yr], times the output gain.
+//             1 - nf/max(mag, 1e-20), IDFT256(Z * scale) / 256 -> the right
+//             halves, yl = Re and yr = Im, times the output gain. The TPU
+//             kernel multiplies by the dense DFT operators W_fwd (512, 512)
+//             and W_inv (512, 256); here the stage is a 256-point FFT.
 //
 // The noise blanker works on the scaled input before the mix: mag = |x|,
 // avg[t] = a*avg[t-1] + (1-a)*mag[t] on the unblanked magnitude, and a sample
@@ -49,8 +51,11 @@
 // (4 B with one output), and does 2,048 flops for ssb (1,024 for each of the
 // two products per 128 samples) or 3,072 for am and sam (2,048 for the
 // twice-as-wide band-pass); without R 1,536 (the compiler drops the R half
-// of the PBT product, whose sums are never stored); spectral adds 6,144
-// (W_fwd 4,096, W_inv 2,048). One 128-channel x 2^19-sample ssb segment is
+// of the PBT product, whose sums are never stored); spectral adds about 137
+// (a forward and an inverse FFT of 7,296 flops a row, the magnitudes, the
+// scales: 128 samples a row), where the TPU kernel's dense DFT products did
+// 6,144 (W_fwd 4,096, W_inv 2,048); the kernels run the forward FFT and the
+// magnitudes a second time (65 more, above the bound, see below). One 128-channel x 2^19-sample ssb segment is
 // 1.07 GB (0.32 ms at 3.35 TB/s) and 137 GFLOP (2.0 ms at the 67 TFLOP/s
 // fp32 rate outside the tensor cores): in fp32 SIMT it is bound by
 // arithmetic. The blanker adds about 10 flops and a square root per sample,
@@ -81,9 +86,13 @@
 // walk_ahead); the block meets at one barrier a chunk and the chain at a
 // named barrier of its own. The block is ChainSync's, 288 threads, the walk
 // on warp 8; on the spectral routes SoloSync's, 384 threads, the walk alone
-// on its scheduler, since their chain's products (four a chunk) took the
-// walker's issue slots and slowed the walk, which paces them (about 198
-// cycles a step against 153 alone on the H100). A chunk's rows live in one of two
+// on its scheduler (warp id mod 4), so that no chain warp takes the
+// walker's issue slots: the walk paces these routes, and on the H100 a SAM
+// chain with the walk beside chain warps ran SAM + spectral at 13.1 ms a
+// 128 x 2^17 segment against 10.1 on SoloSync, sweep_chain_sam 10.4-10.5
+// against 9.5-9.6 (the former with the stage's dense products of the
+// TPU's design). Whether the FFT stage still needs the layout is not
+// measured. A chunk's rows live in one of two
 // slots of [I rows | Q rows]: the mix writes them, the band-pass writes zr
 // over the I rows and zi over the Q rows (the mixed rows' last row saved
 // first as the next chunk's row 0), the PLL writes vr over zr, and the DC
@@ -91,12 +100,8 @@
 // carry row; denoise writes L over the dead zi, the spectral stage l over vr
 // and r over zi. Shared memory (bytes of the 232,448 one block may have):
 // sam 177,712, + blanker 178,224, + denoise or notch 196,156, + both
-// 196,668, + spectral 228,656, + spectral and blanker 229,168. The spectral
-// routes fit because pass A's spectrum lies over the upper half of the
-// operator tiles Bs and 49,408 B after them: pass A streams its operator in
-// K tiles of 16 rows before the spectrum exists, pass B and W_inv in tiles
-// of 8 rows through the lower half (spectral_rows' kTK), each sum in the same
-// order. The LMS stages run on warps 0-2
+// 196,668, + spectral 181,296, + spectral and blanker 181,808. The LMS
+// stages run on warps 0-2
 // (lms_step.cuh's walk), in place, 32 samples (two groups) a tile: notch
 // over the audio rows, denoise over L, which the PBT product writes into
 // the dead mixed I rows. The lags warp takes each tile's inputs into the
@@ -105,15 +110,17 @@
 // overwrites them with the outputs, so the in-place walk needs no pristine
 // copy of its input. The spectral stage is K4's (spectral_rows): the mixed
 // rows' last row waits in its own buffer, PBT writes l and r into the mixed
-// rows, W_fwd runs as two passes of 256 columns (its columns permuted by the
-// wrapper so that a pass holds sr and si of 128 bins and one thread holds sr
-// and si of the same bin): pass A's spectrum goes to a 64 x 257 buffer, pass
-// B's stays in registers until l and r are dead (their last rows saved as
-// the carries) and then overwrites them. The floor's order: each warp sums
-// its rows' VAD bins (shuffles), one thread runs the 64-row one-pole scan
-// from the carry, and only then is any bin scaled. W_inv reads the two
-// spectrum halves in their natural row order (ALayout::kSpectrum). Shared
-// memory of the SSB and AM spectral routes: 211,500 B with the blanker. The
+// rows, and each warp runs its 8 rows' frames through an in-warp 256-point
+// FFT (namespace fft below: 8 points a lane, radix 8 x 8 x 4, two exchanges
+// through shared memory, the bins left in digit-reversed order, which the
+// inverse takes as they are). The floor's order: each warp sums its rows'
+// VAD bins (their natural indices read through the digit reversal), one
+// thread runs the 64-row one-pole scan from the carry, and only then is any
+// bin scaled; the forward FFT runs a second time for the scale and the
+// inverse, since keeping 64 spectra would take 128 KB, which the SAM routes'
+// two slots leave no room for. The FFT's exchange buffers lie in the
+// operator tiles, which no product uses meanwhile. Shared memory of the SSB
+// and AM spectral routes: 147,756 B with the blanker. The
 // AGC, the blanker's average and the DC blocker are scans over
 // the chunk, run as 256 segments of 32 samples: each thread scans its
 // segment from zero, warp 0 scans the segment ends (a decaying max for the
@@ -141,25 +148,217 @@ enum class Nr { kNone, kDenoise, kNotch, kSpectral };
 constexpr double kDcPole = 0.995;        // the AM DC blocker's pole (ops/iir.DC_POLE)
 constexpr float kDenoiseMakeup = 1.1f;   // RDSP_convolutional.h:334
 
-constexpr int kSpecFloats = kRows * kLdSpec;  // one spectrum half: 64 rows x (128 sr | 128 si)
 constexpr int kVadStart = 30, kVadEnd = 180;  // the VAD band, bins inclusive
 constexpr float kFloorBeta = 0.65f;
 constexpr float kFloorA = (float)(1.0 - 0.65);
 constexpr float kUnderFloorGain = 0.2f;
 
-static_assert(kSpecFloats <= 2 * kRowBuf, "pass B's spectrum fits the two mixed-row buffers");
-
 __host__ __device__ constexpr bool is_lms(Nr nr) { return nr == Nr::kDenoise || nr == Nr::kNotch; }
+
+// The spectral stage's 256-point complex FFT, one warp a frame, 8 points a
+// lane in registers: radix 8 x 8 x 4 by decimation in frequency, twiddles
+// between the stages, two exchanges through the warp's buffer in shared
+// memory. Stage 1, lane l: z[l + 32m] over m -> k1, times W^(l k1) (W =
+// exp(-2 pi i / 256)). Stage 2, lane 4 k1 + l1: over l2 (l = l1 + 4 l2) ->
+// k2a, times W^(8 l1 k2a). Stage 3, lane 4 k1 + g: over l1 -> k2b for k2a =
+// 2g and 2g + 1. Lane q's register j then holds bin k1 + 8 k2a + 64 k2b =
+// bin_of(8q + j): the bins in digit-reversed order, position 32 k1 + 4 k2a +
+// k2b (spectral_sub.fft256_model is this FFT in PyTorch). The inverse runs the
+// stages backwards on the conjugate twiddles from that order, so no pass
+// reorders the bins, and ends with lane l holding y[l + 32m], m = 4..7 the
+// outputs kept. The twiddles W^j, j = 0..255, come from ChainArgs' fft_tw
+// (float64 on the host, rounded to float32) through a table in shared memory.
+namespace fft {
+
+constexpr int kXLd = 36;                   // exchange stride: no bank conflict either way
+constexpr int kXHalf = 7 * kXLd + 32;      // one part (re or im) of the buffer
+constexpr int kXFloats = 2 * kXHalf;       // a warp's exchange buffer
+constexpr float kSqrtHalf = 0.70710678118654752f;   // W^32's parts, +-
+
+static_assert(8 * kXFloats <= kBsFloats, "the exchange buffers fit the operator tiles");
+
+// the natural bin of digit-reversed position p = 32 k1 + 4 k2a + k2b
+__device__ __forceinline__ int bin_of(int p) { return (p >> 5) + 8 * ((p >> 2) & 7) + 64 * (p & 3); }
+
+// a lane's twiddles: stage 1's W^(lane k1) and stage 2's W^(8 (lane & 3) k2a),
+// index 1..7 (0 is 1); the inverse takes their conjugates at the same lanes
+struct Twiddles {
+  float r1[8], i1[8], r2[8], i2[8];
+};
+
+__device__ __forceinline__ Twiddles twiddles(const float* tw, int lane) {
+  Twiddles t;
+#pragma unroll
+  for (int k = 1; k < 8; ++k) {
+    t.r1[k] = tw[lane * k];
+    t.i1[k] = tw[256 + lane * k];
+    t.r2[k] = tw[8 * (lane & 3) * k];
+    t.i2[k] = tw[256 + 8 * (lane & 3) * k];
+  }
+  return t;
+}
+
+// (re + i im) times (wr + i wi), or times its conjugate with kInv
+template <bool kInv>
+__device__ __forceinline__ void cmul(float& re, float& im, float wr, float wi) {
+  if (kInv) wi = -wi;
+  const float r = re * wr - im * wi;
+  im = re * wi + im * wr;
+  re = r;
+}
+
+// x[k] = sum_m x[m] W8^(+-mk) in place, natural order in and out: radix 2 by
+// decimation in frequency, the bit reversal a renaming
+template <bool kInv>
+__device__ __forceinline__ void dft8(float (&xr)[8], float (&xi)[8]) {
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    const float ar = xr[m], ai = xi[m], br = xr[m + 4], bi = xi[m + 4];
+    xr[m] = ar + br;
+    xi[m] = ai + bi;
+    const float dr = ar - br, di = ai - bi;
+    if (m == 0) {
+      xr[4] = dr;
+      xi[4] = di;
+    } else if (m == 1) {   // W8^(+-1) = sqrt(1/2) (1 -+ i)
+      xr[5] = kSqrtHalf * (kInv ? dr - di : dr + di);
+      xi[5] = kSqrtHalf * (kInv ? dr + di : di - dr);
+    } else if (m == 2) {   // W8^(+-2) = -+i
+      xr[6] = kInv ? -di : di;
+      xi[6] = kInv ? dr : -dr;
+    } else {               // W8^(+-3) = sqrt(1/2) (-1 -+ i)
+      xr[7] = kSqrtHalf * (kInv ? -(dr + di) : di - dr);
+      xi[7] = kSqrtHalf * (kInv ? dr - di : -(dr + di));
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 8; h += 4)
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+      const float ar = xr[h + m], ai = xi[h + m], br = xr[h + m + 2], bi = xi[h + m + 2];
+      xr[h + m] = ar + br;
+      xi[h + m] = ai + bi;
+      const float dr = ar - br, di = ai - bi;
+      xr[h + m + 2] = m == 0 ? dr : (kInv ? -di : di);
+      xi[h + m + 2] = m == 0 ? di : (kInv ? dr : -dr);
+    }
+#pragma unroll
+  for (int p = 0; p < 8; p += 2) {
+    const float ar = xr[p], ai = xi[p], br = xr[p + 1], bi = xi[p + 1];
+    xr[p] = ar + br;
+    xi[p] = ai + bi;
+    xr[p + 1] = ar - br;
+    xi[p + 1] = ai - bi;
+  }
+  float t = xr[1]; xr[1] = xr[4]; xr[4] = t;
+  t = xi[1]; xi[1] = xi[4]; xi[4] = t;
+  t = xr[3]; xr[3] = xr[6]; xr[6] = t;
+  t = xi[3]; xi[3] = xi[6]; xi[6] = t;
+}
+
+// the 4-point DFT of x[o], x[o+1], x[o+2], x[o+3] in place, W4 = -+i
+template <bool kInv>
+__device__ __forceinline__ void dft4(float (&xr)[8], float (&xi)[8], int o) {
+  const float t0r = xr[o] + xr[o + 2], t0i = xi[o] + xi[o + 2];
+  const float t1r = xr[o] - xr[o + 2], t1i = xi[o] - xi[o + 2];
+  const float t2r = xr[o + 1] + xr[o + 3], t2i = xi[o + 1] + xi[o + 3];
+  const float dr = xr[o + 1] - xr[o + 3], di = xi[o + 1] - xi[o + 3];
+  const float t3r = kInv ? -di : di, t3i = kInv ? dr : -dr;
+  xr[o] = t0r + t2r;
+  xi[o] = t0i + t2i;
+  xr[o + 2] = t0r - t2r;
+  xi[o + 2] = t0i - t2i;
+  xr[o + 1] = t1r + t3r;
+  xi[o + 1] = t1i + t3i;
+  xr[o + 3] = t1r - t3r;
+  xi[o + 3] = t1i - t3i;
+}
+
+// The exchanges, through the warp's buffer xb ([re | im], kXHalf each):
+// register k of a lane at its base + off<kO>(k). Stage 1 <-> 2: lane l's
+// value k1 at k1 kXLd + l, lane 4 k1 + l1's value l2 at k1 kXLd + l1 + 4 l2.
+// Stage 2 <-> 3: lane 4 k1 + l1's value k2a at k1 + 8 l1 + kXLd k2a, lane
+// 4 k1 + g's value 4h + l1 at the same place for k2a = 2g + h.
+enum Off { kRows, kQuads, kPairs };
+template <Off kO>
+__device__ __forceinline__ int off(int k) {
+  return kO == kRows ? k * kXLd : kO == kQuads ? 4 * k : kXLd * (k >> 2) + 8 * (k & 3);
+}
+struct Bases {   // a lane's bases: b1 (stage 1) <-> b2 (stage 2), b3 (stage 2) <-> b4 (stage 3)
+  int b1, b2, b3, b4;
+  __device__ __forceinline__ explicit Bases(int lane)
+      : b1(lane), b2((lane >> 2) * kXLd + (lane & 3)), b3((lane >> 2) + 8 * (lane & 3)),
+        b4((lane >> 2) + 2 * kXLd * (lane & 3)) {}
+};
+template <Off kO>
+__device__ __forceinline__ void put(float* xb, int base, const float (&xr)[8],
+                                    const float (&xi)[8]) {
+  __syncwarp();
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    xb[base + off<kO>(k)] = xr[k];
+    xb[kXHalf + base + off<kO>(k)] = xi[k];
+  }
+  __syncwarp();
+}
+template <Off kO>
+__device__ __forceinline__ void get(const float* xb, int base, float (&xr)[8], float (&xi)[8]) {
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    xr[k] = xb[base + off<kO>(k)];
+    xi[k] = xb[kXHalf + base + off<kO>(k)];
+  }
+}
+
+// z (lane l: z[l + 32m] in register m) -> its spectrum, register j of lane q
+// holding bin bin_of(8q + j)
+__device__ __forceinline__ void forward(const Twiddles& t, float* xb, int lane, float (&xr)[8],
+                                        float (&xi)[8]) {
+  const Bases b(lane);
+  dft8<false>(xr, xi);
+#pragma unroll
+  for (int k = 1; k < 8; ++k) cmul<false>(xr[k], xi[k], t.r1[k], t.i1[k]);
+  put<kRows>(xb, b.b1, xr, xi);
+  get<kQuads>(xb, b.b2, xr, xi);
+  dft8<false>(xr, xi);
+#pragma unroll
+  for (int k = 1; k < 8; ++k) cmul<false>(xr[k], xi[k], t.r2[k], t.i2[k]);
+  put<kRows>(xb, b.b3, xr, xi);
+  get<kPairs>(xb, b.b4, xr, xi);
+  dft4<false>(xr, xi, 0);
+  dft4<false>(xr, xi, 4);
+}
+
+// the spectrum as forward leaves it -> 256 y (unscaled), lane l holding
+// y[l + 32m] in register m
+__device__ __forceinline__ void inverse(const Twiddles& t, float* xb, int lane, float (&xr)[8],
+                                        float (&xi)[8]) {
+  const Bases b(lane);
+  dft4<true>(xr, xi, 0);
+  dft4<true>(xr, xi, 4);
+  put<kPairs>(xb, b.b4, xr, xi);
+  get<kRows>(xb, b.b3, xr, xi);
+#pragma unroll
+  for (int k = 1; k < 8; ++k) cmul<true>(xr[k], xi[k], t.r2[k], t.i2[k]);
+  dft8<true>(xr, xi);
+  put<kQuads>(xb, b.b2, xr, xi);
+  get<kRows>(xb, b.b1, xr, xi);
+#pragma unroll
+  for (int k = 1; k < 8; ++k) cmul<true>(xr[k], xi[k], t.r1[k], t.i1[k]);
+  dft8<true>(xr, xi);
+}
+
+}  // namespace fft
 
 // As, Bs, three row buffers, scan segment ends, 8 carries; the blanker adds
 // the keep mask of the last row, the LMS its scratch (16-byte aligned: up to
-// 3 floats of padding before it), the spectral stage pass A's spectrum, the
-// per-row floor sums and floors, the mixed carry row and the l/r carry rows
+// 3 floats of padding before it), the spectral stage the per-row floor sums
+// and floors, the mixed carry row, the l/r carry rows and the twiddle table
 template <bool kNB, Nr kNR>
 constexpr int smem_floats() {
   return kAsFloats + kBsFloats + 3 * kRowBuf + kThreads + 8 + (kNB ? kBlk : 0) +
          (is_lms(kNR) ? lms::kScratchFloats + 3 : 0) +
-         (kNR == Nr::kSpectral ? kSpecFloats + 2 * kRows + 4 * kBlk : 0);
+         (kNR == Nr::kSpectral ? 2 * kRows + 4 * kBlk + 512 : 0);
 }
 
 __device__ __forceinline__ float magnitude(float sr, float si) {
@@ -388,20 +587,20 @@ __device__ __forceinline__ void agc_rows(const ChainArgs& a, const ChunkConsts& 
 
 // 4s-9s. The spectral stage after PBT, on a barrier policy: l and r (lr,
 // the PBT product) into rows 1..kRows of X and Y, whose row 0 takes the l/r
-// carry rows st; W_fwd pass A into Sa with each row's VAD sum, pass B in
-// registers until l and r are dead (st takes their last rows), then over X
-// and Y (Sb = X, 64 rows of kLdSpec); the floor across the chunk's rows from
-// its carry env_c[4] before any bin is scaled; W_inv; the output rows. Pass B
-// and W_inv stream the operator in K tiles of kTK rows, so that with kTK =
-// kKT / 2 Sa may lie over the upper half of Bs (sam_chain_kernel). Ends with
-// Sync::sync() (W_inv's).
-template <class Sync, int kTK>
+// carry rows st (st then takes their last rows); each warp runs its rows'
+// frames x + i y through the FFT for their VAD sums; the floor across the
+// chunk's rows from its carry env_c[4] before any bin is scaled; then each
+// warp runs its frames through the FFT again, scales every bin, runs the
+// inverse and stores the right halves, times 1/256 and the output gain,
+// straight to device memory. tw is the twiddle table, xbuf the warps'
+// exchange buffers (the operator tiles, which no product uses meanwhile).
+// Ends with Sync::sync(), so the caller may overwrite X and Y.
+template <class Sync>
 __device__ __forceinline__ void spectral_rows(const ChainArgs& a, const float (&lr)[8][8],
-                                              float* X, float* Y, float* Sa, float* fsum,
-                                              float* nfr, float* st, float* env_c, float* As,
-                                              float* Bs, size_t base, int row0, int rows) {
+                                              float* X, float* Y, const float* tw, float* xbuf,
+                                              float* fsum, float* nfr, float* st, float* env_c,
+                                              size_t base, int row0, int rows) {
   const int tid = Sync::tid(), warp = tid >> 5, lane = tid & 31;
-  float* Sb = X;
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
@@ -414,44 +613,37 @@ __device__ __forceinline__ void spectral_rows(const ChainArgs& a, const float (&
     Y[tid] = st[kBlk + tid];
   }
   Sync::sync();
-
-  // 5s. W_fwd pass A: bins 0..127 -> Sa, and each row's VAD sum over them
-  {
-    float acc[8][8];
-    chunk_gemm<256, ALayout::kFrames, kRows, Sync>(X, Y, a.w_fwd, 512, As, Bs, acc);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      float part = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int bin = lane * 4 + j;
-        float* p = Sa + (warp * 8 + i) * kLdSpec + bin;
-        p[0] = acc[i][j];
-        p[kBlk] = acc[i][4 + j];
-        if (bin >= kVadStart) part += magnitude(acc[i][j], acc[i][4 + j]);
-      }
-      part = warp_sum(part);
-      if (lane == 0) fsum[warp * 8 + i] = part;
-    }
-  }
-
-  // 6s. W_fwd pass B: bins 128..255 stay in registers until l and r are
-  // dead; their last rows are the next chunk's l/r carries
-  float acc_b[8][8];
-  chunk_gemm<256, ALayout::kFrames, kRows, Sync, kTK>(X, Y, a.w_fwd + 512 * 256, 512, As, Bs,
-                                                      acc_b);
   if (tid < kBlk) {
     st[tid] = X[rows * kLd + tid];
     st[kBlk + tid] = Y[rows * kLd + tid];
   }
+  const fft::Twiddles t = fft::twiddles(tw, lane);
+  float* xb = xbuf + warp * fft::kXFloats;
+  // frame r (buffer rows r and r + 1) into lane's registers: z[lane + 32m]
+  auto frame = [&](int r, float (&zr)[8], float (&zi)[8]) {
 #pragma unroll
+    for (int m = 0; m < 8; ++m) {
+      const int o = (r + (m >> 2)) * kLd + lane + 32 * (m & 3);
+      zr[m] = X[o];
+      zi[m] = Y[o];
+    }
+  };
+
+  // 5s. each row's VAD sum
   for (int i = 0; i < 8; ++i) {
+    const int r = warp * 8 + i;
+    if (r >= rows) break;
+    float zr[8], zi[8];
+    frame(r, zr, zi);
+    fft::forward(t, xb, lane, zr, zi);
     float part = 0.f;
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      if (kBlk + lane * 4 + j <= kVadEnd) part += magnitude(acc_b[i][j], acc_b[i][4 + j]);
+    for (int j = 0; j < 8; ++j) {
+      const int bin = fft::bin_of(8 * lane + j);
+      if (bin >= kVadStart && bin <= kVadEnd) part += magnitude(zr[j], zi[j]);
+    }
     part = warp_sum(part);
-    if (lane == 0) fsum[warp * 8 + i] += part;
+    if (lane == 0) fsum[r] = part;
   }
   Sync::sync();
 
@@ -466,31 +658,31 @@ __device__ __forceinline__ void spectral_rows(const ChainArgs& a, const float (&
   }
   Sync::sync();
 
-  // 8s. scale every bin: pass B from registers into Sb (over the dead l
-  // and r), pass A in place in Sa
-#pragma unroll
+  // 8s-9s. the spectrum again, every bin scaled, the inverse, the right
+  // halves [yl | yr] times 1/256 (exact) and the output gain
+  const float gain = a.out_gain * (1.f / 256.f);
   for (int i = 0; i < 8; ++i) {
     const int r = warp * 8 + i;
+    if (r >= rows) break;
+    float zr[8], zi[8];
+    frame(r, zr, zi);
+    fft::forward(t, xb, lane, zr, zi);
     const float nf = nfr[r];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int bin = lane * 4 + j;
-      float g = subtract_scale(magnitude(acc_b[i][j], acc_b[i][4 + j]), nf);
-      Sb[r * kLdSpec + bin] = acc_b[i][j] * g;
-      Sb[r * kLdSpec + kBlk + bin] = acc_b[i][4 + j] * g;
-      float* p = Sa + r * kLdSpec + bin;
-      const float sr = p[0], si = p[kBlk];
-      g = subtract_scale(magnitude(sr, si), nf);
-      p[0] = sr * g;
-      p[kBlk] = si * g;
+    for (int j = 0; j < 8; ++j) {
+      const float g = subtract_scale(magnitude(zr[j], zi[j]), nf);
+      zr[j] *= g;
+      zi[j] *= g;
+    }
+    fft::inverse(t, xb, lane, zr, zi);
+    const size_t o = base + (size_t)(row0 + r) * kBlk + lane;
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      a.out_l[o + 32 * m] = zr[4 + m] * gain;
+      a.out_r[o + 32 * m] = zi[4 + m] * gain;
     }
   }
   Sync::sync();
-
-  // 9s. W_inv -> [yl | yr] right halves, output gain, straight to device memory
-  float acc[8][8];
-  chunk_gemm<256, ALayout::kSpectrum, kRows, Sync, kTK>(Sa, Sb, a.w_inv, 512, As, Bs, acc);
-  store_rows<256, 2, Sync>(acc, a.out_l, a.out_r, base, row0, rows, a.out_gain);
 }
 
 template <Demod kDemod, bool kNB, Nr kNR, bool kEmitR>
@@ -514,11 +706,11 @@ __global__ void __launch_bounds__(kThreads, 1) sweep_chain_kernel(const ChainArg
   // LMS: the scratch of lms_step.cuh (its ring of inputs), 16-byte aligned
   lms::Scratch& ls = *reinterpret_cast<lms::Scratch*>(
       smem + ((tail - smem + 3) & ~3));
-  float* Sa = tail;                               // spectral: pass A's spectrum
-  float* fsum = Sa + kSpecFloats;                 // per row: the VAD band's magnitude sum
+  float* fsum = tail;                             // spectral: per row, the VAD band's sum
   float* nfr = fsum + kRows;                      // per row: the floor, clamped at 0
   float* mt = nfr + kRows;                        // the mixed carry row [re | im]
   float* st = mt + 2 * kBlk;                      // the l/r carry rows [l | r]
+  float* tw = st + 2 * kBlk;                      // the FFT's twiddle table [re | im]
   float* carry_r = kSpec ? mt : Mr;               // where the mixed rows' last row waits
   float* carry_i = kSpec ? mt + kBlk : Mi;
 
@@ -541,6 +733,9 @@ __global__ void __launch_bounds__(kThreads, 1) sweep_chain_kernel(const ChainArg
       st[tid] = a.stl0[t];
       st[kBlk + tid] = a.str0[t];
     }
+  }
+  if constexpr (kSpec) {
+    for (int e = tid; e < 512; e += kThreads) tw[e] = a.fft_tw[e];
   }
   // LMS: warps 0 and 1 run the channel's LMS, the weights and the lag
   // products in their registers across chunks
@@ -641,11 +836,9 @@ __global__ void __launch_bounds__(kThreads, 1) sweep_chain_kernel(const ChainArg
       }
       __syncthreads();   // the next chunk's mix overwrites the rows just read
     } else {
-      // 4s-9s. spectral: l into Mr, r into Mi, pass B's spectrum over them
-      spectral_rows<BlockSync, kKT>(a, lr, Mr, Mi, Sa, fsum, nfr, st, env_c, As, Bs, base,
-                                    row0, rows);
-      // the mixed carry back into row 0, over pass B's spectrum (W_inv has
-      // read it: chunk_gemm ends at a barrier)
+      // 4s-9s. spectral: l into Mr, r into Mi
+      spectral_rows<BlockSync>(a, lr, Mr, Mi, tw, Bs, fsum, nfr, st, env_c, base, row0, rows);
+      // the mixed carry back into row 0 (the stage ends at a barrier)
       if (tid < kBlk) {
         Mr[tid] = mt[tid];
         Mi[tid] = mt[kBlk + tid];
@@ -691,22 +884,17 @@ __global__ void __launch_bounds__(kThreads, 1) sweep_chain_kernel(const ChainArg
 // scheduler; the others ChainSync's.
 template <Nr kNR>
 using SamSync = std::conditional_t<kNR == Nr::kSpectral, SoloSync, ChainSync>;
-//
-// The spectral stage's pass A spectrum (kSpecFloats) lies over the upper half
-// of Bs and the kSpecExtra floats after it, so its pass B and W_inv stream
-// their operators in K tiles of kKT / 2 rows through the lower half.
-constexpr int kSpecExtra = kSpecFloats - kBsFloats / 2;
 
 // As, Bs, two slots of [I rows | Q rows], scan segment ends, 8 carries, the
 // mixed carry row [re | im] and the audio carry row; the blanker adds the
 // keep mask of the last row, the LMS its scratch (16-byte aligned), the
-// spectral stage the rest of pass A's spectrum, the per-row floor sums and
-// floors and the l/r carry rows
+// spectral stage the per-row floor sums and floors, the l/r carry rows and
+// the twiddle table
 template <bool kNB, Nr kNR>
 constexpr int sam_smem_floats() {
   return kAsFloats + kBsFloats + 4 * kRowBuf + kThreads + 8 + 3 * kBlk + (kNB ? kBlk : 0) +
          (is_lms(kNR) ? lms::kScratchFloats + 3 : 0) +
-         (kNR == Nr::kSpectral ? kSpecExtra + 2 * kRows + 2 * kBlk : 0);
+         (kNR == Nr::kSpectral ? 2 * kRows + 2 * kBlk + 512 : 0);
 }
 
 template <bool kNB, Nr kNR>
@@ -717,9 +905,7 @@ __global__ void __launch_bounds__(SamSync<kNR>::kBlock, 1) sam_chain_kernel(cons
   extern __shared__ __align__(16) float smem[];
   float* As = smem;
   float* Bs = As + kAsFloats;
-  float* Sa = Bs + kBsFloats / 2;   // spectral: pass A's spectrum
-  float* slots = Bs + kBsFloats + (kSpec ? kSpecExtra : 0);  // chunk k in slot k & 1: I rows,
-                                                              // then Q rows
+  float* slots = Bs + kBsFloats;   // chunk k in slot k & 1: I rows, then Q rows
   float* seg = slots + 4 * kRowBuf;
   float* env_c = seg + kThreads;  // [0] AGC envelope, [1] blanker average,
                                   // [2] [3] DC blocker: last input, last output,
@@ -732,6 +918,7 @@ __global__ void __launch_bounds__(SamSync<kNR>::kBlock, 1) sam_chain_kernel(cons
   float* fsum = tail;             // spectral: per row, the VAD band's magnitude sum
   float* nfr = fsum + kRows;      // per row: the floor, clamped at 0
   float* st = nfr + kRows;        // the l/r carry rows [l | r]
+  float* tw = st + 2 * kBlk;      // the FFT's twiddle table [re | im]
 
   const int c = blockIdx.x, tid = Sync::tid(), warp = tid >> 5, lane = tid & 31;
   const int n = a.n;
@@ -753,6 +940,10 @@ __global__ void __launch_bounds__(SamSync<kNR>::kBlock, 1) sam_chain_kernel(cons
       st[tid] = a.stl0[t];
       st[kBlk + tid] = a.str0[t];
     }
+  }
+  if constexpr (kSpec) {
+    if (tid < kThreads)
+      for (int e = tid; e < 512; e += kThreads) tw[e] = a.fft_tw[e];
   }
   // the PLL thread's state in registers across chunks
   Pll pll{};
@@ -791,7 +982,7 @@ __global__ void __launch_bounds__(SamSync<kNR>::kBlock, 1) sam_chain_kernel(cons
     }
     mix_rows<kNB, Sync>(a, cc, Sr, Si, keep_row, seg, env_c, base, row0, rows);
     float acc[8][8];
-    chunk_gemm<256, ALayout::kFrames, kRows, Sync>(Sr, Si, a.w_band, 512, As, Bs, acc);
+    chunk_gemm<256, kRows, Sync>(Sr, Si, a.w_band, 512, As, Bs, acc);
     if (tid < kBlk) {
       mc[tid] = Sr[rows * kLd + tid];
       mc[kBlk + tid] = Si[rows * kLd + tid];
@@ -832,7 +1023,7 @@ __global__ void __launch_bounds__(SamSync<kNR>::kBlock, 1) sam_chain_kernel(cons
     }
     agc_rows<Sync>(a, cc, Sr, rows, seg, env_c);
     float lr[8][8];
-    chunk_gemm<256, ALayout::kFrames, kRows, Sync>(Sr, Sr, a.w_pbt, 256, As, Bs, lr);
+    chunk_gemm<256, kRows, Sync>(Sr, Sr, a.w_pbt, 256, As, Bs, lr);
     if (tid < kBlk) ac[tid] = Sr[rows * kLd + tid];
     if constexpr (kNR == Nr::kDenoise) {
       // L over the dead zi; warps 0-2 replace it by the LMS prediction
@@ -852,11 +1043,9 @@ __global__ void __launch_bounds__(SamSync<kNR>::kBlock, 1) sam_chain_kernel(cons
             Si[(r + 1) * kLd + j] * kDenoiseMakeup * a.out_gain;
       }
     } else if constexpr (kSpec) {
-      // l over vr, r over the dead zi, pass B's spectrum over both, once the
-      // audio carry row has been read
+      // l over vr, r over the dead zi, once the audio carry row has been read
       Sync::sync();
-      spectral_rows<Sync, kKT / 2>(a, lr, Sr, Si, Sa, fsum, nfr, st, env_c, As, Bs, base,
-                                        row0, rows);
+      spectral_rows<Sync>(a, lr, Sr, Si, tw, Bs, fsum, nfr, st, env_c, base, row0, rows);
     } else {
       store_rows<256, 2, Sync>(lr, a.out_l, a.out_r, base, row0, rows, a.out_gain);
     }

@@ -11,7 +11,13 @@
 // sweep_lanes_chain :748) with nr="spectral" (:482-513, 643-644), the other
 // five. K4's spectral stage moved into sweep_chain.cuh, so the two TPU kernels
 // are one template here: the spectral stage after the chain's PBT, whatever
-// the demod and the blanker before it.
+// the demod and the blanker before it. The TPU kernels run that stage's
+// discrete Fourier transform as two dense products (W_fwd 512 x 512, W_inv
+// 512 x 256: 6,144 flops a sample, the shape a matrix unit wants); here it is
+// a 256-point FFT inside the block (spectral_rows and namespace fft in
+// sweep_chain.cuh, about 200 flops a sample), which computes the same
+// function because the wrapper (ops/sweep.check_spectral_ops) admits only
+// the DFT operators.
 
 #include "sweep_chain.cuh"
 

@@ -44,7 +44,10 @@ kernels' launches. ``launch_chain`` launches every source of the chain
 ``ops/sam_wide.py``) through one C entry that takes a ``ChainArgs``
 (``csrc/chain_args.cuh``). The chain wrappers do not take the JAX wrappers'
 TPU tiling knobs (``block_c``, ``chunk_t``, ``interpret``): they have no
-meaning here.
+meaning here. The spectral stage takes the dense DFT operators
+(``SpecArgs.w_fwd``, ``w_inv``), which the plain version multiplies by; the
+kernels run a 256-point FFT instead, the same function only for those
+operators, so ``launch_chain`` admits no others (``check_spectral_ops``).
 
 ``sweep_mix_filter_demod`` (:147, kernel ``_sweep_kernel`` :59) is the
 front of the chain alone from a stream start: mix, band-pass and SSB demod,
@@ -59,6 +62,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import weakref
 from typing import NamedTuple
 
 import numpy as np
@@ -83,7 +87,9 @@ from radiodsp_sdr_rx_tpu_torch.ops.spectral_sub import (
     UNDER_FLOOR_GAIN,
     VAD_END_BIN,
     VAD_START_BIN,
+    fft_twiddles,
     floor_track,
+    spectral_matmul_ops,
 )
 from radiodsp_sdr_rx_tpu_torch.utils import build
 
@@ -415,6 +421,40 @@ def sweep_am_chain_plain(xr, xi, inc, phase0, w_sb, w_pbt, tail_r, tail_i,
                        nb_thresh_db, nb_tau, nb_avg0, nb_mask0, dc0)
 
 
+_CONSTS: dict = {}         # device -> its copies of the spectral stage's constants
+_SPEC_CHECKED: dict = {}   # (data_ptr, _version) -> weakref of an operator found equal
+
+
+def _device_consts(device) -> dict:
+    """The dense DFT operators and the FFT twiddle table on ``device``, made
+    once."""
+    key = str(device)
+    if key not in _CONSTS:
+        w_fwd, w_inv = spectral_matmul_ops(256)
+        _CONSTS[key] = {k: torch.as_tensor(v, device=device) for k, v in (
+            ("w_spec_fwd", w_fwd), ("w_spec_inv", w_inv), ("fft_tw", fft_twiddles()))}
+    return _CONSTS[key]
+
+
+def check_spectral_ops(w_fwd: torch.Tensor, w_inv: torch.Tensor) -> None:
+    """Raise ValueError unless ``w_fwd`` and ``w_inv`` equal
+    ``spectral_matmul_ops(256)``'s operators: the kernels compute the
+    spectral stage as a 256-point FFT, which is the function of these
+    operands only because they are the DFT. Each tensor is compared once
+    while it stays unchanged (keyed by its data pointer and version)."""
+    for name, w in (("w_spec_fwd", w_fwd), ("w_spec_inv", w_inv)):
+        key = (w.data_ptr(), w._version)
+        seen = _SPEC_CHECKED.get(key)
+        if seen is not None and seen() is w:
+            continue
+        want = _device_consts(w.device)[name]
+        if not torch.equal(w, want):
+            raise ValueError(f"{name} is not spectral_sub.spectral_matmul_ops(256)'s operator: "
+                             "the spectral kernels compute the stage by FFT and take the DFT "
+                             "operators alone")
+        _SPEC_CHECKED[key] = weakref.ref(w)
+
+
 class _ChainArgs(ctypes.Structure):
     """``ChainArgs`` of csrc/chain_args.cuh, field for field."""
 
@@ -423,7 +463,7 @@ class _ChainArgs(ctypes.Structure):
         "env0", "out_l", "out_r", "atail_out", "env_out", "nb_avg0", "nb_mask0",
         "nb_avg_out", "nb_mask_out", "dc0", "dc_out", "pll0", "pll_out", "lms_w0",
         "lms_win0", "lms_delay0", "lms_first", "lms_w_out", "lms_win_out", "lms_delay_out",
-        "w_fwd", "w_inv", "nfl0", "stl0", "str0", "nfl_out", "stl_out", "str_out")] + [
+        "fft_tw", "nfl0", "stl0", "str0", "nfl_out", "stl_out", "str_out")] + [
         ("release", ctypes.c_double), ("nb_a", ctypes.c_double), ("n", ctypes.c_int),
         ("agc_enabled", ctypes.c_int)] + [(name, ctypes.c_float) for name in (
             "target", "max_gain", "out_gain", "g_i", "g_q", "nb_thresh", "mu", "nr_gain",
@@ -471,10 +511,9 @@ def launch_chain(xr, xi, inc, phase0, w, w_pbt, tail_r, tail_i, audio_tail,
     if lms is not None:
         ins.update(lms_w0=lms.weights, lms_win0=lms.window, lms_delay0=lms.delay)
     if spec is not None:
-        # columns [sr 0..255 | si 0..255] -> two (512, 256) passes [sr | si] of
-        # bins 0..127 and of bins 128..255
-        ins.update(w_fwd=spec.w_fwd.view(512, 2, 2, BLOCK).permute(2, 0, 1, 3).contiguous(),
-                   w_inv=spec.w_inv, nfl0=spec.nfloor0, stl0=spec.tail_l, str0=spec.tail_r)
+        check_spectral_ops(spec.w_fwd, spec.w_inv)
+        ins.update(fft_tw=_device_consts(xr.device)["fft_tw"], nfl0=spec.nfloor0,
+                   stl0=spec.tail_l, str0=spec.tail_r)
     check_launch("the sweep chain", ins.values())
     if lms is not None:
         ins.update(lms_first=lms.first.to(torch.uint8).reshape(1))

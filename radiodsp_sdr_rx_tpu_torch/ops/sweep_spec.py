@@ -10,7 +10,11 @@ spectral subtraction of ``ops/spectral_sub.py``:
   mag = sqrt(sr^2 + si^2), floor_est = sum of mag over bins 30..180 *
   level*1.5/150, nf[j] = 0.35 nf[j-1] + 0.65 floor_est[j] across rows and
   segments, scale = 0.2 where mag <= max(nf, 0) else 1 - nf/max(mag, 1e-20),
-  [sr*scale | si*scale] (rows,512) @ W_inv (512,256) -> [L | R], output gain.
+  [sr*scale | si*scale] (rows,512) @ W_inv (512,256) -> [L | R], output gain,
+
+in the plain version; the kernel computes the same two transforms as a
+256-point FFT in the block (``csrc/sweep_chain.cuh``), which is why it takes
+no operators but ``spectral_matmul_ops(256)``'s.
 
 Carries: the RAW input's last block, the PBT tail, the AGC envelope, the
 floor (unclamped) and the last post-PBT blocks of l and r.
@@ -22,7 +26,7 @@ for CPU tensors it runs ``sweep_spec_chain_plain``, the plain PyTorch
 version the tests and ``chip_smoke.py`` hold the kernel to. ``LAUNCHES``
 counts the launches. The JAX wrapper's TPU tiling and precision
 knobs (``block_c``, ``chunk_t``, ``interpret``, ``precision``) have no
-meaning here and are not taken; every product is full fp32.
+meaning here and are not taken; every product and the FFT are full fp32.
 """
 
 from __future__ import annotations
@@ -76,8 +80,8 @@ def sweep_spec_chain(xr, xi, inc, phase0, w_ssb, w_pbt, w_spec_fwd, w_spec_inv,
 
     Returns (audio_l, audio_r, audio_tail', env', nfloor', spec_tail_l',
     spec_tail_r'). CPU tensors run the plain version; CUDA tensors launch the
-    kernel, or raise. The kernel takes W_fwd with its columns regrouped by
-    bin halves, which the launcher makes (one 1 MB copy per call).
+    kernel, or raise (a ValueError too for operators other than
+    ``spectral_matmul_ops(256)``'s: the kernel computes the stage by FFT).
     """
     global LAUNCHES
     args = lanes_args(xr, xi, inc, phase0, w_ssb, w_pbt, w_spec_fwd, w_spec_inv, tail_r, tail_i,

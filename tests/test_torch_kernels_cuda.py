@@ -21,7 +21,10 @@ ATAN2_ULPS of the plain one. The
 NR instantiations of the lanes kernel (ops/lanes.py: LMS denoise and notch,
 spectral NR, after each demod, with and without the blanker) run on the
 same locked scenes, at 2e-4 with an LMS stage and 1e-4 with the spectral
-one. K8
+one; the six spectral routes (K4 and K6's five), whose kernels run the
+stage as an in-block FFT, also frame by frame against the plain chain's
+dense DFT products over two threaded segments with a partial last chunk (a
+frame with a bin near the floor to 1e-4 plus the flips' size). K8
 (``sweep.sweep_mix_filter_demod``, kernel sweep_mix_demod) is held to its
 plain version at 1e-4, to K2a with a zero tail bit for bit, across chunk_t
 bit for bit. The single-channel ``Receiver`` on the card is held to the same
@@ -581,15 +584,25 @@ def _spectral_close(got, ref, args, out_gain):
     assert bool((d <= ATOL + near * (0.2 * out_gain / 256) * nf).all()), float(d.max())
 
 
-# SAM + spectral walks the PLL a chunk ahead too: 67 rows, a last chunk of 3
-@pytest.mark.parametrize("nb", [False, True])
-def test_sam_spectral_pipeline_matches_plain_over_two_segments(cuda_device, nb):
-    """lanes_sam_spectral[_nb] against the plain chain over two threaded
-    segments whose last 64-row chunk holds 3 rows: the audio frame by frame,
-    every carry to ATOL (the PLL phase wrap-aware); one launch a call."""
+# the spectral routes: K4 (SSB without the blanker) and K6's five; SAM +
+# spectral walks the PLL a chunk ahead too. 67 rows: a last chunk of 3
+SPECTRAL_ROUTES = [("sam", False), ("sam", True), ("ssb", False), ("ssb", True), ("am", False),
+                   ("am", True)]
+
+
+@pytest.mark.parametrize("demod, nb", SPECTRAL_ROUTES)
+def test_sam_spectral_pipeline_matches_plain_over_two_segments(cuda_device, demod, nb):
+    """Each spectral route (lanes_sam_spectral[_nb], K4 and K6's SSB/AM
+    ones), whose kernel runs the stage as an in-block FFT, against the plain
+    chain, which multiplies by the dense DFT operators, over two threaded
+    segments whose last 64-row chunk holds 3 rows: the audio frame by frame
+    (_spectral_close), every carry to ATOL (the PLL phase wrap-aware); one
+    launch of the route's kernel a call. Locked scenes, the blanker's
+    impulses far above its threshold, one on each segment's last sample."""
     channels, n = 3, 67 * 128
-    bank = _lanes_bank("sam", "spectral", nb, channels, cuda_device)
-    gen = torch.Generator(device=cuda_device).manual_seed(67 + nb)
+    bank = _lanes_bank(demod, "spectral", nb, channels, cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(
+        67 + nb + {"sam": 0, "ssb": 2, "am": 4}[demod])
     xr, xi = _locked(channels, n, gen, cuda_device)
     if nb:
         for pos in (n // 5, n // 2 + 3, n - 1):
@@ -598,13 +611,25 @@ def test_sam_spectral_pipeline_matches_plain_over_two_segments(cuda_device, nb):
     warm = torch.full((channels,), float(torch.hypot(xr, xi).mean()), device=cuda_device)
     state = bank.init_state()._replace(nb_avg=warm)
     for _ in range(2):
-        args = bank.lanes_args(xr, xi, state)
-        ref = lanes.sweep_lanes_chain_plain(*args)
-        before = dict(lanes.LAUNCHES)
-        got = lanes.sweep_lanes_chain(*args)
-        torch.cuda.synchronize()
-        assert {k: v - before[k] for k, v in lanes.LAUNCHES.items() if v != before[k]} == \
-            {bank.kernel: 1}
+        if bank.route == "spec":
+            spec_args = bank.spec_args(xr, xi, state)
+            args = sweep_spec.lanes_args(*spec_args)
+            ref = lanes.sweep_lanes_chain_plain(*args)
+            before = sweep_spec.LAUNCHES
+            got = sweep_spec.sweep_spec_chain(*spec_args)
+            torch.cuda.synchronize()
+            assert sweep_spec.LAUNCHES == before + 1
+            got = ref._replace(audio_l=got[0], audio_r=got[1], audio_tail=got[2],
+                               agc_env=got[3], nfloor=got[4], spec_tail_l=got[5],
+                               spec_tail_r=got[6])
+        else:
+            args = bank.lanes_args(xr, xi, state)
+            ref = lanes.sweep_lanes_chain_plain(*args)
+            before = dict(lanes.LAUNCHES)
+            got = lanes.sweep_lanes_chain(*args)
+            torch.cuda.synchronize()
+            assert {k: v - before[k] for k, v in lanes.LAUNCHES.items() if v != before[k]} == \
+                {bank.kernel: 1}
         _spectral_close((got.audio_l, got.audio_r), (ref.audio_l, ref.audio_r), args,
                         bank.params.output_gain)
         for name, g, r in zip(lanes.LanesOut._fields, got, ref):
