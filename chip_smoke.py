@@ -17,7 +17,11 @@ banks against the port's reference chain, and times them:
     1 launch/segment;
   - the AM path, ``FusedAMBank`` at bench_full.py's config1 (64 channels, AGC
     off): kernel sweep_chain_am, 1 launch/segment, and with the blanker
-    sweep_chain_am_nb;
+    sweep_chain_am_nb; at 64 channels the launcher runs them as the pair (a
+    cluster of two blocks a channel, csrc/sweep_chain.cuh's am_pair_kernel),
+    held bit for bit to the form forced to one block a channel over the
+    three threaded segments, both forms timed, and at 128 channels (one
+    block a channel, as chosen) timed beside the forced pair;
   - the reference chain, ``ReceiverBank(backend="batched")`` at bench_full.py's
     config3 (CW_NARROW, NR notch) and config7 (USB, DNR2), 128 channels: its
     LMS stage on kernel lms_nr, 1 launch/segment, the other stages plain
@@ -98,6 +102,8 @@ per-kernel JSON record.
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import json
 import re
 import subprocess
@@ -293,8 +299,8 @@ def kernel_of(demod: int, nb: bool, nr: int, stereo: bool) -> str:
 def ptxas_summary(log: str):
     """(kernel, registers, stack and spills) per entry function of a build
     log, the chain kernel's instantiations (demod x blanker x NR stage x R
-    output) and the wide SAM kernel's (channels a block x blanker) by entry
-    point."""
+    output), the AM pair's (blanker) and the wide SAM kernel's (channels a
+    block x blanker) by entry point."""
     out = []
     for block in log.split("Compiling entry function")[1:]:
         mangled = block.split("'")[1]
@@ -302,6 +308,9 @@ def ptxas_summary(log: str):
             demod, nb, nr, stereo = re.search(r"DemodE(\d)ELb(\d)EL\w*?NrE(\d)ELb(\d)E",
                                               mangled).groups()
             kname = kernel_of(int(demod), nb == "1", int(nr), stereo == "1")
+        elif "am_pair_kernel" in mangled:
+            nb = re.search(r"am_pair_kernelILb(\d)E", mangled).group(1)
+            kname = f"sweep_chain_am{'_nb' if nb == '1' else ''} (pair)"
         elif "sam_chain_kernel" in mangled:
             nb, nr = re.search(r"sam_chain_kernelILb(\d)EL\w*?NrE(\d)E", mangled).groups()
             kname = kernel_of(2, nb == "1", int(nr), nr != "1")
@@ -721,6 +730,7 @@ def main() -> None:
         f"{torch.cuda.device_count()} card(s))")
     print(smi, flush=True)
 
+    from radiodsp_sdr_rx_tpu_torch.models import fused
     from radiodsp_sdr_rx_tpu_torch.models.config import (
         AGCMode, DemodMode, NRMode, ReceiverConfig)
     from radiodsp_sdr_rx_tpu_torch.models.fused import (
@@ -763,6 +773,17 @@ def main() -> None:
     def only(**launched) -> dict:
         """The counts of a path that launched these kernels and no other."""
         return {k: launched.get(k, 0) for k in counts()}
+
+    @contextlib.contextmanager
+    def am_form(split):
+        """FusedAMBank's AM kernels forced to ``split`` blocks a channel
+        (None: as the launcher chooses)."""
+        run = fused.sweep_am_chain
+        fused.sweep_am_chain = functools.partial(sweep.sweep_am_chain, _split=split)
+        try:
+            yield
+        finally:
+            fused.sweep_am_chain = run
 
     # 2. the kernel builds, one nvcc per source, all at once
     t = time.perf_counter()
@@ -1065,6 +1086,26 @@ def main() -> None:
         err[kname] = max(err[kname], d)
         ends[kname] = (b, x_r, x_i, s_end)
         del ref, out_1, got
+        # the same three segments on each form: as chosen, and forced to one
+        # block a channel; every output and carry bit for bit
+        clusters = sweep.am_active_clusters(torch.device("cuda"), nb)
+        split = sweep.am_cluster_size(N_AM, clusters)
+        check(split == 2, f"{kname}: {N_AM} channels should run as the pair, the launcher "
+              f"chose {split} block(s) a channel ({clusters} clusters on the card)")
+        states, same = dict.fromkeys((None, 1), st0), True
+        for seg in range(SEGMENTS):
+            outs = {}
+            for form in states:
+                with am_form(form):
+                    out, states[form] = b.process_planar(x_r, x_i, states[form])
+                outs[form] = (out["audio_l"], out["audio_r"], *states[form])
+            same = same and all(torch.equal(g, r) for g, r in zip(outs[1], outs[None]))
+            del outs, out
+        say(f"check {kname} as the pair ({N_AM} channels, {clusters} clusters of two blocks on "
+            f"the card) against one block a channel over {SEGMENTS} threaded segments: every "
+            f"output and carry bit for bit: {same}")
+        check(same, f"{kname}: the pair and the one-block form differ")
+        del states
 
     # 4e. the reference chain at full width: bench_full.py config3 (CW_NARROW,
     # NR notch, AGC fast) and config7 (USB, DNR2), 128 ch, backend="batched";
@@ -2031,6 +2072,7 @@ def main() -> None:
     bytes_am = (4 * samples_am * 4 + 4 * (512 * 256 + 256 * 256)
                 + N_AM * (2 * 8 + 4 * 128 * 4 + 2 * 4 + 2 * 2 * 4))
     path_ms = {}
+    am_forms = {}   # kernel -> {(channels, form): [ms, ...]}, the forms timed in turns
     for kname in ("sweep_chain_am", "sweep_chain_am_nb"):
         b, x_r, x_i, st = ends[kname]
         nb = kname.endswith("_nb")
@@ -2041,9 +2083,26 @@ def main() -> None:
             ms=time_ms(lambda: sweep.sweep_am_chain(*args), REPS),
             plain_ms=time_ms(lambda: sweep.sweep_am_chain_plain(*args), 3),
             bound_ms=b_ms, bound_by=b_by, library_ms=lib_am_ms, flops=flops,
-            samples=samples_am)
+            samples=samples_am, channels=N_AM)
+        forms = am_forms[kname] = {}
+        for form in (1, None, None, 1):
+            forms.setdefault((N_AM, form), []).append(
+                time_ms(lambda: sweep.sweep_am_chain(*args, _split=form), REPS))
         path_ms[f"AM{' + blanker' if nb else ''}"] = time_ms(
             lambda: b.process_planar(x_r, x_i, st), REPS)
+        # 128 channels (the main path's input): one block a channel as chosen,
+        # timed in turns with the pair forced
+        b128 = FusedAMBank(b.config, [7_050_000.0 + 1_000.0 * k for k in range(N_CHANNELS)])
+        st128 = b128.init_state()
+        if nb:
+            st128 = st128._replace(nb_avg=torch.full((N_CHANNELS,), 0.1, device="cuda"))
+        args = b128.chain_args(xr, xi, st128)
+        check(sweep.am_cluster_size(N_CHANNELS, sweep.am_active_clusters(
+            torch.device("cuda"), nb)) == 1, f"{kname}: 128 channels should run one block each")
+        for form in (None, 2, 2, None):
+            forms.setdefault((N_CHANNELS, form), []).append(
+                time_ms(lambda: sweep.sweep_am_chain(*args, _split=form), REPS))
+        del b128, st128
     del xr_am, xi_am, xr_amnb, xi_amnb, args
 
     # K4 at config4's shape (64 ch x 2^19); the library yardstick is the
@@ -2247,6 +2306,24 @@ def main() -> None:
             f"products: {timing[k]['dense_bound_ms']:.3f} ms), library "
             f"{timing[k]['library_ms']:.3f} ms, ptxas {ptxas.get(k, 'not in the build log')}"
             for k in spec_kernels))
+    am_line = []
+    for kname, forms in am_forms.items():
+        tm = timing[kname]
+        for (c, form), ms in forms.items():
+            split = sweep.am_cluster_size(c, sweep.am_active_clusters(
+                torch.device("cuda"), kname.endswith("_nb")), form)
+            sms = min(split * c, n_sms)
+            b_card = tm["bound_ms"] * c / N_AM   # the bound scales with the channels
+            am_line.append(
+                f"{kname} {c} ch {'as chosen' if form is None else 'forced'}, {split} "
+                f"block(s) a channel on {sms} SMs: " + " / ".join(f"{v:.3f}" for v in ms)
+                + f" ms (bound {b_card:.3f} ms on the card, {b_card * n_sms / sms:.3f} ms on "
+                f"those SMs)")
+    say("AM pair (csrc/sweep_chain.cuh's am_pair_kernel, a cluster of two blocks a channel, "
+        "chunks alternating between the pair, the carries handed over through distributed "
+        "shared memory; the forms timed in turns): " + "; ".join(am_line)
+        + "; ptxas: " + "; ".join(f"{k} {v}" for k, v in ptxas.items() if k.startswith(
+            ("sweep_chain_am", "am_pair"))))
     pll_kernels = ["sam_pll", "sweep_chain_sam", "sweep_chain_sam_nb", "sam_wide",
                    "sam_wide_nb"] + [k for k in lanes.KERNELS if k.startswith("lanes_sam")]
     lat = latency_probe(latency_lib)

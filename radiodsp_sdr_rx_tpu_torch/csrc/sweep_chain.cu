@@ -1,6 +1,7 @@
 // sweep_chain.cu: the receive chain without an NR stage, one channel per
 // thread block: seven instantiations of sweep_chain.cuh's kernel (the chain,
-// what bounds it and its design are described there).
+// what bounds it and its design are described there), and the AM chain's
+// two on a cluster of two blocks per channel (am_pair_kernel).
 //
 // Replaces _chain_kernel (radiodsp_sdr_rx_tpu/ops/pallas_sweep.py:261) in five
 // instantiations, demod x noise blanker x R output, and the SAM stage of
@@ -11,6 +12,8 @@
 //   sweep_chain_am       demod="am"             (wrapper sweep_am_chain :695;
 //                                                :339-341, 357-360, 418-447)
 //   sweep_chain_am_nb    demod="am", nb=true
+//                        (both also as am_pair_kernel: the same chain on a
+//                        cluster of two blocks per channel, launch_am below)
 //   sweep_chain_ssb_mono demod="ssb", emit_r=False (:482-489, 558-561): R is
 //                        neither computed into the output nor stored
 //   sweep_chain_sam      pallas_chain_lanes demod="sam", nr="none" (:413-455,
@@ -30,4 +33,22 @@ extern "C" int launch_chain(const void* args, int demod, int nb, int channels, i
                ? launch<Demod::kSSB, false, Nr::kNone, false>(a, channels, device, stream)
                : (int)cudaErrorInvalidValue;
   return launch_variant<Nr::kNone>(a, demod, nb, channels, device, stream);
+}
+
+// The AM chain (nb != 0: with the blanker) on `split` blocks per channel: 1
+// sweep_chain_kernel, 2 am_pair_kernel on clusters of two blocks;
+// cudaErrorInvalidValue for another split.
+extern "C" int launch_am(const void* args, int nb, int split, int channels, int device,
+                         void* stream) {
+  const ChainArgs& a = *static_cast<const ChainArgs*>(args);
+  if (split == 1) return launch_variant<Nr::kNone>(a, 1, nb, channels, device, stream);
+  if (split != 2) return (int)cudaErrorInvalidValue;
+  return nb ? launch_pair<true>(a, channels, device, stream)
+            : launch_pair<false>(a, channels, device, stream);
+}
+
+// How many two-block clusters of the AM pair kernel device `device` holds at
+// once, or minus the cudaError_t of the query.
+extern "C" int am_pair_clusters(int nb, int device) {
+  return nb ? pair_clusters<true>(device) : pair_clusters<false>(device);
 }

@@ -73,12 +73,41 @@
 // memory sees only the 16 B/sample; the time goes to the products, run as
 // register-blocked fp32 FMA (8 rows x 4 or 8 columns per thread, the frame
 // operand broadcast from shared memory, chain_common.cuh). One block of 256
-// threads owns one channel (128 blocks for 132 SMs; a 64-channel bank keeps
-// only 64 SMs busy) and walks time in chunks of 64 rows of 128 samples,
-// which is what the TPU grid did with its sequential axis. Every carry stays
-// in shared memory or registers from chunk to chunk. In the AM band-pass each
-// thread's 8 columns are j and j+128 for four j, so the same thread holds zr
-// and zi of a sample and writes its envelope straight into the audio rows.
+// threads owns one channel (128 blocks for 132 SMs) and walks time in chunks
+// of 64 rows of 128 samples, which is what the TPU grid did with its
+// sequential axis. Every carry stays in shared memory or registers from
+// chunk to chunk. In the AM band-pass each thread's 8 columns are j and
+// j+128 for four j, so the same thread holds zr and zi of a sample and
+// writes its envelope straight into the audio rows.
+// The AM chain without an NR stage (am, am + blanker) also runs as a pair,
+// am_pair_kernel, when the card holds a cluster of two blocks for every
+// channel at once (a 64-channel bank then fills 128 SMs instead of 64; the
+// launcher, ops/sweep.am_cluster_size, decides from the channel count and
+// cudaOccupancyMaxActiveClusters). The cluster's rank 0 runs chunks 0, 2,
+// 4, ..., rank 1 chunks 1, 3, 5, ..., each with the one-block kernel's
+// per-chunk code (mix_rows, chunk_gemm, dc_rows, agc_rows, store_rows), and
+// every carry from chunk k to k+1 goes to the partner block through a
+// mailbox in the partner's shared memory (st.shared::cluster at a mapa
+// address), each hand-off with an mbarrier there that the sender arrives on
+// (release, cluster scope) and the receiver waits on (acquire), in the
+// order the receiver needs them: (1) the blanker's average, after the
+// blanker's re-run; (2) the chunk's last mixed row, after the mix, which
+// the partner's band-pass takes as row 0; (3) the DC blocker's two carries,
+// after its re-run (only segment 0's local pass waits for the last
+// envelope, warp 0's scan for the last output); (4) the AGC envelope, after
+// its re-run; (5) the last gained audio row, PBT's row 0. The scans wait
+// only where the one-block kernel reads the carry: every local pass from
+// zero runs before it, then warp 0's carry scan, then the re-runs, in the
+// one-block kernel's order, so the pair's outputs and carries are that
+// kernel's bit for bit. A block receives each hand-off of chunk k-1 before
+// it sends the same hand-off of chunk k+1 into the same mailbox, and the
+// partner read chunk k-1's before it sent chunk k's, so one mailbox a
+// hand-off is never overwritten unread. Between chunks only the hand-offs,
+// warp 0's carry scans and the 32-sample re-runs are serial; each block has
+// a chunk's time of its own work to absorb its partner's lag. Rank 0 takes
+// the segment's incoming state, the block that runs the last chunk writes
+// the outgoing one, and both leave through a cluster barrier, so that
+// neither exits while the other may still write to it.
 // SAM runs in sam_chain_kernel, every NR stage included: lane 0 of a ninth
 // warp walks the PLL over chunk k+1 while the chain's eight warps run chunk
 // k's DC blocker, [notch,] AGC, PBT product [and denoise or the spectral
@@ -408,6 +437,17 @@ __device__ __forceinline__ void lms_walk(lms::Predictor& pr, lms::Lags& lg, lms:
 // barrier in sam_chain_kernel (ChainSync, or SoloSync on the spectral
 // routes).
 //
+// The chunk scans' carries (the blanker's average in mix_rows, dc_rows,
+// agc_rows): env_c[i] comes in through take(i), goes out through put(i, v),
+// and post(i) follows the puts of one hand-off. A block that owns its
+// channel keeps them in env_c (Solo); am_pair_kernel's blocks hand them to
+// each other (Pair, below).
+struct Solo {
+  __device__ __forceinline__ float take(const float* env_c, int i) const { return env_c[i]; }
+  __device__ __forceinline__ void put(float* env_c, int i, float v) const { env_c[i] = v; }
+  __device__ __forceinline__ void post(int) const {}
+};
+
 // The per-block constants of the chunk phases: the DDS phase and increment,
 // the AGC's release, the blanker's one-pole factor, the DC blocker's pole,
 // each with its segment and lane decay factors (seg_factors).
@@ -442,11 +482,11 @@ __device__ __forceinline__ ChunkConsts chunk_consts(const ChainArgs& a, int c) {
 // 1. scale [+ blank] + mix rows row0.. of the segment into rows 1..kRows of
 // Mr and Mi (zeros past the end); with the blanker, the keep mask of the
 // segment's last row so far into keep_row and the average's carry in
-// env_c[1]. Ends with Sync::sync().
-template <bool kNB, class Sync>
+// env_c[1] (through `carry`). Ends with Sync::sync().
+template <bool kNB, class Sync, class Carry = Solo>
 __device__ __forceinline__ void mix_rows(const ChainArgs& a, const ChunkConsts& cc, float* Mr,
                                          float* Mi, float* keep_row, float* seg, float* env_c,
-                                         size_t base, int row0, int rows) {
+                                         size_t base, int row0, int rows, Carry carry = {}) {
   const int tid = Sync::tid(), warp = tid >> 5;
   const uint32_t ph0 = cc.ph0, dph = cc.dph;
   const float nb_af = cc.nb_af, nb_om = cc.nb_om, nb_seg = cc.nb_seg;
@@ -477,7 +517,7 @@ __device__ __forceinline__ void mix_rows(const ChainArgs& a, const ChunkConsts& 
         y = nb_af * y + nb_om * sqrtf(pr[k] * pr[k] + pi[k] * pi[k]);
       seg[s] = y;
       Sync::sync();
-      if (warp == 0) scan_segment_carries<true>(seg, env_c[1], nb_seg, cc.nb_lanes);
+      if (warp == 0) scan_segment_carries<true>(seg, carry.take(env_c, 1), nb_seg, cc.nb_lanes);
       Sync::sync();
       y = seg[s];
       for (int k = 0; k < kSegLen; ++k) {
@@ -490,7 +530,10 @@ __device__ __forceinline__ void mix_rows(const ChainArgs& a, const ChunkConsts& 
         }
         if (r + 1 == rows) keep_row[quarter * kSegLen + k] = keep ? 1.f : 0.f;
       }
-      if (s == rows * kSegsPerRow - 1) env_c[1] = y;
+      if (s == rows * kSegsPerRow - 1) {
+        carry.put(env_c, 1, y);
+        carry.post(1);
+      }
     }
     Sync::sync();
 
@@ -523,16 +566,16 @@ __device__ __forceinline__ void mix_rows(const ChainArgs& a, const ChunkConsts& 
 // y = (x - x_prev) + pole*y, the blanker's segmented decaying-sum scan. Each
 // thread reads the input just before its segment before any thread
 // overwrites one. The carries in env_c[2] (last input) and env_c[3] (last
-// output). Ends with Sync::sync().
-template <class Sync>
+// output), through `carry`. Ends with Sync::sync().
+template <class Sync, class Carry = Solo>
 __device__ __forceinline__ void dc_rows(const ChunkConsts& cc, float* Ab, int rows, float* seg,
-                                        float* env_c) {
+                                        float* env_c, Carry carry = {}) {
   const int tid = Sync::tid(), warp = tid >> 5;
   const float dc_pf = cc.dc_pf, dc_seg = cc.dc_seg;
   const int r = tid % kRows, quarter = tid / kRows;
   const int s = r * kSegsPerRow + quarter;
   float* p = Ab + (r + 1) * kLd + quarter * kSegLen;
-  const float prev = quarter ? p[-1] : (r ? Ab[r * kLd + kBlk - 1] : env_c[2]);
+  const float prev = quarter ? p[-1] : (r ? Ab[r * kLd + kBlk - 1] : carry.take(env_c, 2));
   float y = 0.f, q = prev;
   for (int k = 0; k < kSegLen; ++k) {
     const float v = p[k];
@@ -541,7 +584,7 @@ __device__ __forceinline__ void dc_rows(const ChunkConsts& cc, float* Ab, int ro
   }
   seg[s] = y;
   Sync::sync();
-  if (warp == 0) scan_segment_carries<true>(seg, env_c[3], dc_seg, cc.dc_lanes);
+  if (warp == 0) scan_segment_carries<true>(seg, carry.take(env_c, 3), dc_seg, cc.dc_lanes);
   Sync::sync();
   y = seg[s];
   q = prev;
@@ -552,18 +595,20 @@ __device__ __forceinline__ void dc_rows(const ChunkConsts& cc, float* Ab, int ro
     p[k] = y;
   }
   if (s == rows * kSegsPerRow - 1) {
-    env_c[2] = q;
-    env_c[3] = y;
+    carry.put(env_c, 2, q);
+    carry.put(env_c, 3, y);
+    carry.post(2);
   }
   Sync::sync();
 }
 
 // 3. AGC over rows 1..rows of Ab, in place. Segment s = 4*row + quarter;
 // segments past the end come after every valid one, so they never reach a
-// valid carry. The envelope's carry in env_c[0]. Ends with Sync::sync().
-template <class Sync>
+// valid carry. The envelope's carry in env_c[0], through `carry`. Ends with
+// Sync::sync().
+template <class Sync, class Carry = Solo>
 __device__ __forceinline__ void agc_rows(const ChainArgs& a, const ChunkConsts& cc, float* Ab,
-                                         int rows, float* seg, float* env_c) {
+                                         int rows, float* seg, float* env_c, Carry carry = {}) {
   const int tid = Sync::tid(), warp = tid >> 5;
   const float rel = cc.rel, rel_seg = cc.rel_seg;
   const int r = tid % kRows, quarter = tid / kRows;
@@ -573,7 +618,7 @@ __device__ __forceinline__ void agc_rows(const ChainArgs& a, const ChunkConsts& 
   for (int k = 0; k < kSegLen; ++k) e = fmaxf(fabsf(p[k]), e * rel);
   seg[s] = e;
   Sync::sync();
-  if (warp == 0) scan_segment_carries<false>(seg, env_c[0], rel_seg, cc.rel_lanes);
+  if (warp == 0) scan_segment_carries<false>(seg, carry.take(env_c, 0), rel_seg, cc.rel_lanes);
   Sync::sync();
   e = seg[s];
   for (int k = 0; k < kSegLen; ++k) {
@@ -581,7 +626,10 @@ __device__ __forceinline__ void agc_rows(const ChainArgs& a, const ChunkConsts& 
     e = fmaxf(fabsf(v), e * rel);
     if (a.agc_enabled) p[k] = v * fminf(a.target / fmaxf(e, 1e-12f), a.max_gain);
   }
-  if (s == rows * kSegsPerRow - 1) env_c[0] = e;
+  if (s == rows * kSegsPerRow - 1) {
+    carry.put(env_c, 0, e);
+    carry.post(0);
+  }
   Sync::sync();
 }
 
@@ -877,6 +925,237 @@ __global__ void __launch_bounds__(kThreads, 1) sweep_chain_kernel(const ChainArg
   }
 }
 
+// The AM pair (am_pair_kernel): PTX of a two-block cluster's hand-offs.
+// Addresses are 32-bit shared-memory addresses, the partner's in the
+// cluster's window (mapa).
+namespace pair {
+
+// the hand-offs' barriers: 0-2 by the index of the env_c carry they bring
+// (the DC blocker's two on 2), then the mixed row's and the audio row's
+constexpr int kBarDc = 2, kBarRow = 3, kBarAudio = 4, kBars = 5;
+constexpr int kMailFloats = 8 + 3 * kBlk;   // env_c's 8 carries, the mixed row, the audio row
+constexpr int kMailRow = 8, kMailAudio = 8 + 2 * kBlk;
+
+// the barrier that delivers env_c[i]
+__host__ __device__ constexpr int bar_of(int i) { return i < kBarDc ? i : kBarDc; }
+
+__device__ __forceinline__ uint32_t addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ unsigned rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+// the address in block `rank`'s shared memory of what lies at a here
+__device__ __forceinline__ uint32_t peer(uint32_t a, unsigned rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(rank));
+  return r;
+}
+__device__ __forceinline__ void store(uint32_t a, float v) {
+  asm volatile("st.shared::cluster.f32 [%0], %1;" ::"r"(a), "f"(v) : "memory");
+}
+__device__ __forceinline__ void init(uint32_t bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+// one arrival on the partner's barrier, releasing this thread's stores before it
+__device__ __forceinline__ void arrive(uint32_t peer_bar) {
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];" ::"r"(peer_bar)
+               : "memory");
+}
+// until the phase of `parity` of this block's barrier has completed
+__device__ __forceinline__ void wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\n\tbarrier.cluster.wait.acquire;" ::: "memory");
+}
+
+}  // namespace pair
+
+// The carries of chunk k on am_pair_kernel's blocks (the chunk scans'
+// policy, as Solo): take() waits for chunk k-1's value in this block's
+// mailbox (env_c's own at the segment's first chunk), put() keeps the value
+// and stores it into the partner's mailbox, post() arrives on the partner's
+// barrier of that hand-off; nothing goes out after the segment's last chunk.
+struct Pair {
+  const float* mail;       // this block's mailbox
+  uint32_t bars;           // this block's barriers
+  uint32_t peer_mail;      // the partner's mailbox and barriers
+  uint32_t peer_bars;
+  uint32_t parity;         // of the phase that brings chunk k-1's hand-offs
+  bool recv, send;         // chunk k-1 exists, chunk k+1 exists
+
+  __device__ __forceinline__ float take(const float* env_c, int i) const {
+    if (!recv) return env_c[i];
+    pair::wait(bars + 8 * pair::bar_of(i), parity);
+    return mail[i];
+  }
+  __device__ __forceinline__ void put(float* env_c, int i, float v) const {
+    env_c[i] = v;
+    if (send) pair::store(peer_mail + 4 * i, v);
+  }
+  __device__ __forceinline__ void post(int i) const {
+    if (send) pair::arrive(peer_bars + 8 * pair::bar_of(i));
+  }
+};
+
+// As, Bs, three row buffers, scan segment ends, 8 carries, [the blanker's
+// keep mask,] the mailbox and, 8-byte aligned, the hand-offs' barriers
+template <bool kNB>
+constexpr int pair_smem_floats() {
+  return smem_floats<kNB, Nr::kNone>() + pair::kMailFloats + 1 + 2 * pair::kBars;
+}
+
+// K1's AM chain (am, am + blanker) on a cluster of two blocks per channel,
+// one on each SM: rank r runs chunks r, r + 2, r + 4, ... with
+// sweep_chain_kernel's per-chunk code, and every carry from chunk k to k+1
+// goes from one block to the other through a mailbox in the receiver's
+// shared memory, each hand-off with its barrier (the header's description).
+// The outputs and carries are bit for bit sweep_chain_kernel<kAM, kNB>'s.
+template <bool kNB>
+__global__ void __launch_bounds__(kThreads, 1) am_pair_kernel(const ChainArgs a) {
+  extern __shared__ __align__(16) float smem[];
+  float* As = smem;
+  float* Bs = As + kAsFloats;
+  float* Mr = Bs + kBsFloats;  // mixed I rows
+  float* Mi = Mr + kRowBuf;    // mixed Q rows
+  float* Ab = Mi + kRowBuf;    // audio rows, the DC blocker and AGC in place
+  float* seg = Ab + kRowBuf;   // scan segment ends, then carries into segments
+  float* env_c = seg + kThreads;  // [0] AGC envelope, [1] blanker average,
+                                  // [2] [3] DC blocker: last envelope, last output
+  float* keep_row = env_c + 8;    // nb: keep mask of the last row so far
+  float* mail = keep_row + (kNB ? kBlk : 0);   // chunk k-1's hand-offs: env_c's
+                                               // slots, the mixed row [re | im],
+                                               // the audio row
+  const uint32_t bars = pair::addr(smem + ((mail + pair::kMailFloats - smem + 1) & ~1));
+
+  const unsigned rank = pair::rank();
+  const int c = blockIdx.x >> 1, tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int n = a.n;
+  const size_t base = (size_t)c * n;
+  const ChunkConsts cc = chunk_consts<kNB, true>(a, c);
+
+  if (tid == 0) {
+    for (int b = 0; b < pair::kBars; ++b)
+      pair::init(bars + 8 * b, b == pair::kBarRow ? kThreads : b == pair::kBarAudio ? kBlk : 1);
+    pair::fence_init();
+  }
+  // rank 0 runs the segment's first chunk: the carried raw tail, re-scaled
+  // and re-mixed at positions -128..-1, and the carries in
+  if (rank == 0) {
+    if (tid < kBlk) {
+      const size_t t = (size_t)c * kBlk + tid;
+      mix(a.tail_r[t], a.tail_i[t], cc.ph0 + (uint32_t)(tid - kBlk) * cc.dph, a.g_i, a.g_q,
+          Mr[tid], Mi[tid]);
+      if constexpr (kNB) {
+        Mr[tid] *= a.nb_mask0[t];
+        Mi[tid] *= a.nb_mask0[t];
+      }
+      Ab[tid] = a.atail_in[t];
+    }
+    if (tid == 0) {
+      env_c[0] = a.env0[c];
+      if constexpr (kNB) env_c[1] = a.nb_avg0[c];
+      env_c[2] = a.dc0[2 * c];
+      env_c[3] = a.dc0[2 * c + 1];
+    }
+  }
+  pair::cluster_sync();   // both blocks' barriers initialised before any arrival
+  const uint32_t peer_mail = pair::peer(pair::addr(mail), rank ^ 1);
+  const uint32_t peer_bars = pair::peer(bars, rank ^ 1);
+
+  const int nrows = n / kBlk, chunks = (nrows + kRows - 1) / kRows;
+  for (int k = (int)rank; k < chunks; k += 2) {
+    const int row0 = k * kRows, rows = min(kRows, nrows - row0);
+    const Pair ho{mail, bars, peer_mail, peer_bars, ((uint32_t)(k - 1) >> 1) & 1u, k > 0,
+                  k + 1 < chunks};
+
+    // 1. scale [+ blank] + mix into rows 1..kRows (zeros past the end)
+    mix_rows<kNB, BlockSync>(a, cc, Mr, Mi, keep_row, seg, env_c, base, row0, rows, ho);
+    // chunk k-1's last mixed row in as row 0, this chunk's last out: thread
+    // t takes [re | im] element t
+    {
+      float* row = tid < kBlk ? Mr : Mi;
+      const int j = tid & (kBlk - 1);
+      if (ho.recv) {
+        pair::wait(bars + 8 * pair::kBarRow, ho.parity);
+        row[j] = mail[pair::kMailRow + tid];
+      }
+      if (ho.send) {
+        pair::store(peer_mail + 4 * (pair::kMailRow + tid), row[rows * kLd + j]);
+        pair::arrive(peer_bars + 8 * pair::kBarRow);
+      }
+    }
+    __syncthreads();
+
+    // 2. band-pass + envelope: Ab rows 1..kRows; acc[i][j] and acc[i][4+j]
+    // are zr and zi of one sample
+    {
+      float acc[8][8];
+      chunk_gemm<256>(Mr, Mi, a.w_band, 512, As, Bs, acc);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          Ab[(warp * 8 + i + 1) * kLd + lane * 4 + j] =
+              sqrtf(acc[i][j] * acc[i][j] + acc[i][4 + j] * acc[i][4 + j]);
+    }
+    __syncthreads();
+
+    // 2b. the DC blocker in place; 3. AGC in place
+    dc_rows<BlockSync>(cc, Ab, rows, seg, env_c, ho);
+    agc_rows<BlockSync>(a, cc, Ab, rows, seg, env_c, ho);
+
+    // chunk k-1's last audio row in as PBT's row 0, this chunk's out
+    if (tid < kBlk) {
+      if (ho.recv) {
+        pair::wait(bars + 8 * pair::kBarAudio, ho.parity);
+        Ab[tid] = mail[pair::kMailAudio + tid];
+      }
+      if (ho.send) {
+        pair::store(peer_mail + 4 * (pair::kMailAudio + tid), Ab[rows * kLd + tid]);
+        pair::arrive(peer_bars + 8 * pair::kBarAudio);
+      }
+    }
+    __syncthreads();
+
+    // 4. PBT -> [L|R], output gain, straight to device memory
+    float lr[8][8];
+    chunk_gemm<256>(Ab, Ab, a.w_pbt, 256, As, Bs, lr);
+    store_rows<256, 2>(lr, a.out_l, a.out_r, base, row0, rows, a.out_gain);
+  }
+
+  // the block that ran the segment's last chunk writes the carries out
+  if ((chunks - 1) % 2 == (int)rank) {
+    const int rows = nrows - (chunks - 1) * kRows;
+    if (tid < kBlk) {
+      a.atail_out[(size_t)c * kBlk + tid] = Ab[rows * kLd + tid];
+      if constexpr (kNB) a.nb_mask_out[(size_t)c * kBlk + tid] = keep_row[tid];
+    }
+    if (tid == 0) {
+      a.env_out[c] = env_c[0];
+      if constexpr (kNB) a.nb_avg_out[c] = env_c[1];
+      a.dc_out[2 * c] = env_c[2];
+      a.dc_out[2 * c + 1] = env_c[3];
+    }
+  }
+  pair::cluster_sync();   // no block leaves while its partner may still write to it
+}
+
 // The SAM routes: the chain's eight warps and lane 0 of a ninth, which walks
 // the PLL, a chunk apart (chain_common.cuh's walk_ahead; the header's
 // description). The spectral routes, whose chain issues the most on the
@@ -1110,6 +1389,60 @@ int launch(const ChainArgs& a, int channels, int device, void* stream) {
         <<<channels, kThreads, smem, (cudaStream_t)stream>>>(a);
   }
   return (int)cudaGetLastError();
+}
+
+// am_pair_kernel<kNB>'s launch configuration: 2 x channels blocks in
+// clusters of two, its shared memory
+template <bool kNB>
+struct PairLaunch {
+  static constexpr int kSmem = pair_smem_floats<kNB>() * (int)sizeof(float);
+  static_assert(kSmem <= 232448, "shared memory of one H100 block");
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg{};
+  PairLaunch(int channels, void* stream) {
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = 2;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.gridDim = dim3(2 * channels);
+    cfg.blockDim = dim3(kThreads);
+    cfg.dynamicSmemBytes = kSmem;
+    cfg.stream = (cudaStream_t)stream;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
+  static cudaError_t prepare(int device) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(am_pair_kernel<kNB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 kSmem);
+    return err;
+  }
+};
+
+// Launch am_pair_kernel<kNB> on `stream` of CUDA device `device`, a cluster
+// of two blocks per channel; returns the cudaError_t of the launch.
+template <bool kNB>
+int launch_pair(const ChainArgs& a, int channels, int device, void* stream) {
+  cudaError_t err = PairLaunch<kNB>::prepare(device);
+  if (err != cudaSuccess) return (int)err;
+  PairLaunch<kNB> l(channels, stream);
+  err = cudaLaunchKernelEx(&l.cfg, am_pair_kernel<kNB>, a);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// How many clusters of am_pair_kernel<kNB> device `device` holds at once
+// (cudaOccupancyMaxActiveClusters), or minus the cudaError_t of the query.
+template <bool kNB>
+int pair_clusters(int device) {
+  cudaError_t err = PairLaunch<kNB>::prepare(device);
+  int clusters = 0;
+  if (err == cudaSuccess) {
+    PairLaunch<kNB> l(1, nullptr);
+    err = cudaOccupancyMaxActiveClusters(&clusters, am_pair_kernel<kNB>, &l.cfg);
+  }
+  return err == cudaSuccess ? clusters : -(int)err;
 }
 
 // The instantiation of NR stage kNR for demod (0 ssb, 1 am, 2 sam) and the

@@ -1,10 +1,18 @@
 """Every chain route of the port in one checkout, on fixed seeded inputs, two
 threaded segments each; its outputs and states saved, or two such files
-compared bit for bit. Run as a file, so that the checkout at ROOT is the one
+compared bit for bit; or the machine code of two checkouts' builds compared
+kernel by kernel. Run as a file, so that the checkout at ROOT is the one
 imported:
 
     python radiodsp_sdr_rx_tpu_torch/diag/compare_builds.py run ROOT OUT.pt
     python radiodsp_sdr_rx_tpu_torch/diag/compare_builds.py cmp A.pt B.pt
+    python radiodsp_sdr_rx_tpu_torch/diag/compare_builds.py code ROOT_A ROOT_B
+
+``code`` reads the libraries that ``run`` built in each checkout: ptxas'
+registers, stack and spills from the build logs, and each kernel's SASS
+(``cuobjdump -sass``), the anonymous namespace's per-file name taken out;
+it prints the kernels whose SASS or ptxas lines differ and those in one
+build only.
 
 The routes: the SSB, AM and SAM banks with and without the blanker, each with
 DNR2, notch and SPEC2 folded (K1, K4, K6), SSB's staged NR routes (K1-mono,
@@ -14,15 +22,20 @@ carrier on each channel's mix with 0.02-sigma noise and three impulses of
 8(1+1j), one on each segment's last sample; 67 rows a segment (a partial last
 chunk), K7 35 (a partial last chunk at every G), staged SAM 64 (K5's chunk).
 """
+import hashlib
+import re
+import shutil
+import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import torch
 
 C0 = 7_050_000.0
 LIBRARIES = ("sweep_chain", "staged", "lms", "sweep_spec", "sam", "sam_wide", "sweep_denoise",
-             "sweep_notch")
+             "sweep_notch", "halo")
 
 
 def scene(c, n, seed):
@@ -111,8 +124,56 @@ def cmp(a_path, b_path):
     return not bad
 
 
+# nvcc names a source's anonymous namespace after the file, with hashes of
+# 8 hex digits that differ between checkouts: _GLOBAL__N__<hash>_<len>_<file>_cu[_<hash>]
+_ANON = re.compile(r"(?<=_GLOBAL__N__)[0-9a-f]{8}(?=_)|(?<=_cu_)[0-9a-f]{8}")
+
+
+def _kernels(root, lib):
+    """{kernel: (ptxas lines, SASS digest)} of csrc/<lib>.cu's build in ROOT."""
+    built = sorted(Path(root, "radiodsp_sdr_rx_tpu_torch", "_build").glob(f"lib{lib}-*.so"),
+                   key=lambda p: p.stat().st_mtime)
+    if not built:
+        raise RuntimeError(f"no build of {lib}.cu under {root}: run `run` on it first")
+    so = built[-1]
+    ptxas = {}
+    for block in so.with_suffix(".log").read_text().split("Compiling entry function")[1:]:
+        lines = [ln.split(":", 1)[-1].strip() for ln in block.splitlines()
+                 if "registers" in ln or "spill" in ln]
+        ptxas[_ANON.sub("X", block.split("'")[1])] = "; ".join(lines)
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(so)], capture_output=True, text=True,
+                          check=True).stdout
+    code = {}
+    for part in re.split(r"^\s*Function : ", sass, flags=re.MULTILINE)[1:]:
+        name, body = part.split("\n", 1)
+        code[_ANON.sub("X", name.strip())] = hashlib.sha256(
+            _ANON.sub("X", body).encode()).hexdigest()
+    return {k: (ptxas.get(k), code.get(k)) for k in sorted(set(ptxas) | set(code))}
+
+
+def code(root_a, root_b):
+    same = True
+    for lib in LIBRARIES:
+        a, b = _kernels(root_a, lib), _kernels(root_b, lib)
+        alike = [k for k in a if k in b and a[k] == b[k]]
+        print(f"{lib}.cu: {len(alike)} kernels with the same SASS and ptxas lines")
+        for k in sorted(set(a) | set(b)):
+            if k in alike:
+                continue
+            same = False
+            if k not in a or k not in b:
+                print(f"  only in {root_b if k in b else root_a}: {k} ({(a.get(k) or b[k])[0]})")
+            else:
+                print(f"  differs: {k}: SASS {'same' if a[k][1] == b[k][1] else 'differs'}; "
+                      f"ptxas {a[k][0]} -> {b[k][0]}")
+    return same
+
+
 if __name__ == "__main__":
     if sys.argv[1] == "run":
         run(sys.argv[2], sys.argv[3])
+    elif sys.argv[1] == "code":
+        sys.exit(0 if code(sys.argv[2], sys.argv[3]) else 1)
     else:
         sys.exit(0 if cmp(sys.argv[2], sys.argv[3]) else 1)

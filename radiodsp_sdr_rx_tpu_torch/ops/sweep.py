@@ -38,7 +38,14 @@ for CPU tensors they run ``sweep_full_chain_plain`` / ``sweep_am_chain_plain``
 ``sweep_chain_ssb_mono`` neither computes R into the output nor stores it.
 ``LAUNCHES``, ``LAUNCHES_NB``, ``LAUNCHES_AM``, ``LAUNCHES_AM_NB``,
 ``LAUNCHES_MONO``, ``LAUNCHES_SAM`` and ``LAUNCHES_SAM_NB`` count the seven
-kernels' launches. ``launch_chain`` launches every source of the chain
+kernels' launches (one a segment, whichever form runs). The AM kernels
+have two forms: one block per channel, or ``am_pair_kernel``'s cluster of
+two blocks per channel, one on each SM, which alternate the chain's chunks
+and hand the carries to each other (``csrc/sweep_chain.cuh``). The launcher
+takes the pair whenever the card holds a cluster for every channel at once
+(``am_cluster_size``, from the channel count and the card's count of such
+clusters, ``am_active_clusters``), the one-block form otherwise; the two
+give the same bits. ``launch_chain`` launches every source of the chain
 (these seven; ``ops/lanes.py``'s NR stages, whose plain versions
 ``chain_plain`` also computes from ``LmsArgs`` and ``SpecArgs``; K7 of
 ``ops/sam_wide.py``) through one C entry that takes a ``ChainArgs``
@@ -481,20 +488,55 @@ _COUNTERS = {"sweep_chain_ssb": "LAUNCHES", "sweep_chain_ssb_nb": "LAUNCHES_NB",
              "sweep_chain_sam_nb": "LAUNCHES_SAM_NB"}
 
 
+_AM_CLUSTERS: dict = {}   # (device index, nb) -> clusters of the AM pair the card holds
+
+
+def am_cluster_size(channels: int, clusters: int, split: int | None = None) -> int:
+    """Blocks per channel of the AM chain kernels: 2 (the pair, a cluster of
+    two SMs a channel) when the card holds ``clusters`` >= ``channels`` of
+    them at once, else 1. ``split`` forces 1 or 2 and raises ValueError on
+    anything else: the card tests and ``chip_smoke.py`` compare the forms."""
+    if split is not None:
+        if split not in (1, 2):
+            raise ValueError(f"the AM chain runs on 1 or 2 blocks a channel, not {split}")
+        return split
+    return 2 if 0 < channels <= clusters else 1
+
+
+def am_active_clusters(device: torch.device, nb: bool) -> int:
+    """How many two-block clusters of the AM pair kernel (with the blanker
+    or not) ``device`` holds at once (``cudaOccupancyMaxActiveClusters``),
+    asked once per device."""
+    key = (device.index or 0, bool(nb))
+    if key not in _AM_CLUSTERS:
+        fn = build.load_library("sweep_chain").am_pair_clusters
+        fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+        got = fn(int(bool(nb)), key[0])
+        if got < 0:
+            raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed: cudaError {-got}")
+        _AM_CLUSTERS[key] = got
+    return _AM_CLUSTERS[key]
+
+
 def launch_chain(xr, xi, inc, phase0, w, w_pbt, tail_r, tail_i, audio_tail,
                  env0, agc_release, agc_target, agc_max_gain, agc_enabled,
                  out_gain, in_gain, iq_balance, nb, nb_thresh_db, nb_tau,
                  nb_avg0, nb_mask0, dc0=None, emit_r=True, sam: SamArgs | None = None,
                  lms: LmsArgs | None = None, spec: SpecArgs | None = None,
-                 groups: int | None = None):
+                 groups: int | None = None, _split: int | None = None):
     """Check, allocate the outputs and launch one instantiation of
     ``csrc/sweep_chain.cuh``'s kernel (the source by NR stage, ``LIBRARIES``)
     or, with ``groups``, the SAM chain of ``csrc/sam_wide.cu``; every source
-    takes a ``ChainArgs``. Counts the launches of ``sweep_chain.cu``'s seven
+    takes a ``ChainArgs``. The AM chain without an NR stage runs on
+    ``am_cluster_size`` blocks a channel; ``_split`` forces 1 or 2 there and
+    is refused elsewhere. Counts the launches of ``sweep_chain.cu``'s seven
     kernels; the other callers count their own. Returns the outputs in the
     order of ``chain_plain``'s return."""
     if xr.device.type != "cuda":
         raise ValueError(f"the sweep chain runs on cuda or cpu, not {xr.device}")
+    pair_route = dc0 is not None and sam is None and lms is None and spec is None and groups is None
+    if _split is not None and not pair_route:
+        raise ValueError("only the AM chain without an NR stage takes a forced split")
     check_chain_args(xr, xi, inc, phase0, w, w_pbt, tail_r, tail_i, audio_tail, env0,
                      agc_release, nb, nb_tau, nb_avg0, nb_mask0, dc0, emit_r,
                      None if sam is None else sam.pll0)
@@ -552,12 +594,19 @@ def launch_chain(xr, xi, inc, phase0, w, w_pbt, tail_r, tail_i, audio_tail,
     nr = "spectral" if spec is not None else None if lms is None else lms.mode
     demod = "sam" if sam else "am" if dc0 is not None else "ssb"
     lib = "sam_wide" if groups is not None else LIBRARIES[nr]
-    fn = build.load_library(lib).launch_chain
-    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    err = fn(ctypes.addressof(args), _DEMODS.index(demod) if groups is None else groups,
-             int(bool(nb)), c, xr.device.index or 0,
-             torch.cuda.current_stream(xr.device).cuda_stream)
+    stream = torch.cuda.current_stream(xr.device).cuda_stream
+    if pair_route:
+        split = am_cluster_size(c, am_active_clusters(xr.device, nb), _split)
+        fn = build.load_library(lib).launch_am
+        fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        err = fn(ctypes.addressof(args), int(bool(nb)), split, c, xr.device.index or 0, stream)
+    else:
+        fn = build.load_library(lib).launch_chain
+        fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        err = fn(ctypes.addressof(args), _DEMODS.index(demod) if groups is None else groups,
+                 int(bool(nb)), c, xr.device.index or 0, stream)
     if err:
         raise RuntimeError(f"{lib} launch failed: cudaError {err}")
     name = f"sweep_chain_{demod}{'_nb' if nb else ''}{'' if emit_r else '_mono'}"
@@ -605,7 +654,7 @@ def sweep_am_chain(xr, xi, inc, phase0, w_sb, w_pbt, tail_r, tail_i,
                    audio_tail, env0, dc0, agc_release, agc_target, agc_max_gain,
                    agc_enabled=True, out_gain=1.0, in_gain=1.0, iq_balance=1.0,
                    nb=False, nb_thresh_db=10.0, nb_tau=512.0,
-                   nb_avg0=None, nb_mask0=None):
+                   nb_avg0=None, nb_mask0=None, _split=None):
     """Whole AM receive chain; arguments as ``sweep_full_chain``, plus:
 
       w_sb:  (512, 256) overlap_save_matrix_real, the complex band-pass
@@ -614,8 +663,12 @@ def sweep_am_chain(xr, xi, inc, phase0, w_sb, w_pbt, tail_r, tail_i,
 
     Returns (audio_l, audio_r, audio_tail_next, env_next, dc_next), and with
     nb=True also (nb_avg_next, nb_mask_next). CPU tensors run the plain
-    version; CUDA tensors launch the kernel, or raise.
+    version; CUDA tensors launch the kernel on ``am_cluster_size`` blocks a
+    channel, or raise. ``_split`` (1 or 2, else ValueError on either device)
+    forces the blocks a channel, for the tests that compare the two forms.
     """
+    if _split is not None:
+        am_cluster_size(xr.shape[0], 0, _split)
     if xr.device.type == "cpu":
         return sweep_am_chain_plain(xr, xi, inc, phase0, w_sb, w_pbt, tail_r, tail_i,
                                     audio_tail, env0, dc0, agc_release, agc_target,
@@ -625,7 +678,7 @@ def sweep_am_chain(xr, xi, inc, phase0, w_sb, w_pbt, tail_r, tail_i,
     return launch_chain(xr, xi, inc, phase0, w_sb, w_pbt, tail_r, tail_i,
                         audio_tail, env0, agc_release, agc_target, agc_max_gain,
                         agc_enabled, out_gain, in_gain, iq_balance, nb,
-                        nb_thresh_db, nb_tau, nb_avg0, nb_mask0, dc0)
+                        nb_thresh_db, nb_tau, nb_avg0, nb_mask0, dc0, _split=_split)
 
 
 def sam_args(xr, pll0, reseed, pll_bw_hz, sample_rate, chunk_t, wide=False) -> SamArgs:

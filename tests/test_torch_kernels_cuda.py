@@ -36,10 +36,13 @@ across cards (skipped with fewer than two), and the time-sharded chain's
 kernel halo equals its ppermute halo bit for bit.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
 
+from radiodsp_sdr_rx_tpu_torch.models import fused
 from radiodsp_sdr_rx_tpu_torch.models.config import AGCMode, DemodMode, NRMode, ReceiverConfig
 from radiodsp_sdr_rx_tpu_torch.models.fused import (
     FusedAMBank, FusedNRBank, FusedSAMBank, FusedSSBBank)
@@ -227,6 +230,65 @@ def test_am_kernel_matches_plain_over_two_segments(cuda_device, channels, n, agc
         _close(got + ((state.nb_avg, state.nb_mask) if nb else ()), ref)
         if nb:
             assert float(state.nb_mask[:, -1].max()) == 0.0
+
+
+def test_am_pair_fills_the_h100(cuda_device):
+    """The card holds a two-block cluster of the AM pair for each of 66
+    channels (132 SMs in pairs): config1's 64 channels run as pairs."""
+    for nb in (False, True):
+        clusters = sweep.am_active_clusters(cuda_device, nb)
+        assert clusters >= 66, clusters
+        assert sweep.am_cluster_size(64, clusters) == 2
+
+
+# segments of 1, 2 and 3 whole chunks and of 67 rows (a partial last chunk)
+AM_SPLIT_LENGTHS = [64 * 128, 128 * 128, 192 * 128, 67 * 128]
+
+
+@pytest.mark.parametrize("n", AM_SPLIT_LENGTHS)
+@pytest.mark.parametrize("channels", [1, 6, 64, 66, 67, 128])
+@pytest.mark.parametrize("agc_mode", [AGCMode.MEDIUM, AGCMode.OFF])
+@pytest.mark.parametrize("nb", [False, True])
+def test_am_pair_matches_one_block_bit_for_bit(cuda_device, monkeypatch, nb, agc_mode,
+                                               channels, n):
+    """FusedAMBank on K1-am and K1-am-nb as the launcher chooses (the pair up
+    to 66 channels, one block a channel above), forced to one block and
+    forced to the pair, each over three threaded segments of its own: every
+    output and carry bit for bit (the blanker on the impulse scene, an
+    impulse on each segment's last sample), one launch a segment."""
+    clusters = sweep.am_active_clusters(cuda_device, nb)
+    assert sweep.am_cluster_size(channels, clusters) == (2 if channels <= 66 else 1)
+    cfg = ReceiverConfig(mode=DemodMode.AM, vfo_freq=7_060_000.0,
+                         capture_center_freq=7_050_000.0, agc=agc_mode, noise_blanker=nb)
+    bank = FusedAMBank(cfg, [7_050_000.0 + 1_000.0 * k for k in range(channels)],
+                       device=cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(channels * n + nb)
+    state = bank.init_state()
+    if nb:
+        xr, xi, mean_mag = _impulse_scene(channels, n, gen, cuda_device)
+        state = state._replace(nb_avg=torch.full((channels,), mean_mag, device=cuda_device))
+    states = dict.fromkeys((None, 1, 2), state)
+    for _ in range(3):
+        if not nb:
+            xr = torch.randn((channels, n), generator=gen, device=cuda_device) * 0.1 + 0.2
+            xi = torch.randn((channels, n), generator=gen, device=cuda_device) * 0.1
+            xr[:, n // 3:n // 3 + 100] *= 30.0
+        outs = {}
+        for split in states:
+            monkeypatch.setattr(fused, "sweep_am_chain",
+                                functools.partial(sweep.sweep_am_chain, _split=split))
+            before = (sweep.LAUNCHES_AM, sweep.LAUNCHES_AM_NB)
+            out, states[split] = bank.process_planar(xr, xi, states[split])
+            assert (sweep.LAUNCHES_AM, sweep.LAUNCHES_AM_NB) == (before[0] + (not nb),
+                                                                 before[1] + nb)
+            outs[split] = (out["audio_l"], out["audio_r"], *states[split])
+        torch.cuda.synchronize()
+        for split in (1, 2):
+            for g, r in zip(outs[split], outs[None]):
+                assert torch.equal(g, r)
+        assert all(bool(torch.isfinite(t).all()) for t in outs[None])
+        if nb:
+            assert float(states[None].nb_mask[:, -1].max()) == 0.0
 
 
 @pytest.mark.parametrize("mode", ["denoise", "notch"])
