@@ -150,6 +150,8 @@ FS = 44117.647       # samples per second per channel
 GOLDENS = Path(__file__).resolve().parent / "tests" / "goldens"
 PEAK_BYTES_S = 3.35e12   # H100 SXM device memory
 PEAK_FP32_S = 67e12      # H100 SXM fp32 outside the tensor cores
+PEAK_TF32_S = 495e12     # H100 SXM dense TF32 on the tensor cores
+TC_PASSES = 3            # an fp32-class product as 3xTF32 (csrc/tc_gemm.cuh)
 NB_FLOPS_PER_SAMPLE = 10  # |x|, the one-pole average, the threshold test
 AM_FLOPS_PER_SAMPLE = 6   # the envelope and the DC blocker
 DC_FLOPS_PER_SAMPLE = 3   # the DC blocker alone
@@ -416,9 +418,17 @@ def phase_diff(a, b) -> float:
     return float(torch.minimum(d, 2 * torch.pi - d).max())
 
 
-def bound(flops: float, nbytes: float) -> tuple[float, str]:
-    t_ops, t_bytes = flops / PEAK_FP32_S, nbytes / PEAK_BYTES_S
-    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops > t_bytes else "bytes"
+def bound(flops: float, nbytes: float, products: float = 0.0) -> tuple[float, str, float]:
+    """(ms, what bounds it, the fp32 SIMT bound in ms): the least time the card
+    could take for ``flops`` operations, ``products`` of them in matrix
+    products, and ``nbytes`` of device memory. The products run at the
+    tensor-core rate as TC_PASSES TF32 passes (no fp32-class product needs
+    more), the other operations at the fp32 rate; the SIMT bound, PR 16's
+    and earlier, prices every operation at the fp32 rate."""
+    t_ops = max(TC_PASSES * products / PEAK_TF32_S, (flops - products) / PEAK_FP32_S)
+    t_bytes, t_simt = nbytes / PEAK_BYTES_S, flops / PEAK_FP32_S
+    return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops > t_bytes else "bytes",
+            max(t_simt, t_bytes) * 1e3)
 
 
 def unsharded_full_chain(mode, nr, nb, iq, incs, p, st, mu):
@@ -691,11 +701,12 @@ def sharded_paths(gen, reset_counts, counts, only, launches, err, timing) -> Non
             buf.copy_(x[s - 1])
         return bufs
 
-    b_ms, b_by = bound(0, nbytes)
+    b_ms, b_by, s_ms = bound(0, nbytes)
     timing["ring_shift"] = dict(
         ms=time_ms(chain_of(halo.ring_shift_right), 3) / 100,
         plain_ms=time_ms(chain_of(halo.ring_shift_right_plain), 3) / 100,
-        bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(chain_of(copies), 3) / 100,
+        bound_ms=b_ms, bound_by=b_by, simt_bound_ms=s_ms,
+        library_ms=time_ms(chain_of(copies), 3) / 100,
         flops=0, samples=4 * 128 * 128, plain_from=4 * 128 * 128)
     busy = {}   # the device's own time per exchange, from a profiler trace
     for name, fn in (("kernel", halo.ring_shift_right), ("library", copies)):
@@ -1035,13 +1046,26 @@ def main() -> None:
     err["mix_demod"] = max(err["mix_demod"], d_a, d)
     err["pbt"] = max(err["pbt"], d_b, d)
     del ref, out_1, audio_g, sweep_out_1
+    # K2b (3xTF32 on the tensor cores) against its plain version on each of
+    # the three segments, from the state the path carried into it
+    d_pbt = []
+    for st in (bank_st.init_state(), st_1, st_2):
+        audio_g = agc.agc_run(staged.fused_mix_filter_demod(*bank_st.mix_demod_args(xr, xi, st)),
+                              bank_st.agc_params, st.agc_env)[0]
+        pbt_args = bank_st.pbt_args(audio_g, st)
+        d_pbt.append(max_diff(staged.pbt_filter(*pbt_args), staged.pbt_filter_plain(*pbt_args)))
+    del audio_g, pbt_args
+    say("check pbt full width over the three threaded segments: max |kernel - plain| over L, "
+        "R " + " / ".join(f"{v:.3e}" for v in d_pbt) + f" (tolerance {TOL:g})")
+    check(max(d_pbt) <= TOL, f"pbt disagrees at full width: {max(d_pbt):.3e} > {TOL:g}")
+    err["pbt"] = max(err["pbt"], *d_pbt)
 
     # 4c. the noise-blanker path at full width, on the impulse scene
     bank_nb = FusedSSBBank(cfg_nb, freqs)
     xr_nb, xi_nb, mean_mag = nb_scene(N_CHANNELS, SEG_LEN, gen)
-    state_nb = bank_nb.init_state()._replace(
+    nb_0 = bank_nb.init_state()._replace(
         nb_avg=torch.full((N_CHANNELS,), mean_mag, device="cuda"))
-    launched, nb_1, out_1, nb_2, state_nb = drive(bank_nb, xr_nb, xi_nb, state_nb,
+    launched, nb_1, out_1, nb_2, state_nb = drive(bank_nb, xr_nb, xi_nb, nb_0,
                                                   "noise-blanker path")
     check(launched == only(sweep_chain_ssb_nb=SEGMENTS), f"expected {SEGMENTS} sweep_chain_ssb_nb launches and "
           f"no other, counted {launched}")
@@ -1056,6 +1080,23 @@ def main() -> None:
     check(kept < 1.0, "the impulse on the segment's last sample was not blanked")
     err["sweep_chain_ssb_nb"] = max(err["sweep_chain_ssb_nb"], d)
     del ref, out_1
+    # K1-nb (its products 3xTF32 on the tensor cores) against its plain
+    # version on each of the three segments, from the state the path carried
+    # into it: every output and carry, and the blanker's keep mask exactly
+    d_nb, mask_same = [], True
+    for st in (nb_0, nb_1, nb_2):
+        nb_args = bank_nb.chain_args(xr_nb, xi_nb, st)
+        got, ref = sweep.sweep_full_chain(*nb_args), sweep.sweep_full_chain_plain(*nb_args)
+        d_nb.append(max_diff(got, ref))
+        mask_same &= bool(torch.equal(got[5], ref[5]))
+    del got, ref, nb_args
+    say("check sweep_chain_ssb_nb full width over the three threaded segments: max |kernel - "
+        "plain| over L, R, audio_tail, env, nb_avg, nb_mask " + " / ".join(
+            f"{v:.3e}" for v in d_nb) + f" (tolerance {TOL:g}); keep masks equal: {mask_same}")
+    check(max(d_nb) <= TOL and mask_same,
+          f"sweep_chain_ssb_nb disagrees at full width: {max(d_nb):.3e} > {TOL:g} or the keep "
+          "masks differ")
+    err["sweep_chain_ssb_nb"] = max(err["sweep_chain_ssb_nb"], *d_nb)
 
     # 4d. the AM path at full width: bench_full.py config1 (64 ch at 1 kHz, AGC
     # off), without and with the blanker (on the impulse scene)
@@ -1965,46 +2006,52 @@ def main() -> None:
     timing = {}
 
     args = bank.chain_args(xr, xi, state)
-    b_ms, b_by = bound(ops1 + ops2, 4 * samples * 4 + w_bytes + words_tails)
+    b_ms, b_by, s_ms = bound(ops1 + ops2, 4 * samples * 4 + w_bytes + words_tails, ops1 + ops2)
     timing["sweep_chain_ssb"] = dict(
         ms=time_ms(lambda: sweep.sweep_full_chain(*args), REPS),
         plain_ms=time_ms(lambda: sweep.sweep_full_chain_plain(*args), 3),
-        bound_ms=b_ms, bound_by=b_by, library_ms=library_ms, flops=ops1 + ops2,
+        bound_ms=b_ms, bound_by=b_by, simt_bound_ms=s_ms, library_ms=library_ms, flops=ops1 + ops2,
         samples=samples)
     seg_ms = time_ms(lambda: bank.process_planar(xr, xi, state), REPS)
     # without R the function needs only L's half of the PBT product
-    b_ms, b_by = bound(ops1 + ops2 // 2, 3 * samples * 4 + w_bytes + words_tails)
+    b_ms, b_by, s_ms = bound(ops1 + ops2 // 2, 3 * samples * 4 + w_bytes + words_tails,
+                             ops1 + ops2 // 2)
     timing["sweep_chain_ssb_mono"] = dict(
         ms=time_ms(lambda: sweep.sweep_full_chain(*args, emit_r=False), REPS),
         plain_ms=time_ms(lambda: sweep.sweep_full_chain_plain(*args, emit_r=False), 3),
-        bound_ms=b_ms, bound_by=b_by, library_ms=library_mono_ms, flops=ops1 + ops2 // 2,
+        bound_ms=b_ms, bound_by=b_by, simt_bound_ms=s_ms,
+        library_ms=library_mono_ms, flops=ops1 + ops2 // 2,
         samples=samples)
 
     args = bank_nb.chain_args(xr_nb, xi_nb, state_nb)
     flops = ops1 + ops2 + NB_FLOPS_PER_SAMPLE * samples
-    b_ms, b_by = bound(flops, 4 * samples * 4 + w_bytes + words_tails
-                       + N_CHANNELS * (2 * 4 + 2 * 128 * 4))
+    b_ms, b_by, s_ms = bound(flops, 4 * samples * 4 + w_bytes + words_tails
+                             + N_CHANNELS * (2 * 4 + 2 * 128 * 4), ops1 + ops2)
     timing["sweep_chain_ssb_nb"] = dict(
         ms=time_ms(lambda: sweep.sweep_full_chain(*args), REPS),
         plain_ms=time_ms(lambda: sweep.sweep_full_chain_plain(*args), 3),
-        bound_ms=b_ms, bound_by=b_by, library_ms=library_ms, flops=flops, samples=samples)
+        bound_ms=b_ms, bound_by=b_by, simt_bound_ms=s_ms,
+        library_ms=library_ms, flops=flops, samples=samples)
     seg_nb_ms = time_ms(lambda: bank_nb.process_planar(xr_nb, xi_nb, state_nb), REPS)
     del xr_nb, xi_nb
 
     args = bank_st.mix_demod_args(xr, xi, state_st)
-    b_ms, b_by = bound(ops1, 3 * samples * 4 + 4 * 512 * 128 + N_CHANNELS * (2 * 8 + 256 * 4))
+    b_ms, b_by, s_ms = bound(ops1, 3 * samples * 4 + 4 * 512 * 128
+                             + N_CHANNELS * (2 * 8 + 256 * 4), ops1)
     timing["mix_demod"] = dict(
         ms=time_ms(lambda: staged.fused_mix_filter_demod(*args), REPS),
         plain_ms=time_ms(lambda: staged.fused_mix_filter_demod_plain(*args), 3),
-        bound_ms=b_ms, bound_by=b_by, library_ms=lib1_ms, flops=ops1, samples=samples)
+        bound_ms=b_ms, bound_by=b_by, simt_bound_ms=s_ms,
+        library_ms=lib1_ms, flops=ops1, samples=samples)
     audio = staged.fused_mix_filter_demod(*args)
     agc_ms = time_ms(lambda: agc.agc_run(audio, bank_st.agc_params, state_st.agc_env), REPS)
     args = bank_st.pbt_args(audio, state_st)
-    b_ms, b_by = bound(ops2, 3 * samples * 4 + 4 * 256 * 256 + N_CHANNELS * 128 * 4)
+    b_ms, b_by, s_ms = bound(ops2, 3 * samples * 4 + 4 * 256 * 256 + N_CHANNELS * 128 * 4, ops2)
     timing["pbt"] = dict(
         ms=time_ms(lambda: staged.pbt_filter(*args), REPS),
         plain_ms=time_ms(lambda: staged.pbt_filter_plain(*args), 3),
-        bound_ms=b_ms, bound_by=b_by, library_ms=lib2_ms, flops=ops2, samples=samples)
+        bound_ms=b_ms, bound_by=b_by, simt_bound_ms=s_ms,
+        library_ms=lib2_ms, flops=ops2, samples=samples)
     del audio, args
     seg_st_ms = time_ms(lambda: bank_st.process_planar(xr, xi, state_st), REPS)
 
@@ -2015,12 +2062,13 @@ def main() -> None:
             o = sweep.sweep_mix_filter_demod(a, b, inc_k8, ph_k8, w_k8)
             a, b = o, a
 
-    b_ms, b_by = bound(ops1, 3 * samples * 4 + 4 * 512 * 128 + N_CHANNELS * 2 * 8)
+    b_ms, b_by, s_ms = bound(ops1, 3 * samples * 4 + 4 * 512 * 128 + N_CHANNELS * 2 * 8, ops1)
     timing["sweep_mix_demod"] = dict(
         ms=time_ms(k8_chain, 1) / REPS,
         plain_ms=time_ms(lambda: sweep.sweep_mix_filter_demod_plain(xr, xi, inc_k8, ph_k8, w_k8),
                          3),
-        bound_ms=b_ms, bound_by=b_by, library_ms=lib1_ms, flops=ops1, samples=samples)
+        bound_ms=b_ms, bound_by=b_by, simt_bound_ms=s_ms,
+        library_ms=lib1_ms, flops=ops1, samples=samples)
 
     # the Receiver per CLI block: CLI_BLOCKS threaded blocks of CLI_BLOCK
     # samples of the QRM scene after one warm-up block, automatic I2S repair
@@ -2068,7 +2116,8 @@ def main() -> None:
     f2 = torch.randn((rows_am, 256), generator=gen, device="cuda")
     lib_am_ms = time_ms(lambda: (torch.matmul(f1, w_sb), torch.matmul(f2, w_pbt)), REPS)
     del f1, f2
-    ops_am = rows_am * 2 * 512 * 256 + rows_am * 2 * 256 * 256 + AM_FLOPS_PER_SAMPLE * samples_am
+    prod_am = rows_am * 2 * 512 * 256 + rows_am * 2 * 256 * 256
+    ops_am = prod_am + AM_FLOPS_PER_SAMPLE * samples_am
     bytes_am = (4 * samples_am * 4 + 4 * (512 * 256 + 256 * 256)
                 + N_AM * (2 * 8 + 4 * 128 * 4 + 2 * 4 + 2 * 2 * 4))
     path_ms = {}
@@ -2078,11 +2127,12 @@ def main() -> None:
         nb = kname.endswith("_nb")
         args = b.chain_args(x_r, x_i, st)
         flops = ops_am + (NB_FLOPS_PER_SAMPLE * samples_am if nb else 0)
-        b_ms, b_by = bound(flops, bytes_am + (N_AM * (2 * 4 + 2 * 128 * 4) if nb else 0))
+        b_ms, b_by, s_ms = bound(flops, bytes_am + (N_AM * (2 * 4 + 2 * 128 * 4) if nb else 0),
+                                 prod_am)
         timing[kname] = dict(
             ms=time_ms(lambda: sweep.sweep_am_chain(*args), REPS),
             plain_ms=time_ms(lambda: sweep.sweep_am_chain_plain(*args), 3),
-            bound_ms=b_ms, bound_by=b_by, library_ms=lib_am_ms, flops=flops,
+            bound_ms=b_ms, bound_by=b_by, simt_bound_ms=s_ms, library_ms=lib_am_ms, flops=flops,
             samples=samples_am, channels=N_AM)
         forms = am_forms[kname] = {}
         for form in (1, None, None, 1):
@@ -2120,13 +2170,15 @@ def main() -> None:
     args = b4.spec_args(x_r, x_i, st)
     spec_bytes = (4 * samples4 * 4 + 4 * (512 * 128 + 256 * 256)
                   + N_SPEC * (2 * 8 + 2 * 128 * 4 + 2 * 128 * 4 + 4 * 4 + 4 * 128 * 4))
-    b_ms, b_by = bound(SPEC_FLOPS_PER_SAMPLE * samples4, spec_bytes + 4 * 512)
-    dense_ms, _ = bound((2 * (512 * 128 + 256 * 256) + SPEC_DENSE_FLOPS_PER_ROW) * rows4,
-                        spec_bytes + 4 * (512 * 512 + 512 * 256))
+    prod4 = 2 * (512 * 128 + 256 * 256) * rows4
+    b_ms, b_by, s_ms = bound(SPEC_FLOPS_PER_SAMPLE * samples4, spec_bytes + 4 * 512, prod4)
+    dense_ms = bound(prod4 + SPEC_DENSE_FLOPS_PER_ROW * rows4,
+                     spec_bytes + 4 * (512 * 512 + 512 * 256),
+                     prod4 + SPEC_DENSE_FLOPS_PER_ROW * rows4)[0]
     timing["sweep_spec_chain"] = dict(
         ms=time_ms(lambda: sweep_spec.sweep_spec_chain(*args), REPS),
         plain_ms=time_ms(lambda: sweep_spec.sweep_spec_chain_plain(*args), 3),
-        bound_ms=b_ms, bound_by=b_by, library_ms=lib_spec_ms,
+        bound_ms=b_ms, bound_by=b_by, simt_bound_ms=s_ms, library_ms=lib_spec_ms,
         flops=SPEC_FLOPS_PER_SAMPLE * samples4, samples=samples4, channels=N_SPEC,
         dense_bound_ms=dense_ms)
     del args
@@ -2146,11 +2198,11 @@ def main() -> None:
     # single PyTorch call computes it. Its plain version was timed in 4e on
     # the same input
     args = lms_args["config3 notch"]
-    b_ms, b_by = bound(LMS_FLOPS_PER_SAMPLE * samples,
+    b_ms, b_by, s_ms = bound(LMS_FLOPS_PER_SAMPLE * samples,
                        8 * samples + N_CHANNELS * 4 * (4 * 96 + 2 * 128))
     timing["lms_nr"] = dict(
         ms=time_ms(lambda: lms_bank.lms_nr_run_bank(*args), REPS),
-        plain_ms=lms_plain_ms["config3 notch"], bound_ms=b_ms, bound_by=b_by,
+        plain_ms=lms_plain_ms["config3 notch"], bound_ms=b_ms, bound_by=b_by, simt_bound_ms=s_ms,
         library_ms=None, flops=LMS_FLOPS_PER_SAMPLE * samples, samples=samples,
         steps=SEG_LEN)
     del args, lms_args
@@ -2166,11 +2218,11 @@ def main() -> None:
     # fp32 torch.matmul, and no single PyTorch call computes K5
     b6s, x_r, x_i, st = sam_ends["config6 fold=False"]
     samples6 = c6 * SEG_LEN
-    b_ms, b_by = bound(PLL_FLOPS_PER_SAMPLE * samples6, 12 * samples6 + c6 * 4 * 4)
+    b_ms, b_by, s_ms = bound(PLL_FLOPS_PER_SAMPLE * samples6, 12 * samples6 + c6 * 4 * 4)
     timing["sam_pll"] = dict(
         ms=time_ms(lambda: sam.sam_pll_run(*pll_args), REPS),
         plain_ms=sam_plain_prefix_ms["sam_pll"] * (SEG_LEN / SAM_PREFIX),
-        plain_from=SAM_PREFIX, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        plain_from=SAM_PREFIX, bound_ms=b_ms, bound_by=b_by, simt_bound_ms=s_ms, library_ms=None,
         flops=PLL_FLOPS_PER_SAMPLE * samples6, samples=samples6, steps=SEG_LEN)
     sam_stage_ms = {"front end (mix, band-pass)": time_ms(lambda: b6s.pll_args(x_r, x_i, st),
                                                           REPS)}
@@ -2196,18 +2248,19 @@ def main() -> None:
                                                   torch.matmul(f2, w_pbt)), REPS)
             del f1, f2
         nb = kname.endswith("_nb")
-        flops = (rows_k * 2 * 512 * 256 + rows_k * 2 * 256 * 256
-                 + (PLL_FLOPS_PER_SAMPLE + DC_FLOPS_PER_SAMPLE
-                    + (NB_FLOPS_PER_SAMPLE if nb else 0)) * samples_k)
-        b_ms, b_by = bound(flops, 4 * samples_k * 4 + 4 * (512 * 256 + 256 * 256)
-                           + c * (2 * 8 + 4 * 128 * 4 + 2 * 4 + 2 * 2 * 4 + 2 * 2 * 4)
-                           + (c * (2 * 4 + 2 * 128 * 4) if nb else 0))
+        prods = rows_k * 2 * 512 * 256 + rows_k * 2 * 256 * 256
+        flops = prods + (PLL_FLOPS_PER_SAMPLE + DC_FLOPS_PER_SAMPLE
+                         + (NB_FLOPS_PER_SAMPLE if nb else 0)) * samples_k
+        b_ms, b_by, s_ms = bound(flops, 4 * samples_k * 4 + 4 * (512 * 256 + 256 * 256)
+                                 + c * (2 * 8 + 4 * 128 * 4 + 2 * 4 + 2 * 2 * 4 + 2 * 2 * 4)
+                                 + (c * (2 * 4 + 2 * 128 * 4) if nb else 0), prods)
         run = sam_wide.sweep_sam_wide if b.route == "wide" else sweep.sweep_sam_chain
         args = b.chain_args(x_r, x_i, st)
         timing[kname] = dict(
             ms=time_ms(lambda: run(*args), REPS),
             plain_ms=sam_plain_prefix_ms[kname] * (n / SAM_PREFIX), plain_from=SAM_PREFIX,
-            bound_ms=b_ms, bound_by=b_by, library_ms=lib_sam_ms[(c, n)], flops=flops,
+            bound_ms=b_ms, bound_by=b_by, simt_bound_ms=s_ms,
+            library_ms=lib_sam_ms[(c, n)], flops=flops,
             samples=samples_k, steps=n)
         path_ms[label] = time_ms(lambda: b.process_planar(x_r, x_i, st), REPS)
     del args, sam_ends, xr6, xi6, xr6nb, xi6nb, xr10, xi10, xr10nb, xi10nb
@@ -2238,8 +2291,8 @@ def main() -> None:
                       + (PLL_FLOPS_PER_SAMPLE + DC_FLOPS_PER_SAMPLE if b.demod == "sam" else 0)
                       + (NB_FLOPS_PER_SAMPLE if b.config.noise_blanker else 0)
                       + (0 if spectral else LMS_FLOPS_PER_SAMPLE))
-        flops = (rows_k * 2 * (512 * w_band.shape[1] + 256 * w_p.shape[1])
-                 + (rows_k * SPEC_STAGE_FLOPS_PER_ROW if spectral else 0)
+        prods = rows_k * 2 * (512 * w_band.shape[1] + 256 * w_p.shape[1])
+        flops = (prods + (rows_k * SPEC_STAGE_FLOPS_PER_ROW if spectral else 0)
                  + per_sample * samples_k)
         nbytes = ((8 + (4 if denoise else 8)) * samples_k
                   + 4 * (512 * w_band.shape[1] + 256 * w_p.shape[1])
@@ -2247,15 +2300,17 @@ def main() -> None:
                   + (c * 2 * (96 + 96 + 128) * 4 if not spectral else c * 2 * (4 + 2 * 128 * 4))
                   + (c * 2 * 2 * 4 if dsb else 0) + (c * 2 * 2 * 4 if b.demod == "sam" else 0)
                   + (c * (2 * 4 + 2 * 128 * 4) if b.config.noise_blanker else 0))
-        b_ms, b_by = bound(flops, nbytes + (4 * 512 if spectral else 0))   # + the twiddles
+        b_ms, b_by, s_ms = bound(flops, nbytes + (4 * 512 if spectral else 0),   # + the twiddles
+                                 prods)
         if spectral:
             dense = bound(flops + rows_k * (SPEC_DENSE_FLOPS_PER_ROW - SPEC_STAGE_FLOPS_PER_ROW),
-                          nbytes + 4 * (512 * 512 + 512 * 256))[0]
+                          nbytes + 4 * (512 * 512 + 512 * 256),
+                          prods + rows_k * SPEC_DENSE_FLOPS_PER_ROW)[0]
         args = b.lanes_args(x_r, x_i, st)
         plain_ms, prefix = nr_plain_prefix[kname]
         timing[kname] = dict(
             ms=time_ms(lambda: lanes.sweep_lanes_chain(*args), REPS),
-            plain_ms=plain_ms * (n / prefix), bound_ms=b_ms, bound_by=b_by,
+            plain_ms=plain_ms * (n / prefix), bound_ms=b_ms, bound_by=b_by, simt_bound_ms=s_ms,
             library_ms=lib_nr_ms[key], flops=flops, samples=samples_k, seg=n, channels=c,
             **({"dense_bound_ms": dense} if spectral else {}),
             **({"plain_from": prefix} if prefix < n else {}),
@@ -2282,7 +2337,19 @@ def main() -> None:
             + (f" (timed on the first {tm['plain_from']} samples, scaled to the "
                f"segment)" if "plain_from" in tm else "")
             + f", library {library}, bound "
-            f"{tm['bound_ms']:.3f} ms ({tm['bound_by']})")
+            f"{tm['bound_ms']:.3f} ms ({tm['bound_by']}; at the fp32 SIMT rate "
+            f"{tm['simt_bound_ms']:.3f} ms)")
+    tc_products = {"pbt": ops2, "sweep_chain_ssb_nb": ops1 + ops2}
+    say(f"tensor-core engine (csrc/tc_gemm.cuh: each product as {TC_PASSES} TF32 passes of "
+        "wgmma.mma_async m64n128k8, each operand split big + small, both rounded to nearest): "
+        + "; ".join(
+            f"{k} {timing[k]['ms']:.3f} ms, {timing[k]['flops'] / timing[k]['ms'] / 1e9:.1f} "
+            f"TFLOP/s of the function's work ({TC_PASSES * p / timing[k]['ms'] / 1e9:.1f} TFLOP/s "
+            f"of TF32 passes), bound {timing[k]['bound_ms']:.3f} ms on the tensor cores "
+            f"({timing[k]['bound_by']}), {timing[k]['simt_bound_ms']:.3f} ms at the fp32 SIMT "
+            f"rate, library {timing[k]['library_ms']:.3f} ms, max |kernel - plain| "
+            f"{err[k]:.3e}, ptxas {ptxas.get(k, 'not in the build log')}"
+            for k, p in tc_products.items()))
     lms_kernels = ["lms_nr"] + [k for k in lanes.KERNELS if not k.startswith("lanes_sam")
                                 and "spectral" not in k]
     say("LMS step (csrc/lms_step.cuh, the grouped algebra): cycles per LMS step (the "
@@ -2399,6 +2466,7 @@ def main() -> None:
         "launches": launches[kname], "max_abs_err": err[kname],
         "ms": timing[kname]["ms"], "plain_ms": timing[kname]["plain_ms"],
         "bound_ms": timing[kname]["bound_ms"], "bound_by": timing[kname]["bound_by"],
+        "simt_bound_ms": timing[kname]["simt_bound_ms"],
         "library_ms": timing[kname]["library_ms"],
         "plain_timed_samples": timing[kname].get("plain_from", timing[kname].get("seg", SEG_LEN))}
         for kname, (src, tpu) in sources.items()]}), flush=True)

@@ -22,26 +22,33 @@
 // frames [row r-1 | row r] of the audio, (rows,256) @ w_pbt(256,256) ->
 // [L|R], output gain; row -1 is the carried audio tail (C, 128).
 //
-// What bounds them on an H100: mix_demod (and sweep_mix_demod) reads 8 B and writes 4 B per
-// sample and does 1,024 flops per 128 samples of the product; pbt reads 4 B
-// and writes 8 B and does the same 1,024. At 128 channels x 2^19 samples
-// each is 68.7 GFLOP (1.03 ms at the 67 TFLOP/s fp32 rate outside the tensor
-// cores) against 0.81 GB (0.24 ms at 3.35 TB/s): bound by arithmetic.
+// What bounds them on an H100: mix_demod (and sweep_mix_demod) reads 8 B and
+// writes 4 B per sample and does 1,024 flops per 128 samples of the product;
+// pbt reads 4 B and writes 8 B and does the same 1,024. At 128 channels x
+// 2^19 samples each is 68.7 GFLOP against 0.81 GB (0.24 ms at 3.35 TB/s): in
+// fp32 outside the tensor cores (67 TFLOP/s) 1.03 ms, bound by arithmetic;
+// as three TF32 passes on the tensor cores (495 TFLOP/s dense) 0.42 ms,
+// still above the bytes, within a factor of two of them.
 //
-// What the design does about it: the products are chain_common.cuh's
-// register-blocked fp32 FMA, as in sweep_chain.cu. Both kernels are
-// stateless, so the grid is (channel, 64-row chunk): 64 blocks per channel
-// at the full width instead of the sweep's one, and no carry between blocks.
-// A block loads its chunk's 64 rows and the row before it, from the stream
-// or, for chunk 0, from the carried tail; the JAX wrapper's one-block-shifted
-// copy of the stream is not made.
+// What the design does about it: mix_demod's product is chain_common.cuh's
+// register-blocked fp32 FMA, as in sweep_chain.cu; pbt's runs on
+// tc_gemm.cuh's 3xTF32 tensor-core engine, two blocks an SM (at most 128
+// registers), so that one block's loads and stores overlap the other's
+// products, its rows copied in with cp.async (no stop in registers). Both
+// kernels are stateless, so the grid is (channel, 64-row chunk): 64 blocks
+// per channel at the full width instead of the sweep's one, and no carry
+// between blocks. A block loads its chunk's 64 rows and the row before it,
+// from the stream or, for chunk 0, from the carried tail; the JAX wrapper's
+// one-block-shifted copy of the stream is not made.
 
 #include "chain_common.cuh"
+#include "tc_gemm.cuh"
 
 namespace {
 
 constexpr int kMixSmemFloats = kAsFloats + kBsFloats + 2 * kRowBuf;
-constexpr int kPbtSmemFloats = kAsFloats + kBsFloats + kRowBuf;
+constexpr int kPbtRing = 4;   // operator steps copied ahead: what two blocks an SM leave room for
+constexpr int kPbtSmemFloats = tc::tile_floats<256, kPbtRing, false>() + kRowBuf;
 
 // kTail: mix_demod, row -1 of chunk 0 the carried tail, input gains, the
 // audio stored as it is. Else sweep_mix_demod: row -1 zeros (the tail load
@@ -88,35 +95,36 @@ __global__ void __launch_bounds__(kThreads) mix_demod_kernel(
   store_rows<128>(acc, audio, nullptr, base, row0, rows, kTail ? 1.f : out_gain);
 }
 
-__global__ void __launch_bounds__(kThreads) pbt_kernel(
+// Two blocks an SM: at most 128 registers, and 2 x 115,460 B of shared
+// memory.
+__global__ void __launch_bounds__(kThreads, 2) pbt_kernel(
     const float* __restrict__ audio, const float* __restrict__ w_pbt,
     const float* __restrict__ tail, float* __restrict__ out_l,
     float* __restrict__ out_r, int n, float out_gain) {
   extern __shared__ __align__(16) float smem[];
-  float* As = smem;
-  float* Bs = As + kAsFloats;
-  float* Ab = Bs + kBsFloats;  // audio rows, row 0 = the row before the chunk
+  float* tiles = smem;                            // the operator tiles
+  float* Ab = tiles + tc::tile_floats<256, kPbtRing, false>();   // audio rows, row 0 = the row before the chunk
 
   const int c = blockIdx.x, tid = threadIdx.x;
   const int row0 = blockIdx.y * kRows;
   const int rows = min(kRows, n / kBlk - row0);
   const size_t base = (size_t)c * n;
 
+  // rows 0..kRows: stream rows row0-1 .. row0+kRows-1 (the tail before the
+  // stream, zeros past its end), copied without a stop in registers
   for (int e = tid; e < (kRows + 1) * kBlk; e += kThreads) {
     const int r = e / kBlk, j = e % kBlk;
     const int pos = (row0 + r - 1) * kBlk + j;
-    float v = 0.f;
-    if (pos < 0)
-      v = tail[(size_t)c * kBlk + j];
-    else if (r <= rows)
-      v = audio[base + pos];
-    Ab[r * kLd + j] = v;
+    const float* src = pos < 0 ? tail + (size_t)c * kBlk + j : audio + base + pos;
+    tc::copy4(Ab + r * kLd + j, r <= rows ? src : audio, r <= rows ? 4 : 0);
   }
+  tc::copy_commit();
+  tc::copy_wait<0>();
   __syncthreads();
 
-  float acc[8][8];
-  chunk_gemm<256>(Ab, Ab, w_pbt, 256, As, Bs, acc);
-  store_rows<256>(acc, out_l, out_r, base, row0, rows, out_gain);
+  tc::Acc<256, false> acc;
+  tc::gemm<256, kPbtRing, false>(Ab, Ab, w_pbt, 256, tiles, acc);
+  tc::store_rows<256>(acc, out_l, out_r, base, row0, rows, out_gain);
 }
 
 int prepare(const void* kernel, int smem, int device) {

@@ -58,8 +58,10 @@
 // magnitudes a second time (65 more, above the bound, see below). One 128-channel x 2^19-sample ssb segment is
 // 1.07 GB (0.32 ms at 3.35 TB/s) and 137 GFLOP (2.0 ms at the 67 TFLOP/s
 // fp32 rate outside the tensor cores): in fp32 SIMT it is bound by
-// arithmetic. The blanker adds about 10 flops and a square root per sample,
-// the AM envelope and DC blocker about 6 and a square root, the LMS 576.
+// arithmetic. As three TF32 passes on the tensor cores (495 TFLOP/s dense)
+// the products take 0.83 ms, still above the bytes. The blanker adds about
+// 10 flops and a square root per sample, the AM envelope and DC blocker
+// about 6 and a square root, the LMS 576.
 // The SAM PLL and the LMS are not bound by a rate: each is a chain of
 // dependent per-sample steps, n of them per segment whatever the channel
 // count. The PLL walks them one sample at a time (sam_pll.cuh); the LMS runs
@@ -72,7 +74,12 @@
 // What the design does about it: every intermediate stays on chip, so device
 // memory sees only the 16 B/sample; the time goes to the products, run as
 // register-blocked fp32 FMA (8 rows x 4 or 8 columns per thread, the frame
-// operand broadcast from shared memory, chain_common.cuh). One block of 256
+// operand broadcast from shared memory, chain_common.cuh's chunk_gemm), but
+// in K1-nb (ssb + blanker, sweep_chain_ssb_nb), whose band-pass and PBT
+// products run on tc_gemm.cuh's 3xTF32 tensor-core engine (the product
+// policy below: Tf32x3 for that instantiation alone, kTensorCores; every
+// other one keeps chunk_gemm). The blanker runs before the products, so its
+// keep mask and average are the same on either engine. One block of 256
 // threads owns one channel (128 blocks for 132 SMs) and walks time in chunks
 // of 64 rows of 128 samples, which is what the TPU grid did with its
 // sequential axis. Every carry stays in shared memory or registers from
@@ -157,8 +164,8 @@
 // from the true carry, so every sample follows the sequential recurrence.
 // Segments past the end of a partial last chunk come after every valid one
 // and never reach a carry. Hiding the LMS's walk behind the products on the
-// routes without SAM, and a TF32/3xTF32 tensor-core design of the products
-// are later work.
+// routes without SAM, and the tensor-core engine for the other
+// instantiations, are later work.
 
 #pragma once
 
@@ -168,6 +175,7 @@
 #include "chain_common.cuh"
 #include "lms_step.cuh"
 #include "sam_pll.cuh"
+#include "tc_gemm.cuh"
 
 namespace {
 
@@ -379,14 +387,48 @@ __device__ __forceinline__ void inverse(const Twiddles& t, float* xb, int lane, 
 
 }  // namespace fft
 
-// As, Bs, three row buffers, scan segment ends, 8 carries; the blanker adds
-// the keep mask of the last row, the LMS its scratch (16-byte aligned: up to
-// 3 floats of padding before it), the spectral stage the per-row floor sums
-// and floors, the mixed carry row, the l/r carry rows and the twiddle table
-template <bool kNB, Nr kNR>
+// sweep_chain_kernel's product policy: the SSB chain's band-pass and PBT
+// products on chunk_gemm's fp32 FMA, its operator tiles As and Bs, or with
+// kTensorCores, which holds for the SSB chain with the blanker and R alone
+// (K1-nb, sweep_chain_ssb_nb), on Tf32x3, the 3xTF32 tensor-core engine of
+// tc_gemm.cuh as the chain runs it (gemm<N> the product, chunk_gemm's
+// contract; to_rows its rows into a row buffer, N = 128; store its rows to
+// device memory times a gain; Acc<N> its accumulators), its operator tiles
+// from As on.
+struct Tf32x3 {
+  // operator steps copied ahead; the band-pass (N = 128) split over K
+  static constexpr int kRing = 6;
+  static constexpr int kTileFloats = tc::tile_floats<256, kRing, false>();
+  static_assert(tc::tile_floats<128, kRing, true>() <= kTileFloats, "both products' tiles fit");
+  template <int N>
+  using Acc = tc::Acc<N, N == 128>;
+  template <int N>
+  __device__ __forceinline__ static void gemm(const float* lo, const float* hi,
+                                              const float* __restrict__ w, int K, float* As,
+                                              Acc<N>& acc) {
+    tc::gemm<N, kRing, N == 128>(lo, hi, w, K, As, acc);
+  }
+  __device__ __forceinline__ static void to_rows(const Acc<128>& acc, float* buf) {
+    tc::to_rows(acc, buf);
+  }
+  __device__ __forceinline__ static void store(const Acc<256>& acc, float* __restrict__ out_l,
+                                               float* __restrict__ out_r, size_t base, int row0,
+                                               int rows, float gain) {
+    tc::store_rows<256, 2>(acc, out_l, out_r, base, row0, rows, gain);
+  }
+};
+template <Demod kDemod, bool kNB, Nr kNR, bool kEmitR>
+constexpr bool kTensorCores = kDemod == Demod::kSSB && kNB && kNR == Nr::kNone && kEmitR;
+
+// The operator tiles (As and Bs, or Tf32x3's), three row buffers, scan
+// segment ends, 8 carries; the blanker adds the keep mask of the last row,
+// the LMS its scratch (16-byte aligned: up to 3 floats of padding before
+// it), the spectral stage the per-row floor sums and floors, the mixed carry
+// row, the l/r carry rows and the twiddle table
+template <bool kNB, Nr kNR, bool kTc = false>
 constexpr int smem_floats() {
-  return kAsFloats + kBsFloats + 3 * kRowBuf + kThreads + 8 + (kNB ? kBlk : 0) +
-         (is_lms(kNR) ? lms::kScratchFloats + 3 : 0) +
+  return (kTc ? Tf32x3::kTileFloats : kAsFloats + kBsFloats) + 3 * kRowBuf + kThreads + 8 +
+         (kNB ? kBlk : 0) + (is_lms(kNR) ? lms::kScratchFloats + 3 : 0) +
          (kNR == Nr::kSpectral ? 2 * kRows + 4 * kBlk + 512 : 0);
 }
 
@@ -739,10 +781,11 @@ __global__ void __launch_bounds__(kThreads, 1) sweep_chain_kernel(const ChainArg
   constexpr bool kDsb = kDemod == Demod::kAM;  // the complex band-pass and DC blocker
   constexpr bool kLMS = is_lms(kNR);
   constexpr bool kSpec = kNR == Nr::kSpectral;
+  constexpr bool kTc = kTensorCores<kDemod, kNB, kNR, kEmitR>;   // the SSB products' policy
   extern __shared__ __align__(16) float smem[];
   float* As = smem;
   float* Bs = As + kAsFloats;
-  float* Mr = Bs + kBsFloats;  // mixed I rows
+  float* Mr = Bs + (kTc ? Tf32x3::kTileFloats - kAsFloats : kBsFloats);  // mixed I rows
   float* Mi = Mr + kRowBuf;    // mixed Q rows
   float* Ab = Mi + kRowBuf;    // demodulated audio rows, AGC applied in place
   float* seg = Ab + kRowBuf;   // scan segment ends, then carries into segments
@@ -825,6 +868,10 @@ __global__ void __launch_bounds__(kThreads, 1) sweep_chain_kernel(const ChainArg
           for (int j = 0; j < 4; ++j)
             Ab[(warp * 8 + i + 1) * kLd + lane * 4 + j] =
                 sqrtf(acc[i][j] * acc[i][j] + acc[i][4 + j] * acc[i][4 + j]);
+      } else if constexpr (kTc) {
+        Tf32x3::Acc<128> acc;
+        Tf32x3::gemm<128>(Mr, Mi, a.w_band, 512, As, acc);
+        Tf32x3::to_rows(acc, Ab);
       } else {
         float acc[8][4];
         chunk_gemm<128>(Mr, Mi, a.w_band, 512, As, Bs, acc);
@@ -858,10 +905,15 @@ __global__ void __launch_bounds__(kThreads, 1) sweep_chain_kernel(const ChainArg
 
     // 4. PBT -> [L|R]; the audio rows' last row becomes the next chunk's
     // row 0 (the product has read them all); then the NR stage after PBT
-    float lr[8][8];
-    chunk_gemm<256>(Ab, Ab, a.w_pbt, 256, As, Bs, lr);
+    std::conditional_t<kTc, Tf32x3::Acc<256>, float[8][8]> lr;
+    if constexpr (kTc)
+      Tf32x3::gemm<256>(Ab, Ab, a.w_pbt, 256, As, lr);
+    else
+      chunk_gemm<256>(Ab, Ab, a.w_pbt, 256, As, Bs, lr);
     if (tid < kBlk) Ab[tid] = Ab[rows * kLd + tid];
-    if constexpr (kNR == Nr::kNone || kNR == Nr::kNotch) {
+    if constexpr (kTc) {
+      Tf32x3::store(lr, a.out_l, a.out_r, base, row0, rows, a.out_gain);
+    } else if constexpr (kNR == Nr::kNone || kNR == Nr::kNotch) {
       // [L|R] (L alone without kEmitR), output gain, straight to device memory
       store_rows<256, kEmitR ? 2 : 1>(lr, a.out_l, a.out_r, base, row0, rows, a.out_gain);
     } else if constexpr (kNR == Nr::kDenoise) {
@@ -1379,7 +1431,8 @@ int launch(const ChainArgs& a, int channels, int device, void* stream) {
     if (err != cudaSuccess) return (int)err;
     sam_chain_kernel<kNB, kNR><<<channels, SamSync<kNR>::kBlock, smem, (cudaStream_t)stream>>>(a);
   } else {
-    constexpr int smem = smem_floats<kNB, kNR>() * (int)sizeof(float);
+    constexpr int smem =
+        smem_floats<kNB, kNR, kTensorCores<kDemod, kNB, kNR, kEmitR>>() * (int)sizeof(float);
     static_assert(smem <= 232448, "shared memory of one H100 block");
     if (err == cudaSuccess)
       err = cudaFuncSetAttribute(sweep_chain_kernel<kDemod, kNB, kNR, kEmitR>,

@@ -10,7 +10,8 @@ imported:
 
 ``code`` reads the libraries that ``run`` built in each checkout: ptxas'
 registers, stack and spills from the build logs, and each kernel's SASS
-(``cuobjdump -sass``), the anonymous namespace's per-file name taken out;
+(``cuobjdump -sass``), the anonymous namespace's per-file name and the
+column padding taken out;
 it prints the kernels whose SASS or ptxas lines differ and those in one
 build only.
 
@@ -147,8 +148,10 @@ def _kernels(root, lib):
     code = {}
     for part in re.split(r"^\s*Function : ", sass, flags=re.MULTILINE)[1:]:
         name, body = part.split("\n", 1)
+        # cuobjdump pads each line to the module's longest instruction:
+        # compare the instructions, not the padding
         code[_ANON.sub("X", name.strip())] = hashlib.sha256(
-            _ANON.sub("X", body).encode()).hexdigest()
+            re.sub(r"[ \t]+", " ", _ANON.sub("X", body)).encode()).hexdigest()
     return {k: (ptxas.get(k), code.get(k)) for k in sorted(set(ptxas) | set(code))}
 
 

@@ -10,9 +10,11 @@ import pytest
 from radiodsp_sdr_rx_tpu_torch.utils import build
 
 
-CHAIN = ["sweep_chain.cuh", "chain_args.cuh", "chain_common.cuh", "lms_step.cuh", "sam_pll.cuh"]
+CHAIN = ["sweep_chain.cuh", "chain_args.cuh", "chain_common.cuh", "lms_step.cuh", "sam_pll.cuh",
+         "tc_gemm.cuh"]
 HEADERS = {"sweep_chain": CHAIN, "sweep_denoise": CHAIN, "sweep_notch": CHAIN,
-           "sweep_spec": CHAIN, "staged": ["chain_common.cuh"], "lms": ["lms_step.cuh"],
+           "sweep_spec": CHAIN, "staged": ["chain_common.cuh", "tc_gemm.cuh"],
+           "lms": ["lms_step.cuh"],
            "sam": ["sam_pll.cuh"],
            "sam_wide": ["chain_args.cuh", "chain_common.cuh", "sam_pll.cuh"]}
 
@@ -24,7 +26,7 @@ def test_sources_follow_includes(name):
 
 @pytest.mark.parametrize("edited", ["staged.cu", "chain_common.cuh", "sweep_chain.cu",
                                     "sam_pll.cuh", "lms_step.cuh", "sweep_chain.cuh",
-                                    "chain_args.cuh"])
+                                    "chain_args.cuh", "tc_gemm.cuh"])
 def test_artifact_changes_with_each_source(tmp_path, monkeypatch, edited):
     csrc = tmp_path / "csrc"
     shutil.copytree(build.CSRC, csrc)

@@ -3,8 +3,12 @@
 Every test here needs an NVIDIA card and nvcc; without them each skips (the
 ``cuda_device`` fixture decides at run time). On the card:
 ``python -m pytest tests/test_torch_kernels_cuda.py -q``.
-Tolerance 1e-4, as in chip_smoke.py: both are fp32 (TF32 off), the sums are
-taken in another order, and the AGC gain of up to 316 amplifies rounding.
+Tolerance 1e-4, as in chip_smoke.py: both are fp32 (TF32 off; K2b ``pbt`` and
+K1-nb ``sweep_chain_ssb_nb`` run their products as 3xTF32 on the tensor
+cores, about 2^-22 relative per term), the sums are taken in another order,
+and the AGC gain of up to 316 amplifies rounding. K2b is also held at ragged
+shapes (1, 3 and 129 channels; 1 and 3 chunks and a partial last one), and
+K1-nb's blanker carries to the plain chain's, its keep mask exactly.
 The LMS kernel is held to 2e-4, the JAX twin bound (tests/test_pallas_lms.py:
 35): its 96-tap sums run in another order and the adaptation carries that.
 The NR bank's staged routes are held to the port's ReceiverBank at 2e-3
@@ -200,6 +204,46 @@ def _impulse_scene(channels, n, gen, device):
         xr[:, pos] = 8.0
         xi[:, pos] = 8.0
     return xr, xi, float(torch.hypot(xr, xi).mean())
+
+
+@pytest.mark.parametrize("rows", [64, 192, 67])         # 1 chunk, 3 chunks, a partial last one
+@pytest.mark.parametrize("channels", [1, 3, 129])
+def test_pbt_kernel_matches_plain_at_ragged_shapes(cuda_device, channels, rows):
+    """K2b (3xTF32 on the tensor cores, csrc/tc_gemm.cuh) against its plain
+    fp32 version, a carried tail and an output gain other than 1, over two
+    threaded segments."""
+    gen = torch.Generator(device=cuda_device).manual_seed(channels * 1000 + rows)
+    bank = _bank(AGCMode.MEDIUM, channels, cuda_device, backend="staged")
+    tail = torch.randn((channels, 128), generator=gen, device=cuda_device)
+    for _ in range(2):
+        audio = torch.randn((channels, rows * 128), generator=gen, device=cuda_device)
+        args = (audio, bank.params.w_pbt, tail, 0.7)
+        ref = staged.pbt_filter_plain(*args)
+        before = staged.LAUNCHES_PBT
+        got = staged.pbt_filter(*args)
+        torch.cuda.synchronize()
+        assert staged.LAUNCHES_PBT == before + 1
+        _close(got, ref)
+        tail = audio[:, -128:].contiguous()
+
+
+@pytest.mark.parametrize("channels, n", [(1, 8192), (6, 8576), (128, 3 * 8192)])
+def test_nb_kernel_blanker_carries_match_plain(cuda_device, channels, n):
+    """K1-nb's blanker runs before its tensor-core products: on the impulse
+    scene its keep mask out (nb_mask) equals the plain chain's and its
+    average out (nb_avg) agrees with it, over two threaded segments."""
+    bank = _bank(AGCMode.MEDIUM, channels, cuda_device, noise_blanker=True)
+    gen = torch.Generator(device=cuda_device).manual_seed(n + 5)
+    xr, xi, mean_mag = _impulse_scene(channels, n, gen, cuda_device)
+    state = bank.init_state()._replace(
+        nb_avg=torch.full((channels,), mean_mag, device=cuda_device))
+    for _ in range(2):
+        ref = sweep.sweep_full_chain_plain(*bank.chain_args(xr, xi, state))
+        _, state = bank.process_planar(xr, xi, state)
+        torch.cuda.synchronize()
+        assert torch.equal(state.nb_mask, ref[5])
+        assert float(state.nb_mask[:, -1].max()) == 0.0
+        _close((state.nb_avg,), (ref[4],))
 
 
 @pytest.mark.parametrize("nb", [False, True])
