@@ -10,7 +10,10 @@ segments, state threaded between them) through the kernels, holds the fused
 banks against the port's reference chain, and times them:
 
   - the main path, the 128-channel USB ``FusedSSBBank`` of bench.py,
-    backend="sweep": kernel sweep_chain_ssb, 1 launch/segment;
+    backend="sweep": kernel sweep_chain_ssb, 1 launch/segment (its products
+    and K1-mono's on the tensor cores, fed from the operators' pre-split
+    image by bulk copies; both also held to the plain versions at 7
+    channels with a partial last chunk);
   - the staged path, backend="staged": kernels mix_demod and pbt with the AGC
     between them in PyTorch, 2 launches/segment;
   - the noise-blanker path, noise_blanker=True: kernel sweep_chain_ssb_nb,
@@ -310,6 +313,9 @@ def ptxas_summary(log: str):
             demod, nb, nr, stereo = re.search(r"DemodE(\d)ELb(\d)EL\w*?NrE(\d)ELb(\d)E",
                                               mangled).groups()
             kname = kernel_of(int(demod), nb == "1", int(nr), stereo == "1")
+        elif "ssb_fed_kernel" in mangled:
+            stereo = re.search(r"ssb_fed_kernelILb(\d)E", mangled).group(1)
+            kname = kernel_of(0, False, 0, stereo == "1")
         elif "am_pair_kernel" in mangled:
             nb = re.search(r"am_pair_kernelILb(\d)E", mangled).group(1)
             kname = f"sweep_chain_am{'_nb' if nb == '1' else ''} (pair)"
@@ -939,6 +945,33 @@ def main() -> None:
         check(d <= TOL, f"sweep_chain_ssb_mono disagrees with the plain version: {d:.3e} > {TOL:g}")
         check(same, "sweep_chain_ssb_mono's L differs from sweep_chain_ssb's")
         err["sweep_chain_ssb_mono"] = max(err["sweep_chain_ssb_mono"], d)
+
+    # K1-ssb and K1-mono on their pre-laid feed at 7 channels over two
+    # threaded segments with a partial last chunk, against the plain version,
+    # and K1-mono's L bit for bit K1-ssb's
+    small7 = FusedSSBBank(cfg, freqs[:7])
+    state = small7.init_state()
+    for seg in range(2):
+        xr, xi = noise((7, 8576), gen), noise((7, 8576), gen)
+        xr[:, 3000:3400] *= 30.0
+        args = small7.chain_args(xr, xi, state)
+        got = {}
+        for emit_r, kname in ((True, "sweep_chain_ssb"), (False, "sweep_chain_ssb_mono")):
+            got[emit_r] = sweep.sweep_full_chain(*args, emit_r=emit_r)
+            ref = sweep.sweep_full_chain_plain(*args, emit_r=emit_r)
+            torch.cuda.synchronize()
+            d = max_diff([g for g in got[emit_r] if g is not None],
+                         [r for r in ref if r is not None])
+            say(f"check {kname} 7 ch x 8576 (a partial last chunk), segment {seg}: "
+                f"max |kernel - plain| = {d:.3e} (tolerance {TOL:g})")
+            check(d <= TOL, f"{kname} at 7 channels: {d:.3e} > {TOL:g}")
+            err[kname] = max(err[kname], d)
+        same = bool(torch.equal(got[False][0], got[True][0]))
+        say(f"check sweep_chain_ssb_mono 7 ch x 8576, segment {seg}: L equal to "
+            f"sweep_chain_ssb's: {same}")
+        check(same, "sweep_chain_ssb_mono's L differs from sweep_chain_ssb's at 7 channels")
+        _, state = small7.process_planar(xr, xi, state)
+    del small7
 
     cfg4 = cfg.with_(nr=NRMode.SPEC2)   # bench_full.py config4_spec_nr_64ch
     for agc_mode in (AGCMode.MEDIUM, AGCMode.OFF):
@@ -2007,6 +2040,13 @@ def main() -> None:
 
     args = bank.chain_args(xr, xi, state)
     b_ms, b_by, s_ms = bound(ops1 + ops2, 4 * samples * 4 + w_bytes + words_tails, ops1 + ops2)
+    # the image K1-ssb and K1-mono read, by count (not measured): every
+    # block copies the whole of it a chunk (the band-pass's 512 KB, PBT's
+    # 512 KB or L's 256 KB)
+    chunks = -(-SEG_LEN // (128 * 64))
+    image_bytes = {kname: N_CHANNELS * chunks * 8 * (512 * 128 + 256 * (256 if emit_r else 128))
+                   for emit_r, kname in ((True, "sweep_chain_ssb"),
+                                         (False, "sweep_chain_ssb_mono"))}
     timing["sweep_chain_ssb"] = dict(
         ms=time_ms(lambda: sweep.sweep_full_chain(*args), REPS),
         plain_ms=time_ms(lambda: sweep.sweep_full_chain_plain(*args), 3),
@@ -2339,7 +2379,10 @@ def main() -> None:
             + f", library {library}, bound "
             f"{tm['bound_ms']:.3f} ms ({tm['bound_by']}; at the fp32 SIMT rate "
             f"{tm['simt_bound_ms']:.3f} ms)")
-    tc_products = {"pbt": ops2, "sweep_chain_ssb_nb": ops1 + ops2}
+    tc_products = {"pbt": ops2, "sweep_chain_ssb_nb": ops1 + ops2, "sweep_chain_ssb": ops1 + ops2,
+                   "sweep_chain_ssb_mono": ops1 + ops2 // 2}
+    for k in ("sweep_chain_ssb", "sweep_chain_ssb_mono"):
+        timing[k]["tf32_pass_tflops"] = TC_PASSES * tc_products[k] / timing[k]["ms"] / 1e9
     say(f"tensor-core engine (csrc/tc_gemm.cuh: each product as {TC_PASSES} TF32 passes of "
         "wgmma.mma_async m64n128k8, each operand split big + small, both rounded to nearest): "
         + "; ".join(
@@ -2349,6 +2392,9 @@ def main() -> None:
             f"({timing[k]['bound_by']}), {timing[k]['simt_bound_ms']:.3f} ms at the fp32 SIMT "
             f"rate, library {timing[k]['library_ms']:.3f} ms, max |kernel - plain| "
             f"{err[k]:.3e}, ptxas {ptxas.get(k, 'not in the build log')}"
+            + ("" if k not in image_bytes else
+               f", the pre-laid feed, one block a channel: the image copied "
+               f"{image_bytes[k] / 1e9:.3f} GB a segment by count (not measured)")
             for k, p in tc_products.items()))
     lms_kernels = ["lms_nr"] + [k for k in lanes.KERNELS if not k.startswith("lanes_sam")
                                 and "spectral" not in k]
@@ -2468,7 +2514,9 @@ def main() -> None:
         "bound_ms": timing[kname]["bound_ms"], "bound_by": timing[kname]["bound_by"],
         "simt_bound_ms": timing[kname]["simt_bound_ms"],
         "library_ms": timing[kname]["library_ms"],
-        "plain_timed_samples": timing[kname].get("plain_from", timing[kname].get("seg", SEG_LEN))}
+        "plain_timed_samples": timing[kname].get("plain_from", timing[kname].get("seg", SEG_LEN)),
+        **({"tf32_pass_tflops": timing[kname]["tf32_pass_tflops"]}
+           if "tf32_pass_tflops" in timing[kname] else {})}
         for kname, (src, tpu) in sources.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)

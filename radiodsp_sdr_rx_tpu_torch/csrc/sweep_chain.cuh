@@ -75,11 +75,15 @@
 // memory sees only the 16 B/sample; the time goes to the products, run as
 // register-blocked fp32 FMA (8 rows x 4 or 8 columns per thread, the frame
 // operand broadcast from shared memory, chain_common.cuh's chunk_gemm), but
-// in K1-nb (ssb + blanker, sweep_chain_ssb_nb), whose band-pass and PBT
-// products run on tc_gemm.cuh's 3xTF32 tensor-core engine (the product
-// policy below: Tf32x3 for that instantiation alone, kTensorCores; every
-// other one keeps chunk_gemm). The blanker runs before the products, so its
-// keep mask and average are the same on either engine. One block of 256
+// in the SSB chain without an NR stage, whose band-pass and PBT products run
+// on tc_gemm.cuh's 3xTF32 tensor-core engine: K1-nb (ssb + blanker,
+// sweep_chain_ssb_nb) through the product policy below (Tf32x3, for that
+// instantiation alone, kTensorCores; every other instantiation of
+// sweep_chain_kernel keeps chunk_gemm), its operators copied raw and split
+// in the kernel; K1-ssb and K1-mono (sweep_chain_ssb, sweep_chain_ssb_mono)
+// in ssb_fed_kernel below, their operators split once outside the kernel
+// and brought in by a producer warp's bulk copies. The blanker runs before the products, so its keep mask and
+// average are the same on either engine. One block of 256
 // threads owns one channel (128 blocks for 132 SMs) and walks time in chunks
 // of 64 rows of 128 samples, which is what the TPU grid did with its
 // sequential axis. Every carry stays in shared memory or registers from
@@ -164,8 +168,8 @@
 // from the true carry, so every sample follows the sequential recurrence.
 // Segments past the end of a partial last chunk come after every valid one
 // and never reach a carry. Hiding the LMS's walk behind the products on the
-// routes without SAM, and the tensor-core engine for the other
-// instantiations, are later work.
+// routes without SAM, and the tensor-core engine for the AM, SAM and NR
+// instantiations (and the pre-laid feed for K1-nb), are later work.
 
 #pragma once
 
@@ -390,7 +394,8 @@ __device__ __forceinline__ void inverse(const Twiddles& t, float* xb, int lane, 
 // sweep_chain_kernel's product policy: the SSB chain's band-pass and PBT
 // products on chunk_gemm's fp32 FMA, its operator tiles As and Bs, or with
 // kTensorCores, which holds for the SSB chain with the blanker and R alone
-// (K1-nb, sweep_chain_ssb_nb), on Tf32x3, the 3xTF32 tensor-core engine of
+// (K1-nb, sweep_chain_ssb_nb; the SSB chain without the blanker runs
+// ssb_fed_kernel), on Tf32x3, the 3xTF32 tensor-core engine of
 // tc_gemm.cuh as the chain runs it (gemm<N> the product, chunk_gemm's
 // contract; to_rows its rows into a row buffer, N = 128; store its rows to
 // device memory times a gain; Acc<N> its accumulators), its operator tiles
@@ -1208,6 +1213,134 @@ __global__ void __launch_bounds__(kThreads, 1) am_pair_kernel(const ChainArgs a)
   pair::cluster_sync();   // no block leaves while its partner may still write to it
 }
 
+// K1's SSB chain without the blanker, sweep_chain_ssb and, without R,
+// sweep_chain_ssb_mono (ssb_fed_kernel): sweep_chain_kernel's per-chunk code
+// with both products on tc_gemm.cuh's pre-laid feed. The operators come as
+// their images (ops/tf32x3.tf32_image, built once by the bank), 32 K steps a
+// product, each one block of both warpgroups' parts: the band-pass split
+// over K (step j: K steps j and 32 + j, 16 KB, m64n128k8, the two parts
+// added by to_rows as K1-nb's); PBT split over columns, with R [L | R]'s 256
+// columns as two m64n128k8 halves (16 KB), without R L's 128 as two m64n64k8
+// halves (8 KB), so that each of L's columns is summed over K in the same
+// order as with R and L comes out bit for bit the same. Four K steps are a
+// unit of the feed: the block reads the 8 band-pass units and then the 8 PBT
+// units, chunk after chunk: 16 a chunk, brought in by a ninth warp (the
+// block has 288 threads; the chain's eight meet at ChainSync's named
+// barrier) into a ring of two 64 KB slots. For that room the audio rows lie
+// over the mixed I rows, which the band-pass has read by then; the mixed
+// rows' last row waits in a row of its own for the next chunk. One channel
+// a block, as sweep_chain_kernel.
+struct FeedArgs {
+  const float* band;   // the band-pass operator's image: 32 K steps of 16 KB
+  const float* pbt;    // PBT's: 32 K steps of 16 KB (with R) or 8 KB (L alone)
+};
+
+// the products' units: the band-pass's 32 K steps a warpgroup, PBT's 32,
+// kUnitSteps a unit
+constexpr int kBandUnits = 512 / tc::kKS / 2 / tc::feed::kUnitSteps;
+constexpr int kPbtUnits = 256 / tc::kKS / tc::feed::kUnitSteps;
+constexpr int kChunkUnits = kBandUnits + kPbtUnits;
+
+// the source and size of the block's unit i
+template <bool kEmitR>
+struct SsbPlan {
+  static constexpr int kPbtFloats = kEmitR ? tc::feed::kSlotFloats : tc::feed::kSlotFloats / 2;
+  const float* band;
+  const float* pbt;
+  __device__ __forceinline__ const float* src(int i) const {
+    const int j = i % kChunkUnits;
+    return j < kBandUnits ? band + j * tc::feed::kSlotFloats
+                          : pbt + (j - kBandUnits) * kPbtFloats;
+  }
+  __device__ __forceinline__ uint32_t bytes(int i) const {
+    return 4u * (i % kChunkUnits < kBandUnits ? tc::feed::kSlotFloats : kPbtFloats);
+  }
+};
+
+// the ring, two row buffers, scan segment ends, 8 carries, the mixed carry
+// row [re | im], the audio carry row, the ring's barriers (8-byte aligned)
+constexpr int fed_smem_floats() {
+  return tc::feed::kRingFloats + 2 * kRowBuf + kThreads + 8 + 3 * kBlk + 1 + 2 * tc::feed::kBars;
+}
+
+template <bool kEmitR>
+__global__ void __launch_bounds__(kThreads + 32, 1) ssb_fed_kernel(const ChainArgs a,
+                                                                   const FeedArgs fa) {
+  using Sync = ChainSync;      // the chain's warps 0-7; warp 8 produces the feed
+  extern __shared__ __align__(16) float smem[];
+  float* Mr = smem + tc::feed::kRingFloats;   // mixed I rows, then the audio rows
+  float* Mi = Mr + kRowBuf;       // mixed Q rows
+  float* Ab = Mr;                 // the audio rows (AGC in place), over the dead I rows
+  float* seg = Mi + kRowBuf;      // scan segment ends, then carries into segments
+  float* env_c = seg + kThreads;  // [0] AGC envelope
+  float* mt = env_c + 8;          // the mixed rows' last row [re | im], the next row 0
+  float* at = mt + 2 * kBlk;      // the audio rows' last row, PBT's next row 0
+  const uint32_t bars = tc::feed::addr(smem + ((at + kBlk - smem + 1) & ~1));
+
+  const int c = blockIdx.x, tid = threadIdx.x;
+  const int n = a.n, nrows = n / kBlk, chunks = (nrows + kRows - 1) / kRows;
+  tc::Feed<SsbPlan<kEmitR>> feed{SsbPlan<kEmitR>{fa.band, fa.pbt}, smem, bars,
+                                 chunks * kChunkUnits, 0};
+  feed.setup();
+  __syncthreads();            // the ring's barriers set up before any copy or wait
+
+  if (tid >= kThreads) {      // the producer warp
+    feed.produce();
+  } else {
+    const size_t base = (size_t)c * n;
+    const ChunkConsts cc = chunk_consts<false, false>(a, c);
+    // the carried raw tail, re-scaled and re-mixed at positions -128..-1
+    if (tid < kBlk) {
+      const size_t t = (size_t)c * kBlk + tid;
+      mix(a.tail_r[t], a.tail_i[t], cc.ph0 + (uint32_t)(tid - kBlk) * cc.dph, a.g_i, a.g_q,
+          Mr[tid], Mi[tid]);
+      at[tid] = a.atail_in[t];
+    }
+    if (tid == 0) env_c[0] = a.env0[c];
+
+    for (int row0 = 0; row0 < nrows; row0 += kRows) {
+      const int rows = min(kRows, nrows - row0);
+
+      // 1. scale + mix into rows 1..kRows (zeros past the end)
+      mix_rows<false, Sync>(a, cc, Mr, Mi, nullptr, seg, env_c, base, row0, rows);
+
+      // 2. band-pass + SSB demod into the audio rows 1..kRows, over the I rows
+      // once the product has read them and their last row has gone to mt;
+      // row 0 the audio carry
+      {
+        tc::Acc<128, true> acc;
+        tc::fed_gemm<128, true>(Mr, Mi, feed, kBandUnits, acc);
+        if (tid < kBlk) {
+          mt[tid] = Mr[rows * kLd + tid];
+          mt[kBlk + tid] = Mi[rows * kLd + tid];
+        }
+        Sync::sync();
+        tc::fed_to_rows(acc, Ab);
+        if (tid < kBlk) Ab[tid] = at[tid];
+      }
+
+      // 3. AGC in place
+      agc_rows<Sync>(a, cc, Ab, rows, seg, env_c);
+
+      // 4. PBT -> [L|R] (L alone without R), output gain, straight to device
+      // memory; the audio rows' last row is PBT's next row 0, the mixed
+      // rows' the next chunk's row 0
+      tc::Acc<kEmitR ? 256 : 128, false> lr;
+      tc::fed_gemm<kEmitR ? 128 : 64, false>(Ab, Ab, feed, kPbtUnits, lr);
+      if (tid < kBlk) {
+        at[tid] = Ab[rows * kLd + tid];
+        Mi[tid] = mt[kBlk + tid];
+      }
+      Sync::sync();
+      if (tid < kBlk) Mr[tid] = mt[tid];
+      tc::store_rows<kEmitR ? 256 : 128, kEmitR ? 2 : 1>(lr, a.out_l, a.out_r, base, row0,
+                                                         rows, a.out_gain);
+    }
+    if (tid < kBlk) a.atail_out[(size_t)c * kBlk + tid] = at[tid];
+    if (tid == 0) a.env_out[c] = env_c[0];
+  }
+}
+
 // The SAM routes: the chain's eight warps and lane 0 of a ninth, which walks
 // the PLL, a chunk apart (chain_common.cuh's walk_ahead; the header's
 // description). The spectral routes, whose chain issues the most on the
@@ -1498,13 +1631,32 @@ int pair_clusters(int device) {
   return err == cudaSuccess ? clusters : -(int)err;
 }
 
+// Launch ssb_fed_kernel<kEmitR> on `stream` of CUDA device `device`, one
+// block a channel; returns the cudaError_t of the launch.
+template <bool kEmitR>
+int launch_fed(const ChainArgs& a, const FeedArgs& f, int channels, int device, void* stream) {
+  constexpr int smem = fed_smem_floats() * (int)sizeof(float);
+  static_assert(smem <= 232448, "shared memory of one H100 block");
+  cudaError_t err = cudaSetDevice(device);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(ssb_fed_kernel<kEmitR>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+  if (err != cudaSuccess) return (int)err;
+  ssb_fed_kernel<kEmitR><<<channels, kThreads + 32, smem, (cudaStream_t)stream>>>(a, f);
+  return (int)cudaGetLastError();
+}
+
 // The instantiation of NR stage kNR for demod (0 ssb, 1 am, 2 sam) and the
 // blanker (nb != 0); cudaErrorInvalidValue for another demod.
 template <Nr kNR>
 int launch_variant(const ChainArgs& a, int demod, int nb, int channels, int device,
                    void* stream) {
   switch (demod * 2 + (nb != 0)) {
-    case 0: return launch<Demod::kSSB, false, kNR>(a, channels, device, stream);
+    case 0:   // without an NR stage: ssb_fed_kernel (launch_fed)
+      if constexpr (kNR == Nr::kNone)
+        return (int)cudaErrorInvalidValue;
+      else
+        return launch<Demod::kSSB, false, kNR>(a, channels, device, stream);
     case 1: return launch<Demod::kSSB, true, kNR>(a, channels, device, stream);
     case 2: return launch<Demod::kAM, false, kNR>(a, channels, device, stream);
     case 3: return launch<Demod::kAM, true, kNR>(a, channels, device, stream);

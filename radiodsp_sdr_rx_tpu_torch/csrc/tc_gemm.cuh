@@ -1,6 +1,16 @@
-// tc_gemm.cuh: the chain kernels' product as 3xTF32 on the tensor cores
-// (K2b's pbt_kernel in staged.cu; K1-nb's band-pass and PBT products in
-// sweep_chain.cuh, through its product policy Tf32x3).
+// tc_gemm.cuh: the chain kernels' product as 3xTF32 on the tensor cores,
+// with two feeds of the operator into shared memory:
+//   gemm      the operator as it is in device memory, copied a K step at a
+//             time by every thread (cp.async) and split through registers
+//             into the stages wgmma reads (K2b's pbt_kernel in staged.cu;
+//             K1-nb's products in sweep_chain.cuh, through its product
+//             policy Tf32x3);
+//   fed_gemm  the operator split and laid out once outside the kernel (its
+//             image, ops/tf32x3.tf32_image), each K step brought into the
+//             stage wgmma reads by one bulk copy of a producer warp (K1-ssb
+//             and K1-mono, ssb_fed_kernel in sweep_chain.cuh; the second
+//             half of this file).
+// Both run the same algebra and layouts, described here for gemm.
 //
 // The contract is chain_common.cuh's chunk_gemm: the A operand A(r, k) is the
 // overlap-save frames of two row buffers lo and hi at stride kLd (k in
@@ -345,6 +355,237 @@ __device__ __forceinline__ void store_rows(const Acc<N, false>& acc, float* __re
             make_float2(acc[j][2 * h] * gain, acc[j][2 * h + 1] * gain);
     }
   }
+}
+
+// ---------------------------------------------------------------------------
+// The pre-laid feed (K1-ssb and K1-mono, ssb_fed_kernel in sweep_chain.cuh).
+//
+// The operator is split and laid out once, outside the kernel
+// (ops/tf32x3.tf32_image): for each K step of the block, both warpgroups'
+// parts (their column ranges, or their K steps of a product split over K),
+// each big then small in the K-major core-matrix layout above, one
+// contiguous block of 16-byte multiples; kUnitSteps consecutive K steps are
+// a unit, which the feed moves at once. The block reads its units in a
+// fixed order (a Plan: the band-pass's K steps, then PBT's, chunk after
+// chunk) through a ring of kSlots slots in shared memory, each slot with a
+// "full" and an "empty" mbarrier. A producer warp beside the chain's eight
+// (one lane of it) brings each unit in with one 1-D bulk copy
+// (cp.async.bulk, complete_tx on the slot's full barrier) straight into the
+// slot wgmma reads, as soon as the slot's empty barrier says every reader of
+// its previous unit is done: no thread copies or splits the operator, and
+// none of the chain's warps spends a cycle on the feed beyond a wait and a
+// release a unit. A copy costs its SM about 325 cycles whatever its size up
+// to 32 KB, and a barrier operation in the running kernel 100-300 cycles of
+// the thread that issues it (diag/tc_engine.py's probe, diag/k1_split.py's
+// trace, on an H100), so the bookkeeping sits on the producer's path, and a
+// unit is four K steps of both warpgroups' parts (64 KB, two slots): one
+// copy, one wait and one release for 24 passes of each warpgroup. Both
+// warpgroups wait on full at a unit's first step, take each step's A
+// fragments (split as gemm's) and issue its three passes on their part of
+// the slot, one group in flight (wgmma.wait_group 1), and release a unit once
+// its last step is done: thread 0 of each warpgroup arrives on the slot's
+// empty barrier. Each thread's waits go through the units in order, so no
+// barrier is ever more than one phase from the parity waited for.
+//
+// Every block reads the whole image once a chunk from the L2. Multicast over
+// a cluster of two blocks (two channels at the same unit, each copy issued
+// once for the pair) halves those reads and, on an H100, ran K1-ssb and
+// K1-mono 2-3% slower (diag/k1_split.py's variant multicast): the feed's
+// per-SM costs pace it before the L2 does.
+
+namespace feed {
+
+constexpr int kSlots = 2;                    // the block's ring
+constexpr int kUnitSteps = 4;                // K steps a unit
+constexpr int kSlotFloats = kUnitSteps * 2 * 2 * kKS * 128;   // the largest unit: K steps
+                                             // of two parts of 128 columns
+constexpr int kRingFloats = kSlots * kSlotFloats;
+constexpr int kBars = 2 * kSlots;            // the full barriers, then the empty ones
+
+__device__ __forceinline__ uint32_t addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void init(uint32_t bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+// one arrival on this block's barrier, and `bytes` more to come on it
+__device__ __forceinline__ void expect(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+// one arrival on this block's barrier, with the default release at the
+// block's scope: the barrier orders the tensor cores' reads of a slot
+// before the copy engine's refill, both in the async proxy, as CUTLASS's
+// consumer release does (release.cluster makes each arrival a fence of the
+// whole memory system, about 1,000 cycles a unit: diag/k1_split.py's
+// variant strong)
+__device__ __forceinline__ void arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+// until the phase of `parity` of this block's barrier has completed
+__device__ __forceinline__ void wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+// `bytes` from device memory into this block's slot dst, completing on its
+// barrier bar
+__device__ __forceinline__ void copy(uint32_t dst, const float* src, uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
+}
+
+}  // namespace feed
+
+// A block's feed: Plan gives unit i's source (src(i), 16-byte aligned) and
+// size (bytes(i), a multiple of 16, at most kSlotFloats floats); the ring at
+// slots, its barriers from bars (full[s] at bars + 8 s, empty[s] at bars +
+// 8 (kSlots + s)); `total` units in the launch. The producer is lane 0 of
+// warp 8, the chain warps 0-7; the block meets at a __syncthreads() between
+// setup() and the first wait or copy.
+template <class Plan>
+struct Feed {
+  Plan plan;
+  float* slots;
+  uint32_t bars;
+  int total;
+  int next;            // the chain's next unit to read
+
+  __device__ __forceinline__ static bool producer() { return threadIdx.x == kThreads; }
+  __device__ __forceinline__ uint32_t full(int s) const { return bars + 8 * s; }
+  __device__ __forceinline__ uint32_t empty(int s) const { return bars + 8 * (feed::kSlots + s); }
+  __device__ __forceinline__ const float* slot(int i) const {
+    return slots + (i % feed::kSlots) * feed::kSlotFloats;
+  }
+  // the producer, before the block's first barrier: the ring's barriers
+  __device__ __forceinline__ void setup() const {
+    if (!producer()) return;
+    for (int s = 0; s < feed::kSlots; ++s) {
+      feed::init(full(s), 1);
+      feed::init(empty(s), 2);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  // the producer, after it: every unit, each once its slot is free
+  __device__ __forceinline__ void produce() const {
+    if (!producer()) return;
+    for (int u = 0; u < total; ++u) {
+      const int s = u % feed::kSlots;
+      if (u >= feed::kSlots) feed::wait(empty(s), (uint32_t)(u / feed::kSlots - 1) & 1u);
+      feed::expect(full(s), plan.bytes(u));
+      feed::copy(feed::addr(slot(u)), plan.src(u), plan.bytes(u), full(s));
+    }
+  }
+  // every chain thread: until unit i has landed
+  __device__ __forceinline__ void wait(int i) const {
+    feed::wait(full(i % feed::kSlots), (uint32_t)(i / feed::kSlots) & 1u);
+  }
+  // thread 0 of each warpgroup, once its products have read unit i
+  __device__ __forceinline__ void release(int i) const {
+    if ((threadIdx.x & 127) != 0) return;
+    feed::arrive(empty(i % feed::kSlots));
+  }
+};
+
+// A's fragments of K step k, split, for the warpgroup's fragment rows arow
+// (+1), columns k + acol (+4): gemm's load_a
+__device__ __forceinline__ void a_fragments(const float* lo, const float* hi, int arow, int acol,
+                                            int k, uint32_t (&ab)[4], uint32_t (&as)[4]) {
+  const float* p = (k >= 256 ? hi : lo) + (arow + ((k >> 7) & 1)) * kLd + (k & 127) + acol;
+  split(p[0], ab[0], as[0]);
+  split(p[kLd], ab[1], as[1]);
+  split(p[4], ab[2], as[2]);
+  split(p[kLd + 4], ab[3], as[3]);
+}
+
+// acc = A @ the block's next `units` units of its feed, kUnitSteps K steps
+// each, of every K step the warpgroup's part (part wg: a K step of kNC
+// columns, 64 or 128: m64n64k8 or m64n128k8, big then small), summed over
+// the steps in order, each as small_a big_b + big_a small_b + big_a big_b; A
+// as gemm's, K step s of the warpgroup at A's columns 8 s, or with kSplitK
+// 8 (steps wg + s) (acc is then its part of the sum; to_rows adds the two).
+// acc's layout is gemm's, its columns the warpgroup's own. Run by the
+// chain's 256 threads; ends with ChainSync::sync(), so the caller may
+// overwrite what A read.
+template <int kNC, bool kSplitK, class Plan>
+__device__ __forceinline__ void fed_gemm(const float* lo, const float* hi, Feed<Plan>& f,
+                                         int units, float (&acc)[kNC / 8][4]) {
+  constexpr int kStep = 2 * 2 * kKS * kNC;   // floats of a K step of both warpgroups
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, wq = warp & 3, wg = warp >> 2;
+  const int arow = 32 * (wq >> 1) + 4 * (lane >> 2) + 2 * (wq & 1);
+  const int acol = lane & 3;
+  const int steps = units * feed::kUnitSteps;
+  const int k0 = kSplitK ? wg * steps * kKS : 0;
+  const int i0 = f.next;
+#pragma unroll
+  for (int j = 0; j < kNC / 8; ++j)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[j][c] = 0.f;
+
+  // K step s: its three products on its part of unit i0 + s / kUnitSteps
+  // (waited for at the unit's first step), committed as one group
+  auto run = [&](int s, const uint32_t (&ab)[4], const uint32_t (&as)[4]) {
+    const int i = i0 + s / feed::kUnitSteps;
+    if (s % feed::kUnitSteps == 0) f.wait(i);
+    const float* big = f.slot(i) + (s % feed::kUnitSteps) * kStep + wg * 2 * kKS * kNC;
+    const uint64_t db = descriptor(big), ds = descriptor(big + kKS * kNC);
+    fence();
+    wgmma(acc, as, db);
+    wgmma(acc, ab, ds);
+    wgmma(acc, ab, db);
+    commit();
+  };
+  // after K step s is issued: once step s - 1 is done, release its unit if
+  // it was the unit's last, and take step s + 1's A fragments into the set
+  // step s - 1 used
+  auto advance = [&](int s, uint32_t (&ab)[4], uint32_t (&as)[4]) {
+    wait<1>();
+    if (s >= 1 && s % feed::kUnitSteps == 0) f.release(i0 + s / feed::kUnitSteps - 1);
+    if (s + 1 < steps) a_fragments(lo, hi, arow, acol, k0 + (s + 1) * kKS, ab, as);
+  };
+
+  uint32_t ab0[4], as0[4], ab1[4], as1[4];
+  a_fragments(lo, hi, arow, acol, k0, ab0, as0);
+  for (int s = 0; s < steps; s += 2) {
+    run(s, ab0, as0);
+    advance(s, ab1, as1);
+    run(s + 1, ab1, as1);
+    advance(s + 1, ab0, as0);
+  }
+  wait<0>();
+  f.release(i0 + units - 1);
+  f.next = i0 + units;
+  ChainSync::sync();
+}
+
+// to_rows for the chain's 256 threads of a block with a producer warp: ends
+// with ChainSync::sync()
+__device__ __forceinline__ void fed_to_rows(const Acc<128, true>& acc, float* buf) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, wq = warp & 3;
+  const int r0 = 32 * (wq >> 1) + 4 * (lane >> 2) + 2 * (wq & 1) + 1;
+  const int c0 = 2 * (lane & 3);
+  if (warp >= 4) {
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) buf[(r0 + (c >> 1)) * kLd + c0 + 8 * j + (c & 1)] = acc[j][c];
+  }
+  ChainSync::sync();
+  if (warp < 4) {
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) buf[(r0 + (c >> 1)) * kLd + c0 + 8 * j + (c & 1)] += acc[j][c];
+  }
+  ChainSync::sync();
 }
 
 }  // namespace tc

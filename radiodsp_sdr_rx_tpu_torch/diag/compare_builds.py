@@ -10,10 +10,10 @@ imported:
 
 ``code`` reads the libraries that ``run`` built in each checkout: ptxas'
 registers, stack and spills from the build logs, and each kernel's SASS
-(``cuobjdump -sass``), the anonymous namespace's per-file name and the
-column padding taken out;
-it prints the kernels whose SASS or ptxas lines differ and those in one
-build only.
+(``cuobjdump -sass``), the anonymous namespace's per-file name, the column
+padding and the blank lines after a function taken out;
+it prints the kernels whose SASS or ptxas lines differ (with their first
+differing lines) and those in one build only.
 
 The routes: the SSB, AM and SAM banks with and without the blanker, each with
 DNR2, notch and SPEC2 folded (K1, K4, K6), SSB's staged NR routes (K1-mono,
@@ -145,14 +145,20 @@ def _kernels(root, lib):
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "-sass", str(so)], capture_output=True, text=True,
                           check=True).stdout
-    code = {}
+    code, text = {}, {}
     for part in re.split(r"^\s*Function : ", sass, flags=re.MULTILINE)[1:]:
         name, body = part.split("\n", 1)
-        # cuobjdump pads each line to the module's longest instruction:
-        # compare the instructions, not the padding
-        code[_ANON.sub("X", name.strip())] = hashlib.sha256(
-            re.sub(r"[ \t]+", " ", _ANON.sub("X", body)).encode()).hexdigest()
+        # cuobjdump pads each line to the module's longest instruction and
+        # follows a function with blank lines that depend on what comes next
+        # in the module: compare the instructions, not the padding
+        name = _ANON.sub("X", name.strip())
+        text[name] = re.sub(r"[ \t]+", " ", _ANON.sub("X", body)).rstrip()
+        code[name] = hashlib.sha256(text[name].encode()).hexdigest()
+    _SASS[root, lib] = text
     return {k: (ptxas.get(k), code.get(k)) for k in sorted(set(ptxas) | set(code))}
+
+
+_SASS: dict = {}   # (root, library) -> {kernel: its SASS as compared}
 
 
 def code(root_a, root_b):
@@ -170,6 +176,17 @@ def code(root_a, root_b):
             else:
                 print(f"  differs: {k}: SASS {'same' if a[k][1] == b[k][1] else 'differs'}; "
                       f"ptxas {a[k][0]} -> {b[k][0]}")
+                if a[k][1] != b[k][1]:   # the first lines that differ
+                    la = _SASS[root_a, lib][k].splitlines()
+                    lb = _SASS[root_b, lib][k].splitlines()
+                    print(f"    {len(la)} -> {len(lb)} lines; first differing:")
+                    for x, y in [(x, y) for x, y in zip(la, lb) if x != y][:6]:
+                        print(f"    - {x.strip()}\n    + {y.strip()}")
+                    n = min(len(la), len(lb))
+                    for x in la[n:n + 6]:
+                        print(f"    - {x.strip()}")
+                    for y in lb[n:n + 6]:
+                        print(f"    + {y.strip()}")
     return same
 
 

@@ -20,13 +20,20 @@ one to four blocks of 256 threads an SM).
   mma_sync  the engine's first form (diag/tc_gemm_mma_sync.cuh):
             mma.sync.m16n8k8 on fragments loaded by hand, the operator in K
             tiles of 16 rows at a padded stride, warps 2 x 4 over rows and
-            columns;
+            columns (K2b alone since the SSB kernels' pre-laid feed, which
+            needs wgmma, joined the header);
   nofence   without the proxy fence after each step's staging, and
   nobarrier without the warpgroup's barrier each step: what the per-step
             synchronisation costs (timing only: their outputs may be wrong,
             and the error printed says how far).
 
-    python -m radiodsp_sdr_rx_tpu_torch.diag.tc_engine
+Then the pre-laid feed's pieces (probe, below): bulk copies' cycles a copy
+and the barrier operations' cycles, which set the feed's unit of four K
+steps and its producer warp (csrc/tc_gemm.cuh).
+
+    python -m radiodsp_sdr_rx_tpu_torch.diag.tc_engine [--probe]
+
+(--probe: the pieces alone.)
 """
 import ctypes
 import subprocess
@@ -39,7 +46,9 @@ import torch
 from radiodsp_sdr_rx_tpu_torch.utils import build
 
 OUT = build.BUILD_DIR / "tc_engine"
-_MMA3 = """    wgmma(acc, as, db);
+_MMA3 = """descriptor(big + kStep);
+    fence();
+    wgmma(acc, as, db);
     wgmma(acc, ab, ds);
     wgmma(acc, ab, db);"""
 _CVT = """  uint32_t r;
@@ -51,8 +60,8 @@ EDITS = {   # (old, new) in tc_gemm.cuh; old None: the whole file replaced by ne
     "shipped": [],
     "serial": [("    wait<1>();\n    if (s + 1 < steps) {", "    wait<0>();\n    if (s + 1 < steps) {")],
     "intround": [(_CVT, _INT)],
-    "onepass": [(_MMA3, "    wgmma(acc, ab, db);")],
-    "mma_sync": [(None, MMA_SYNC)],
+    "onepass": [(_MMA3, "descriptor(big + kStep);\n    fence();\n    wgmma(acc, ab, db);")],
+    "mma_sync": [(None, MMA_SYNC)],   # K2b alone: sweep_chain.cu needs wgmma and the feed
     "nofence": [("      fence_async();\n    }\n    copy_step(s + kRing);",
                  "    }\n    copy_step(s + kRing);")],
     "nobarrier": [("    copy_wait<kRing - 2>();\n    sync_group();\n  };",
@@ -82,6 +91,138 @@ extern "C" int mma_peak_launch(float* out, int blocks, int iters) {
   return (int)cudaGetLastError();
 }
 """
+
+
+# The feed's pieces on this card (csrc/tc_gemm.cuh's pre-laid feed): one
+# thread of a block issues bulk copies (cp.async.bulk, complete_tx on an
+# mbarrier) of `bytes` from a source every block shares into a ring of
+# `inflight` slots, waiting for a slot's copy before refilling it: cycles a
+# copy (clock64 over the whole stream) on one block and on a block per SM;
+# and the cycles one thread spends on each barrier operation the feed issues
+# (the mean over a chain of them, each timed from issue to the next issue).
+PROBE_SRC = r"""
+#include <cuda_runtime.h>
+#include <stdint.h>
+__device__ __forceinline__ uint32_t sa(const void* p) { return (uint32_t)__cvta_generic_to_shared(p); }
+__device__ __forceinline__ void init(uint32_t b, unsigned n) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(b), "r"(n) : "memory");
+}
+__device__ __forceinline__ void expect(uint32_t b, uint32_t n) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(b), "r"(n) : "memory");
+}
+__device__ __forceinline__ void wait(uint32_t b, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile("{\n\t.reg .pred p;\n\tmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+                 "selp.u32 %0, 1, 0, p;\n\t}" : "=r"(done) : "r"(b), "r"(parity) : "memory");
+  } while (!done);
+}
+__device__ __forceinline__ void copy(uint32_t dst, const void* src, uint32_t n, uint32_t b) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+               ::"r"(dst), "l"(src), "r"(n), "r"(b) : "memory");
+}
+extern "C" __global__ void bulk_rate(const char* src, long long* out, int units, int bytes,
+                                     int inflight) {
+  extern __shared__ __align__(128) unsigned char sm[];
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sm);
+  unsigned char* ring = sm + 256;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < inflight; ++s) init(sa(bars + s), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    const long long t0 = clock64();
+    for (int i = 0; i < units; ++i) {
+      const int s = i % inflight;
+      if (i >= inflight) wait(sa(bars + s), (uint32_t)(i / inflight - 1) & 1u);
+      expect(sa(bars + s), bytes);
+      copy(sa(ring + (size_t)s * bytes), src + (size_t)(i % 64) * bytes, bytes, sa(bars + s));
+    }
+    for (int i = units; i < units + inflight; ++i) {
+      const int s = i % inflight;
+      wait(sa(bars + s), (uint32_t)(i / inflight - 1) & 1u);
+    }
+    out[blockIdx.x] = clock64() - t0;
+  }
+}
+extern "C" __global__ void barrier_ops(long long* out, int reps) {
+  __shared__ uint64_t bar[2];
+  if (threadIdx.x != 0) return;
+  const uint32_t b0 = sa(bar), b1 = sa(bar + 1);
+  init(b0, (1u << 20) - 1);   // never completes a phase within the probe
+  init(b1, 1);
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, 0;" : "=r"(remote) : "r"(b0));
+  long long t = clock64();
+  for (int i = 0; i < reps; ++i)
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(b0) : "memory");
+  out[0] = clock64() - t;
+  t = clock64();
+  for (int i = 0; i < reps; ++i)
+    asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];" ::"r"(remote) : "memory");
+  out[1] = clock64() - t;
+  t = clock64();
+  for (int i = 0; i < reps; ++i)
+    asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];" ::"r"(remote) : "memory");
+  out[2] = clock64() - t;
+  t = clock64();
+  for (int i = 0; i < reps; ++i) expect(b0, 16);
+  out[3] = clock64() - t;
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(b1) : "memory");
+  t = clock64();
+  for (int i = 0; i < reps; ++i) wait(b1, 0);
+  out[4] = clock64() - t;
+}
+extern "C" int probe_rate(const char* src, long long* out, int blocks, int units, int bytes,
+                          int inflight) {
+  const int smem = 256 + inflight * bytes;
+  cudaError_t err = cudaFuncSetAttribute(bulk_rate, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  bulk_rate<<<blocks, 32, smem>>>(src, out, units, bytes, inflight);
+  return (int)cudaGetLastError();
+}
+extern "C" int probe_ops(long long* out, int reps) {
+  barrier_ops<<<1, 32>>>(out, reps);
+  return (int)cudaGetLastError();
+}
+"""
+OPS = ("arrive (local)", "arrive (mapa, release.cta)", "arrive (mapa, release.cluster)",
+       "arrive.expect_tx", "try_wait on a completed phase")
+
+
+def probe():
+    """The feed's pieces: bulk copies' cycles a copy, barrier operations' cycles."""
+    OUT.mkdir(parents=True, exist_ok=True)
+    src, so = OUT / "feed_probe.cu", OUT / "libfeed_probe.so"
+    src.write_text(PROBE_SRC)
+    subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", str(so), str(src)], check=True,
+                   capture_output=True)
+    lib = ctypes.CDLL(str(so))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    data = torch.zeros(64 * 32768 // 4, device="cuda")
+    out = torch.zeros(sms, dtype=torch.int64, device="cuda")
+    units, line = 2048, []
+    for blocks in (1, sms):
+        for bytes_ in (4096, 8192, 16384, 32768):
+            for inflight in (1, 2, 4, 6):
+                if inflight * bytes_ > 200_000:
+                    continue
+                err = lib.probe_rate(ctypes.c_void_p(data.data_ptr()), ctypes.c_void_p(
+                    out.data_ptr()), blocks, units, bytes_, inflight)
+                torch.cuda.synchronize()
+                if err:
+                    raise RuntimeError(f"bulk_rate: cudaError {err}")
+                cyc = float(out[:blocks].double().mean()) / units
+                line.append(f"{blocks} block(s), {bytes_ // 1024} KB, {inflight} in flight: "
+                            f"{cyc:.0f} cycles a copy ({bytes_ / cyc:.1f} B a cycle an SM)")
+    print("bulk copies (cp.async.bulk, one thread a block, a source all blocks share): "
+          + "; ".join(line), flush=True)
+    reps = 256
+    err = lib.probe_ops(ctypes.c_void_p(out.data_ptr()), reps)
+    torch.cuda.synchronize()
+    if err:
+        raise RuntimeError(f"barrier_ops: cudaError {err}")
+    print("barrier operations, cycles each (one thread, a chain of " + str(reps) + "): "
+          + ", ".join(f"{k} {float(out[i]) / reps:.1f}" for i, k in enumerate(OPS)), flush=True)
 
 
 def make(name):
@@ -152,6 +293,9 @@ def measure(name):
     line = [f"pbt " + " / ".join(f"{time_ms(lambda: staged.pbt_filter(*args)):.3f}"
                                  for _ in range(2)) + f" ms (max |kernel - plain| {err:.2e})"]
     del args
+    if name == "mma_sync":
+        print(f"{name}: " + ", ".join(line), flush=True)
+        return
     bank = FusedSSBBank(cfg.with_(noise_blanker=True), freqs)
     xr, xi = (torch.randn((c, n), generator=g, device="cuda") * 0.05 for _ in range(2))
     mag = torch.hypot(xr, xi)
@@ -185,6 +329,8 @@ def main():
         sys.exit("tc_engine: needs a CUDA card")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
+    if sys.argv[1:] == ["--probe"]:
+        return probe()
     for name in EDITS:
         make(name)
 
@@ -192,11 +338,14 @@ def main():
         return subprocess.run([sys.executable, "-c", (
             "import sys; from radiodsp_sdr_rx_tpu_torch.diag import tc_engine as e; "
             "from radiodsp_sdr_rx_tpu_torch.utils import build; e.use(sys.argv[1]); "
-            "build.load_library('staged'); build.load_library('sweep_chain')"), name], check=True)
+            "build.load_library('staged'); "
+            + ("" if name == "mma_sync" else "build.load_library('sweep_chain')")), name],
+            check=True)
 
     with ThreadPoolExecutor(len(EDITS)) as pool:
         list(pool.map(build_variant, EDITS))
     peak()
+    probe()
     for name in [*EDITS, "shipped"]:
         subprocess.run([sys.executable, "-m", "radiodsp_sdr_rx_tpu_torch.diag.tc_engine",
                         "--measure", name], check=True)

@@ -56,6 +56,7 @@ from radiodsp_sdr_rx_tpu_torch.ops.sweep import (
     LmsArgs,
     SamArgs,
     SpecArgs,
+    ssb_image,
     sweep_am_chain,
     sweep_full_chain,
     sweep_sam_chain,
@@ -127,6 +128,10 @@ class FusedSSBBank:
         self.gain_i = np.float32(p.input_gain)
         self.gain_q = self.gain_i * np.float32(p.iq_gain_balance)
         self.incs = _phase_incs(config, freqs_hz, self.device)
+        # the sweep kernel without the blanker reads its operators pre-split
+        # (ops/sweep.ssb_image), built once here
+        self.image = None if backend == "staged" or config.noise_blanker else \
+            ssb_image(p.w_ssb, p.w_pbt)
 
     def init_state(self) -> FusedBankState:
         c, dev = self.n_channels, self.device
@@ -182,7 +187,8 @@ class FusedSSBBank:
                 audio_tail=audio_g[:, -_BLOCK:].contiguous(),
                 agc_env=env)
             return {"audio_l": l, "audio_r": r}, new_state
-        l, r, atail, env, *nb_carry = sweep_full_chain(*self.chain_args(xr, xi, state))
+        l, r, atail, env, *nb_carry = sweep_full_chain(*self.chain_args(xr, xi, state),
+                                                       image=self.image)
         new_state = state._replace(
             nco_phase=phase,
             sb_tail=torch.cat([xr[:, -_BLOCK:], xi[:, -_BLOCK:]], dim=-1),
@@ -571,6 +577,10 @@ class FusedNRBank:
         if fold and kind == "spectral":
             self.w_spec = tuple(torch.as_tensor(w, device=self.device)
                                 for w in spectral_matmul_ops(config.fft_length))
+        # fold=False's sweep kernel (DNR: without R; spectral: with R) reads
+        # its operators pre-split (ops/sweep.ssb_image), built once here
+        self.image = ssb_image(p.w_ssb, p.w_pbt, emit_r=kind == "spectral") \
+            if not fold and kind != "notch" else None
 
     def init_state(self) -> FusedNRBankState:
         c, lanes, dev = self.n_channels, self.lanes, self.device
@@ -634,7 +644,7 @@ class FusedNRBank:
             xr, xi, self.incs, state.nco_phase, p.w_ssb, p.w_pbt,
             state.sb_tail[:, :_BLOCK].contiguous(), state.sb_tail[:, _BLOCK:].contiguous(),
             state.audio_tail, state.agc_env, p.agc_release, p.agc_target, p.agc_max_gain,
-            p.agc_enabled, emit_r=kind == "spectral")
+            p.agc_enabled, emit_r=kind == "spectral", image=self.image)
         upd.update(audio_tail=atail, agc_env=env)
         og = p.output_gain
         if kind == "lms":

@@ -45,10 +45,16 @@ and hand the carries to each other (``csrc/sweep_chain.cuh``). The launcher
 takes the pair whenever the card holds a cluster for every channel at once
 (``am_cluster_size``, from the channel count and the card's count of such
 clusters, ``am_active_clusters``), the one-block form otherwise; the two
-give the same bits. ``launch_chain`` launches every source of the chain
-(these seven; ``ops/lanes.py``'s NR stages, whose plain versions
-``chain_plain`` also computes from ``LmsArgs`` and ``SpecArgs``; K7 of
-``ops/sam_wide.py``) through one C entry that takes a ``ChainArgs``
+give the same bits. The SSB kernels without the blanker (``sweep_chain_ssb``,
+``sweep_chain_ssb_mono``) run their two products as 3xTF32 on the tensor
+cores, reading the operators as ``ssb_image`` lays them out (split into TF32
+big and small once, outside the kernel, each K step one block that a
+producer warp brings in with one bulk copy); the banks build that image once
+and pass it, ``sweep_full_chain`` builds it at its first call with given
+operators and keeps it; one block a channel. ``launch_chain`` launches
+every source of the chain (these seven; ``ops/lanes.py``'s NR stages, whose
+plain versions ``chain_plain`` also computes from ``LmsArgs`` and
+``SpecArgs``; K7 of ``ops/sam_wide.py``) through one C entry that takes a ``ChainArgs``
 (``csrc/chain_args.cuh``). The chain wrappers do not take the JAX wrappers'
 TPU tiling knobs (``block_c``, ``chunk_t``, ``interpret``): they have no
 meaning here. The spectral stage takes the dense DFT operators
@@ -75,7 +81,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from radiodsp_sdr_rx_tpu_torch.ops import lms_bank, staged
+from radiodsp_sdr_rx_tpu_torch.ops import lms_bank, staged, tf32x3
 from radiodsp_sdr_rx_tpu_torch.ops import sam as sam_ops
 from radiodsp_sdr_rx_tpu_torch.ops.chain_common import (
     BLOCK,
@@ -489,6 +495,53 @@ _COUNTERS = {"sweep_chain_ssb": "LAUNCHES", "sweep_chain_ssb_nb": "LAUNCHES_NB",
 
 
 _AM_CLUSTERS: dict = {}   # (device index, nb) -> clusters of the AM pair the card holds
+_IMAGES: dict = {}        # the operators' keys -> (their weakrefs, their SsbImage)
+
+
+class SsbImage(NamedTuple):
+    """The operators of the SSB chain without the blanker as its kernels read
+    them (``tf32x3.tf32_image``), 32 K steps of the two warpgroups each: the
+    band-pass's (32, 2, 2, 1024), split over K (step j: K steps j and 32 + j);
+    PBT's split over columns, with R (32, 2, 2, 1024), without R L's half
+    alone (32, 2, 2, 512)."""
+
+    band: torch.Tensor
+    pbt: torch.Tensor
+    emit_r: bool
+
+
+def ssb_image(w_ssb: torch.Tensor, w_pbt: torch.Tensor, emit_r: bool = True) -> SsbImage:
+    """The image of ``w_ssb`` and ``w_pbt`` (or its L half without R) for
+    ``sweep_chain_ssb`` (``sweep_chain_ssb_mono``), on their device. Built
+    once while both tensors stay unchanged (keyed by their data pointers and
+    versions) and kept: the banks build theirs when they make their
+    operators, ``sweep_full_chain`` when it is given none."""
+    key = (w_ssb.data_ptr(), w_ssb._version, w_pbt.data_ptr(), w_pbt._version, bool(emit_r))
+    seen = _IMAGES.get(key)
+    if seen is not None and seen[0]() is w_ssb and seen[1]() is w_pbt:
+        return seen[2]
+    check_tensors({"w_ssb": (w_ssb, (512, 128), torch.float32),
+                   "w_pbt": (w_pbt, (256, 256), torch.float32)}, w_ssb.device)
+    image = SsbImage(tf32x3.tf32_image(w_ssb, 1, ksplit=2),
+                     tf32x3.tf32_image(w_pbt if emit_r else w_pbt[:, :BLOCK], 2), bool(emit_r))
+    for k in [k for k, (a, b, _) in _IMAGES.items() if a() is None or b() is None]:
+        del _IMAGES[k]   # the images of operators gone
+    _IMAGES[key] = (weakref.ref(w_ssb), weakref.ref(w_pbt), image)
+    return image
+
+
+def _check_image(image, emit_r: bool, device) -> None:
+    if not isinstance(image, SsbImage):
+        raise ValueError("the SSB chain without the blanker takes its operators' image "
+                         "(sweep.ssb_image(w_ssb, w_pbt, emit_r))")
+    if image.emit_r != bool(emit_r):
+        raise ValueError(f"an image for emit_r={image.emit_r} given to emit_r={bool(emit_r)}")
+    check_tensors({"image band": (image.band, (32, 2, 2, 1024), torch.float32),
+                   "image pbt": (image.pbt, (32, 2, 2, 1024 if emit_r else 512), torch.float32)},
+                  device)
+    for t in image:
+        if torch.is_tensor(t) and (not t.is_contiguous() or t.data_ptr() % 16):
+            raise ValueError("the image's tensors must be contiguous and 16-byte aligned")
 
 
 def am_cluster_size(channels: int, clusters: int, split: int | None = None) -> int:
@@ -523,20 +576,30 @@ def launch_chain(xr, xi, inc, phase0, w, w_pbt, tail_r, tail_i, audio_tail,
                  out_gain, in_gain, iq_balance, nb, nb_thresh_db, nb_tau,
                  nb_avg0, nb_mask0, dc0=None, emit_r=True, sam: SamArgs | None = None,
                  lms: LmsArgs | None = None, spec: SpecArgs | None = None,
-                 groups: int | None = None, _split: int | None = None):
+                 groups: int | None = None, image: SsbImage | None = None,
+                 _split: int | None = None):
     """Check, allocate the outputs and launch one instantiation of
     ``csrc/sweep_chain.cuh``'s kernel (the source by NR stage, ``LIBRARIES``)
     or, with ``groups``, the SAM chain of ``csrc/sam_wide.cu``; every source
     takes a ``ChainArgs``. The AM chain without an NR stage runs on
     ``am_cluster_size`` blocks a channel; ``_split`` forces 1 or 2 there and
-    is refused elsewhere. Counts the launches of ``sweep_chain.cu``'s seven
-    kernels; the other callers count their own. Returns the outputs in the
+    is refused elsewhere. The SSB chain without the blanker or an NR stage
+    (``sweep_chain_ssb``, ``sweep_chain_ssb_mono``) takes its operators'
+    ``image`` (``ssb_image``; ValueError without it), refused elsewhere.
+    Counts the launches of ``sweep_chain.cu``'s seven kernels; the other
+    callers count their own. Returns the outputs in the
     order of ``chain_plain``'s return."""
     if xr.device.type != "cuda":
         raise ValueError(f"the sweep chain runs on cuda or cpu, not {xr.device}")
-    pair_route = dc0 is not None and sam is None and lms is None and spec is None and groups is None
+    bare = sam is None and lms is None and spec is None and groups is None
+    pair_route = dc0 is not None and bare
+    fed_route = dc0 is None and not nb and bare
     if _split is not None and not pair_route:
         raise ValueError("only the AM chain without an NR stage takes a forced split")
+    if image is not None and not fed_route:
+        raise ValueError("only the SSB chain without the blanker or an NR stage takes an image")
+    if fed_route:
+        _check_image(image, emit_r, xr.device)
     check_chain_args(xr, xi, inc, phase0, w, w_pbt, tail_r, tail_i, audio_tail, env0,
                      agc_release, nb, nb_tau, nb_avg0, nb_mask0, dc0, emit_r,
                      None if sam is None else sam.pll0)
@@ -595,7 +658,13 @@ def launch_chain(xr, xi, inc, phase0, w, w_pbt, tail_r, tail_i, audio_tail,
     demod = "sam" if sam else "am" if dc0 is not None else "ssb"
     lib = "sam_wide" if groups is not None else LIBRARIES[nr]
     stream = torch.cuda.current_stream(xr.device).cuda_stream
-    if pair_route:
+    if fed_route:
+        fn = build.load_library(lib).launch_ssb
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        err = fn(ctypes.addressof(args), image.band.data_ptr(), image.pbt.data_ptr(),
+                 int(bool(emit_r)), c, xr.device.index or 0, stream)
+    elif pair_route:
         split = am_cluster_size(c, am_active_clusters(xr.device, nb), _split)
         fn = build.load_library(lib).launch_am
         fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
@@ -623,7 +692,7 @@ def sweep_full_chain(xr, xi, inc, phase0, w_ssb, w_pbt, tail_r, tail_i,
                      audio_tail, env0, agc_release, agc_target, agc_max_gain,
                      agc_enabled=True, out_gain=1.0, in_gain=1.0, iq_balance=1.0,
                      nb=False, nb_thresh_db=10.0, nb_tau=512.0, nb_avg0=None,
-                     nb_mask0=None, emit_r=True):
+                     nb_mask0=None, emit_r=True, image=None):
     """Whole SSB receive chain; arguments and return order as the JAX
     ``sweep_full_chain``:
 
@@ -641,13 +710,19 @@ def sweep_full_chain(xr, xi, inc, phase0, w_ssb, w_pbt, tail_r, tail_i,
     Returns (audio_l, audio_r, audio_tail_next, env_next), and with nb=True
     also (nb_avg_next, nb_mask_next); audio_r is None with emit_r=False (not
     taken with nb=True). CPU tensors run the plain version; CUDA tensors
-    launch the kernel, or raise.
+    launch the kernel, or raise. Without the blanker the kernels read the
+    operators as ``ssb_image(w_ssb, w_pbt, emit_r)``: ``image`` (the banks
+    pass the one they keep), or that image, built at the first call with
+    these operators and kept.
     """
-    run = sweep_full_chain_plain if xr.device.type == "cpu" else launch_chain
-    return run(xr, xi, inc, phase0, w_ssb, w_pbt, tail_r, tail_i, audio_tail,
-               env0, agc_release, agc_target, agc_max_gain, agc_enabled,
-               out_gain, in_gain, iq_balance, nb, nb_thresh_db, nb_tau,
-               nb_avg0, nb_mask0, emit_r=emit_r)
+    args = (xr, xi, inc, phase0, w_ssb, w_pbt, tail_r, tail_i, audio_tail, env0, agc_release,
+            agc_target, agc_max_gain, agc_enabled, out_gain, in_gain, iq_balance, nb,
+            nb_thresh_db, nb_tau, nb_avg0, nb_mask0)
+    if xr.device.type == "cpu":
+        return sweep_full_chain_plain(*args, emit_r=emit_r)
+    if image is None and not nb:
+        image = ssb_image(w_ssb, w_pbt, emit_r)
+    return launch_chain(*args, emit_r=emit_r, image=image)
 
 
 def sweep_am_chain(xr, xi, inc, phase0, w_sb, w_pbt, tail_r, tail_i,

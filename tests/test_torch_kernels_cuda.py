@@ -8,7 +8,10 @@ K1-nb ``sweep_chain_ssb_nb`` run their products as 3xTF32 on the tensor
 cores, about 2^-22 relative per term), the sums are taken in another order,
 and the AGC gain of up to 316 amplifies rounding. K2b is also held at ragged
 shapes (1, 3 and 129 channels; 1 and 3 chunks and a partial last one), and
-K1-nb's blanker carries to the plain chain's, its keep mask exactly.
+K1-nb's blanker carries to the plain chain's, its keep mask exactly. K1-ssb
+and K1-mono (on the tensor cores too, fed from their operators' pre-split
+image) over threaded segments at 8 and 7 channels with a partial last
+chunk.
 The LMS kernel is held to 2e-4, the JAX twin bound (tests/test_pallas_lms.py:
 35): its 96-tap sums run in another order and the adaptation carries that.
 The NR bank's staged routes are held to the port's ReceiverBank at 2e-3
@@ -431,6 +434,45 @@ def test_mono_kernel_matches_plain(cuda_device, channels, n, agc_mode):
     assert ref[1] is None
     _close(got[:1] + got[2:], ref[:1] + ref[2:])
     assert torch.equal(got[0], stereo[0])
+
+
+@pytest.mark.parametrize("emit_r", [True, False])
+@pytest.mark.parametrize("channels", [8, 7])
+def test_fed_kernels_match_plain_over_threaded_segments(cuda_device, channels, emit_r):
+    """K1-ssb and K1-mono on the pre-laid feed (csrc/tc_gemm.cuh, the
+    operators' image) against their plain versions over two threaded
+    segments with a partial last chunk, and the bank's segment (its own
+    image) equal to the functional call's."""
+    bank = _bank(AGCMode.MEDIUM, channels, cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(channels * 10 + emit_r)
+    state = bank.init_state()
+    for _ in range(2):
+        xr = torch.randn((channels, 8576), generator=gen, device=cuda_device) * 0.1
+        xi = torch.randn((channels, 8576), generator=gen, device=cuda_device) * 0.1
+        xr[:, 3000:3100] *= 30.0
+        args = bank.chain_args(xr, xi, state)
+        got = sweep.sweep_full_chain(*args, emit_r=emit_r)
+        ref = sweep.sweep_full_chain_plain(*args, emit_r=emit_r)
+        out, state = bank.process_planar(xr, xi, state)
+        torch.cuda.synchronize()
+        assert (got[1] is None) == (not emit_r)
+        _close([g for g in got if g is not None], [r for r in ref if r is not None])
+        assert torch.equal(got[0], out["audio_l"])
+
+
+def test_fed_kernels_refuse_a_missing_or_wrong_image(cuda_device):
+    """The kernels raise without their operators' image or with the image of
+    the other form (with R, without), and the chains off the feed refuse an
+    image."""
+    bank = _bank(AGCMode.MEDIUM, 4, cuda_device)
+    x = torch.zeros((4, 1024), device=cuda_device)
+    args = bank.chain_args(x, x, bank.init_state())
+    with pytest.raises(ValueError, match="image"):
+        sweep.launch_chain(*args)
+    with pytest.raises(ValueError, match="emit_r"):
+        sweep.launch_chain(*args, emit_r=False, image=bank.image)
+    with pytest.raises(ValueError, match="takes an image"):
+        sweep.launch_chain(*args[:17], True, *args[18:], image=bank.image)
 
 
 @pytest.mark.parametrize("nr, launches", [
