@@ -15,7 +15,10 @@ banks against the port's reference chain, and times them:
     image by bulk copies; both also held to the plain versions at 7
     channels with a partial last chunk);
   - the staged path, backend="staged": kernels mix_demod and pbt with the AGC
-    between them in PyTorch, 2 launches/segment;
+    between them in PyTorch, 2 launches/segment (mix_demod's product on the
+    tensor cores too, one block an SM over 128-row items, fed from the
+    operator's image; also held to its plain version at partial items of 64,
+    48 and 5 rows, at 257 channels and at an odd count of 64-row chunks);
   - the noise-blanker path, noise_blanker=True: kernel sweep_chain_ssb_nb,
     1 launch/segment;
   - the AM path, ``FusedAMBank`` at bench_full.py's config1 (64 channels, AGC
@@ -72,7 +75,8 @@ banks against the port's reference chain, and times them:
     own pace (sam_pll's);
   - K8, ``sweep_mix_filter_demod`` (mix + band-pass + SSB demod from a
     stream start), at tools/bench_sweep.py's shapes (128 channels x 2^19):
-    kernel sweep_mix_demod, 1 launch/call, held to its plain version, to
+    kernel sweep_mix_demod (mix_demod's kernel without the tail), 1
+    launch/call, held to its plain version, to
     mix_demod with a zero tail and across chunk_t, timed as the tool times
     it (a chain of calls, each on the previous output);
   - the single-channel ``Receiver``, the model the CLI runs: on the six
@@ -878,6 +882,24 @@ def main() -> None:
               f"{max(d_a, d_b, d):.3e} > {TOL:g}")
         err["mix_demod"] = max(err["mix_demod"], d_a, d)
         err["pbt"] = max(err["pbt"], d_b, d)
+    # mix_demod at the edges of its 128-row items: partial items of 64, 48 and
+    # 5 rows, more items than SMs (257 channels, each block walking several),
+    # an odd count of 64-row chunks; a warm tail and gains 0.7 and 0.7 x 1.02
+    g_i = np.float32(0.7)
+    for c_, n_ in ((8, 8192), (3, 6144), (16, 640), (257, 8192), (4, 3 * 8192)):
+        args = (noise((c_, n_), gen), noise((c_, n_), gen),
+                torch.tensor([int(nco.freq_to_phase_inc(1000.0 * k, 44117.64706))
+                              for k in range(c_)], dtype=torch.int64, device="cuda"),
+                torch.randint(0, 2**32, (c_,), generator=gen, device="cuda", dtype=torch.int64),
+                small_st.params.w_ssb, noise((c_, 256), gen), float(g_i),
+                float(g_i * np.float32(1.02)))
+        d = max_diff([staged.fused_mix_filter_demod(*args)],
+                     [staged.fused_mix_filter_demod_plain(*args)])
+        say(f"check mix_demod {c_} ch x {n_} ({n_ // 128} rows a channel), warm tail, gains 0.7 "
+            f"/ 1.02: max |kernel - plain| {d:.3e} (tolerance {TOL:g})")
+        check(d <= TOL, f"mix_demod disagrees with its plain version at {c_} x {n_}: {d:.3e}")
+        err["mix_demod"] = max(err["mix_demod"], d)
+    del args
     cfg_am = ReceiverConfig(mode=DemodMode.AM, vfo_freq=7_060_000.0,
                             capture_center_freq=7_050_000.0, agc=AGCMode.OFF)
     freqs_am = [7_050_000.0 + 1_000.0 * k for k in range(N_AM)]
@@ -2047,6 +2069,11 @@ def main() -> None:
     image_bytes = {kname: N_CHANNELS * chunks * 8 * (512 * 128 + 256 * (256 if emit_r else 128))
                    for emit_r, kname in ((True, "sweep_chain_ssb"),
                                          (False, "sweep_chain_ssb_mono"))}
+    # K2a's and K8's, by count: every 128-row item copies the whole image of
+    # w_ssb (512 KB), one block an SM walking the items
+    items = -(-SEG_LEN // (128 * 128))
+    image_bytes.update({k: N_CHANNELS * items * 8 * 512 * 128
+                        for k in ("mix_demod", "sweep_mix_demod")})
     timing["sweep_chain_ssb"] = dict(
         ms=time_ms(lambda: sweep.sweep_full_chain(*args), REPS),
         plain_ms=time_ms(lambda: sweep.sweep_full_chain_plain(*args), 3),
@@ -2380,8 +2407,12 @@ def main() -> None:
             f"{tm['bound_ms']:.3f} ms ({tm['bound_by']}; at the fp32 SIMT rate "
             f"{tm['simt_bound_ms']:.3f} ms)")
     tc_products = {"pbt": ops2, "sweep_chain_ssb_nb": ops1 + ops2, "sweep_chain_ssb": ops1 + ops2,
-                   "sweep_chain_ssb_mono": ops1 + ops2 // 2}
-    for k in ("sweep_chain_ssb", "sweep_chain_ssb_mono"):
+                   "sweep_chain_ssb_mono": ops1 + ops2 // 2, "mix_demod": ops1,
+                   "sweep_mix_demod": ops1}
+    fed_form = {"sweep_chain_ssb": "one block a channel", "sweep_chain_ssb_mono": "one block a "
+                "channel", "mix_demod": "one block an SM over 128-row items",
+                "sweep_mix_demod": "one block an SM over 128-row items"}
+    for k in fed_form:
         timing[k]["tf32_pass_tflops"] = TC_PASSES * tc_products[k] / timing[k]["ms"] / 1e9
     say(f"tensor-core engine (csrc/tc_gemm.cuh: each product as {TC_PASSES} TF32 passes of "
         "wgmma.mma_async m64n128k8, each operand split big + small, both rounded to nearest): "
@@ -2393,7 +2424,7 @@ def main() -> None:
             f"rate, library {timing[k]['library_ms']:.3f} ms, max |kernel - plain| "
             f"{err[k]:.3e}, ptxas {ptxas.get(k, 'not in the build log')}"
             + ("" if k not in image_bytes else
-               f", the pre-laid feed, one block a channel: the image copied "
+               f", the pre-laid feed, {fed_form[k]}: the image copied "
                f"{image_bytes[k] / 1e9:.3f} GB a segment by count (not measured)")
             for k, p in tc_products.items()))
     lms_kernels = ["lms_nr"] + [k for k in lanes.KERNELS if not k.startswith("lanes_sam")

@@ -221,10 +221,17 @@ __device__ __forceinline__ float seg_factors(double p, float (&lanes)[5]) {
   return (float)pow(p, (double)kSegLen);
 }
 
+// kNear: the angle's range, [-pi, pi], told to the compiler, so that sincosf's
+// branch into its reduction for |angle| >= 105615 drops out (the same
+// operations on every angle it takes) and the mixes of a thread's samples
+// can interleave (staged.cu's mix_item)
+template <bool kNear = false>
 __device__ __forceinline__ void mix(float x, float y, uint32_t phase, float g_i,
                                     float g_q, float& out_r, float& out_i) {
   float s, c;
-  sincosf((float)(int32_t)phase * kPhaseScale, &s, &c);
+  const float angle = (float)(int32_t)phase * kPhaseScale;
+  if constexpr (kNear) __builtin_assume(!(fabsf(angle) >= 105615.f));
+  sincosf(angle, &s, &c);
   x *= g_i;
   y *= g_q;
   out_r = x * c + y * s;

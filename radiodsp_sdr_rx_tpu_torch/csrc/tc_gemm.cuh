@@ -8,8 +8,8 @@
 //   fed_gemm  the operator split and laid out once outside the kernel (its
 //             image, ops/tf32x3.tf32_image), each K step brought into the
 //             stage wgmma reads by one bulk copy of a producer warp (K1-ssb
-//             and K1-mono, ssb_fed_kernel in sweep_chain.cuh; the second
-//             half of this file).
+//             and K1-mono, ssb_fed_kernel in sweep_chain.cuh; K2a and K8,
+//             mix_demod_kernel in staged.cu; the second half of this file).
 // Both run the same algebra and layouts, described here for gemm.
 //
 // The contract is chain_common.cuh's chunk_gemm: the A operand A(r, k) is the
@@ -358,7 +358,8 @@ __device__ __forceinline__ void store_rows(const Acc<N, false>& acc, float* __re
 }
 
 // ---------------------------------------------------------------------------
-// The pre-laid feed (K1-ssb and K1-mono, ssb_fed_kernel in sweep_chain.cuh).
+// The pre-laid feed (K1-ssb and K1-mono, ssb_fed_kernel in sweep_chain.cuh;
+// K2a and K8, mix_demod_kernel in staged.cu).
 //
 // The operator is split and laid out once, outside the kernel
 // (ops/tf32x3.tf32_image): for each K step of the block, both warpgroups'
@@ -387,6 +388,11 @@ __device__ __forceinline__ void store_rows(const Acc<N, false>& acc, float* __re
 // empty barrier. Each thread's waits go through the units in order, so no
 // barrier is ever more than one phase from the parity waited for.
 //
+// K2a and K8 read a K step of one part that both warpgroups share (kParts =
+// 1 below): each warpgroup multiplies 64 rows of a 128-row item by all of
+// the step's columns, so that one read of the image from the L2 serves 128
+// rows; their unit of four K steps is 32 KB, and their slots are that size.
+//
 // Every block reads the whole image once a chunk from the L2. Multicast over
 // a cluster of two blocks (two channels at the same unit, each copy issued
 // once for the pair) halves those reads and, on an H100, ran K1-ssb and
@@ -397,8 +403,8 @@ namespace feed {
 
 constexpr int kSlots = 2;                    // the block's ring
 constexpr int kUnitSteps = 4;                // K steps a unit
-constexpr int kSlotFloats = kUnitSteps * 2 * 2 * kKS * 128;   // the largest unit: K steps
-                                             // of two parts of 128 columns
+constexpr int kSlotFloats = kUnitSteps * 2 * 2 * kKS * 128;   // K1's unit: K steps of two
+                                             // parts of 128 columns
 constexpr int kRingFloats = kSlots * kSlotFloats;
 constexpr int kBars = 2 * kSlots;            // the full barriers, then the empty ones
 
@@ -446,12 +452,13 @@ __device__ __forceinline__ void copy(uint32_t dst, const float* src, uint32_t by
 }  // namespace feed
 
 // A block's feed: Plan gives unit i's source (src(i), 16-byte aligned) and
-// size (bytes(i), a multiple of 16, at most kSlotFloats floats); the ring at
-// slots, its barriers from bars (full[s] at bars + 8 s, empty[s] at bars +
+// size (bytes(i), a multiple of 16, at most kSlotFloats floats: the size of
+// a slot, feed::kSlotFloats by default); the ring at slots, its barriers from
+// bars (full[s] at bars + 8 s, empty[s] at bars +
 // 8 (kSlots + s)); `total` units in the launch. The producer is lane 0 of
 // warp 8, the chain warps 0-7; the block meets at a __syncthreads() between
 // setup() and the first wait or copy.
-template <class Plan>
+template <class Plan, int kSlotFloats = feed::kSlotFloats>
 struct Feed {
   Plan plan;
   float* slots;
@@ -463,7 +470,7 @@ struct Feed {
   __device__ __forceinline__ uint32_t full(int s) const { return bars + 8 * s; }
   __device__ __forceinline__ uint32_t empty(int s) const { return bars + 8 * (feed::kSlots + s); }
   __device__ __forceinline__ const float* slot(int i) const {
-    return slots + (i % feed::kSlots) * feed::kSlotFloats;
+    return slots + (i % feed::kSlots) * kSlotFloats;
   }
   // the producer, before the block's first barrier: the ring's barriers
   __device__ __forceinline__ void setup() const {
@@ -507,18 +514,21 @@ __device__ __forceinline__ void a_fragments(const float* lo, const float* hi, in
 }
 
 // acc = A @ the block's next `units` units of its feed, kUnitSteps K steps
-// each, of every K step the warpgroup's part (part wg: a K step of kNC
-// columns, 64 or 128: m64n64k8 or m64n128k8, big then small), summed over
+// each, of every K step the warpgroup's part (kParts = 2: part wg of the
+// step's two; kParts = 1: the step's one part, which both warpgroups read;
+// a part is a K step of kNC columns, 64 or 128: m64n64k8 or m64n128k8, big
+// then small), summed over
 // the steps in order, each as small_a big_b + big_a small_b + big_a big_b; A
 // as gemm's, K step s of the warpgroup at A's columns 8 s, or with kSplitK
 // 8 (steps wg + s) (acc is then its part of the sum; to_rows adds the two).
 // acc's layout is gemm's, its columns the warpgroup's own. Run by the
 // chain's 256 threads; ends with ChainSync::sync(), so the caller may
 // overwrite what A read.
-template <int kNC, bool kSplitK, class Plan>
-__device__ __forceinline__ void fed_gemm(const float* lo, const float* hi, Feed<Plan>& f,
-                                         int units, float (&acc)[kNC / 8][4]) {
-  constexpr int kStep = 2 * 2 * kKS * kNC;   // floats of a K step of both warpgroups
+template <int kNC, bool kSplitK, int kParts = 2, class Plan, int kSlotFloats>
+__device__ __forceinline__ void fed_gemm(const float* lo, const float* hi,
+                                         Feed<Plan, kSlotFloats>& f, int units,
+                                         float (&acc)[kNC / 8][4]) {
+  constexpr int kStep = kParts * 2 * kKS * kNC;   // floats of a K step of both warpgroups
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, wq = warp & 3, wg = warp >> 2;
   const int arow = 32 * (wq >> 1) + 4 * (lane >> 2) + 2 * (wq & 1);
   const int acol = lane & 3;
@@ -535,7 +545,8 @@ __device__ __forceinline__ void fed_gemm(const float* lo, const float* hi, Feed<
   auto run = [&](int s, const uint32_t (&ab)[4], const uint32_t (&as)[4]) {
     const int i = i0 + s / feed::kUnitSteps;
     if (s % feed::kUnitSteps == 0) f.wait(i);
-    const float* big = f.slot(i) + (s % feed::kUnitSteps) * kStep + wg * 2 * kKS * kNC;
+    const float* big =
+        f.slot(i) + (s % feed::kUnitSteps) * kStep + (kParts == 2 ? wg : 0) * 2 * kKS * kNC;
     const uint64_t db = descriptor(big), ds = descriptor(big + kKS * kNC);
     fence();
     wgmma(acc, as, db);

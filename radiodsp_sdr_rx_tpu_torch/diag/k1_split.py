@@ -156,9 +156,10 @@ _STAMP = "if (blockIdx.x == 0 && ({i}) >= 64 && ({i}) < 128) " \
          "tc::s_trace[{w}][({i}) - 64][{k}] = clock64();"
 _CHAIN_STAMP = "if ((threadIdx.x & 127) == 0) {{ " + _STAMP.format(i="{i}", w="threadIdx.x >> 7",
                                                                     k="{k}") + " }}"
-_TRACE = [(TC, "template <class Plan>\nstruct Feed {",
+_FEED = "template <class Plan, int kSlotFloats = feed::kSlotFloats>\nstruct Feed {"
+_TRACE = [(TC, _FEED,
            "__device__ long long g_trace[2][64][8];\n__shared__ long long s_trace[2][64][8];\n"
-           "template <class Plan>\nstruct Feed {"),
+           + _FEED),
           (CHAIN, _END,
            _END[:-2] + "  if (blockIdx.x == 0 && (threadIdx.x & 127) == 0 && threadIdx.x < kThreads)\n"
            "    for (int k = 0; k < 64 * 8; ++k)\n"

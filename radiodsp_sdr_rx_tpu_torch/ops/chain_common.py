@@ -1,7 +1,8 @@
 """Plain PyTorch pieces shared by the sweep and staged chains.
 
 The DDS mix, the two overlap-save framings with their fp32 products, the
-decaying-sum row scan, and the argument checks of the kernel wrappers.
+decaying-sum row scan, the argument checks of the kernel wrappers, and the
+cache of what the wrappers make once per operator (``per_operator``).
 ``ops/sweep.py``, ``ops/sweep_spec.py`` and ``ops/staged.py`` build their
 plain versions from these, so every backend's reference frames and mixes the
 stream the same way; ``csrc/chain_common.cuh`` is the device side of the
@@ -10,11 +11,15 @@ same pieces.
 
 from __future__ import annotations
 
+import weakref
+
 import numpy as np
 import torch
 
 BLOCK = 128
 _PHASE_SCALE = np.float32(2.0 * np.pi / 4294967296.0)
+# (kind, the operators' data pointers and versions) -> (their weakrefs, the value)
+_PER_OPERATOR: dict = {}
 
 
 def matmul_fp32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -77,6 +82,22 @@ def check_tensors(expect: dict, device) -> None:
         if tuple(t.shape) != shape or t.dtype != dtype or t.device != device:
             raise ValueError(f"{name}: expected {dtype} {shape} on {device}, "
                              f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def per_operator(kind, operators: tuple, make):
+    """``make()``, made once for ``kind`` while the tensors ``operators`` stay
+    unchanged (keyed by their data pointers and versions) and kept while they
+    live: the kernels' operator images and the spectral operators' check. A
+    ``make`` that raises keeps nothing."""
+    key = (kind, *((w.data_ptr(), w._version) for w in operators))
+    seen = _PER_OPERATOR.get(key)
+    if seen is not None and all(ref() is w for ref, w in zip(seen[0], operators)):
+        return seen[1]
+    value = make()
+    for k in [k for k, (refs, _) in _PER_OPERATOR.items() if any(r() is None for r in refs)]:
+        del _PER_OPERATOR[k]   # the values of operators gone
+    _PER_OPERATOR[key] = (tuple(weakref.ref(w) for w in operators), value)
+    return value
 
 
 def check_stream(xr) -> None:

@@ -20,10 +20,13 @@ two passes over the stream. The tail is not scaled again.
 
 CUDA tensors launch ``csrc/staged.cu`` (``mix_demod``, ``pbt``) or raise; CPU
 tensors run the ``*_plain`` versions, which the tests and ``chip_smoke.py``
-hold the kernels to. ``LAUNCHES_MIX_DEMOD`` and ``LAUNCHES_PBT`` count the
-launches. The JAX wrappers' TPU tiling (``block_c``, ``block_t``,
-``interpret``) has no meaning here and is not taken; any ``n`` that is a
-multiple of 128 is.
+hold the kernels to. ``mix_demod`` (and K8,
+``ops/sweep.sweep_mix_filter_demod``) reads its operator as ``mix_image``
+lays it out, split into TF32 big and small for the tensor cores: built once
+per operator at the first CUDA call; a CPU call builds none.
+``LAUNCHES_MIX_DEMOD`` and ``LAUNCHES_PBT`` count the launches.
+The JAX wrappers' TPU tiling (``block_c``, ``block_t``, ``interpret``) has
+no meaning here and is not taken; any ``n`` that is a multiple of 128 is.
 """
 
 from __future__ import annotations
@@ -41,11 +44,14 @@ from radiodsp_sdr_rx_tpu_torch.ops.chain_common import (
     demod_frames,
     mix,
     pbt_frames,
+    per_operator,
 )
+from radiodsp_sdr_rx_tpu_torch.ops import tf32x3
 from radiodsp_sdr_rx_tpu_torch.utils import build
 
 LAUNCHES_MIX_DEMOD = 0
 LAUNCHES_PBT = 0
+IMAGE_SHAPE = (64, 1, 2, 1024)   # mix_image: 64 K steps of 8 KB, one part each
 
 
 def _check_mix_demod(xr, xi, inc, phase0, w, tail):
@@ -57,6 +63,24 @@ def _check_mix_demod(xr, xi, inc, phase0, w, tail):
             "w": (w, (512, 128), torch.float32),
             "tail": (tail, (c, 2 * BLOCK), torch.float32),
             "xr": (xr, (c, n), torch.float32)}, xr.device)
+
+
+def mix_image(w: torch.Tensor) -> torch.Tensor:
+    """The image of the (512, 128) ``ssb_demod_operator`` ``w`` that
+    ``mix_demod`` and ``sweep_mix_demod`` read (``tf32x3.tf32_image(w, 1)``:
+    64 K steps of 8 rows, each one 8 KB part that both of a block's
+    warpgroups read), on w's device. Built once while w stays unchanged
+    (``per_operator``) and kept while w lives."""
+    def make():
+        check_tensors({"w": (w, (512, 128), torch.float32)}, w.device)
+        return tf32x3.tf32_image(w, 1)
+
+    return per_operator("mix_image", (w,), make)
+
+
+def check_image(image, device) -> None:
+    """Raise ValueError unless ``image`` is a ``mix_image`` on ``device``."""
+    tf32x3.check_image({"image (staged.mix_image(w))": (image, IMAGE_SHAPE)}, device)
 
 
 def _checkpbt_frames(audio, w, tail):
@@ -109,8 +133,9 @@ def fused_mix_filter_demod(xr, xi, inc, phase0, w, tail, gain_i=1.0, gain_q=1.0)
                    and not mixed (zeros at stream start)
       gain_i/q:    f32 gains of I and Q (input gain, input gain * balance)
 
-    Returns the pre-AGC audio (C, n) f32. CPU tensors run the plain version;
-    CUDA tensors launch the kernel, or raise.
+    Returns the pre-AGC audio (C, n) f32. CPU tensors run the plain version
+    (and build no image); CUDA tensors launch the kernel on w's ``mix_image``,
+    or raise.
     """
     global LAUNCHES_MIX_DEMOD
     if xr.device.type == "cpu":
@@ -119,11 +144,13 @@ def fused_mix_filter_demod(xr, xi, inc, phase0, w, tail, gain_i=1.0, gain_q=1.0)
     if xr.device.type != "cuda":
         raise ValueError(f"fused_mix_filter_demod runs on cuda or cpu, not {xr.device}")
     _check_mix_demod(xr, xi, inc, phase0, w, tail)
+    image = mix_image(w)
+    check_image(image, xr.device)
     check_launch("fused_mix_filter_demod", (xr, xi, inc, phase0, w, tail))
     c, n = xr.shape
     audio = torch.empty_like(xr)
     launch("mix_demod", xr.device,
-            *(t.data_ptr() for t in (xr, xi, inc, phase0, w, tail, audio)),
+            *(t.data_ptr() for t in (xr, xi, inc, phase0, image, tail, audio)),
             c, n, xr.device.index or 0, float(np.float32(gain_i)),
             float(np.float32(gain_q)))
     LAUNCHES_MIX_DEMOD += 1

@@ -67,7 +67,9 @@ front of the chain alone from a stream start: mix, band-pass and SSB demod,
 times ``out_gain``, nothing carried. It launches ``sweep_mix_demod`` of
 ``csrc/staged.cu`` (K2a's kernel without the tail) for CUDA tensors and
 runs ``sweep_mix_filter_demod_plain`` for CPU ones; ``LAUNCHES_SWEEP_MIX``
-counts its launches. It keeps the JAX signature; ``block_c`` and
+counts its launches. Its product runs as 3xTF32 on the tensor cores, on the
+operator's ``staged.mix_image`` (built once per operator at the first CUDA
+call). It keeps the JAX signature; ``block_c`` and
 ``chunk_t`` are validated as JAX does and change nothing else.
 """
 
@@ -75,7 +77,6 @@ from __future__ import annotations
 
 import ctypes
 import math
-import weakref
 from typing import NamedTuple
 
 import numpy as np
@@ -93,6 +94,7 @@ from radiodsp_sdr_rx_tpu_torch.ops.chain_common import (
     matmul_fp32,
     mix,
     pbt_frames,
+    per_operator,
 )
 from radiodsp_sdr_rx_tpu_torch.ops.iir import DC_POLE
 from radiodsp_sdr_rx_tpu_torch.ops.lms import LMS_DELAY, LMS_TAPS
@@ -435,7 +437,6 @@ def sweep_am_chain_plain(xr, xi, inc, phase0, w_sb, w_pbt, tail_r, tail_i,
 
 
 _CONSTS: dict = {}         # device -> its copies of the spectral stage's constants
-_SPEC_CHECKED: dict = {}   # (data_ptr, _version) -> weakref of an operator found equal
 
 
 def _device_consts(device) -> dict:
@@ -454,18 +455,16 @@ def check_spectral_ops(w_fwd: torch.Tensor, w_inv: torch.Tensor) -> None:
     ``spectral_matmul_ops(256)``'s operators: the kernels compute the
     spectral stage as a 256-point FFT, which is the function of these
     operands only because they are the DFT. Each tensor is compared once
-    while it stays unchanged (keyed by its data pointer and version)."""
+    while it stays unchanged (``per_operator``)."""
     for name, w in (("w_spec_fwd", w_fwd), ("w_spec_inv", w_inv)):
-        key = (w.data_ptr(), w._version)
-        seen = _SPEC_CHECKED.get(key)
-        if seen is not None and seen() is w:
-            continue
-        want = _device_consts(w.device)[name]
-        if not torch.equal(w, want):
-            raise ValueError(f"{name} is not spectral_sub.spectral_matmul_ops(256)'s operator: "
-                             "the spectral kernels compute the stage by FFT and take the DFT "
-                             "operators alone")
-        _SPEC_CHECKED[key] = weakref.ref(w)
+        def same(name=name, w=w):
+            if not torch.equal(w, _device_consts(w.device)[name]):
+                raise ValueError(f"{name} is not spectral_sub.spectral_matmul_ops(256)'s "
+                                 "operator: the spectral kernels compute the stage by FFT and "
+                                 "take the DFT operators alone")
+            return True
+
+        per_operator(("spectral", name), (w,), same)
 
 
 class _ChainArgs(ctypes.Structure):
@@ -495,7 +494,6 @@ _COUNTERS = {"sweep_chain_ssb": "LAUNCHES", "sweep_chain_ssb_nb": "LAUNCHES_NB",
 
 
 _AM_CLUSTERS: dict = {}   # (device index, nb) -> clusters of the AM pair the card holds
-_IMAGES: dict = {}        # the operators' keys -> (their weakrefs, their SsbImage)
 
 
 class SsbImage(NamedTuple):
@@ -513,21 +511,17 @@ class SsbImage(NamedTuple):
 def ssb_image(w_ssb: torch.Tensor, w_pbt: torch.Tensor, emit_r: bool = True) -> SsbImage:
     """The image of ``w_ssb`` and ``w_pbt`` (or its L half without R) for
     ``sweep_chain_ssb`` (``sweep_chain_ssb_mono``), on their device. Built
-    once while both tensors stay unchanged (keyed by their data pointers and
-    versions) and kept: the banks build theirs when they make their
-    operators, ``sweep_full_chain`` when it is given none."""
-    key = (w_ssb.data_ptr(), w_ssb._version, w_pbt.data_ptr(), w_pbt._version, bool(emit_r))
-    seen = _IMAGES.get(key)
-    if seen is not None and seen[0]() is w_ssb and seen[1]() is w_pbt:
-        return seen[2]
-    check_tensors({"w_ssb": (w_ssb, (512, 128), torch.float32),
-                   "w_pbt": (w_pbt, (256, 256), torch.float32)}, w_ssb.device)
-    image = SsbImage(tf32x3.tf32_image(w_ssb, 1, ksplit=2),
-                     tf32x3.tf32_image(w_pbt if emit_r else w_pbt[:, :BLOCK], 2), bool(emit_r))
-    for k in [k for k, (a, b, _) in _IMAGES.items() if a() is None or b() is None]:
-        del _IMAGES[k]   # the images of operators gone
-    _IMAGES[key] = (weakref.ref(w_ssb), weakref.ref(w_pbt), image)
-    return image
+    once while both tensors stay unchanged (``per_operator``) and kept: the
+    banks build theirs when they make their operators, ``sweep_full_chain``
+    when it is given none."""
+    def make():
+        check_tensors({"w_ssb": (w_ssb, (512, 128), torch.float32),
+                       "w_pbt": (w_pbt, (256, 256), torch.float32)}, w_ssb.device)
+        return SsbImage(tf32x3.tf32_image(w_ssb, 1, ksplit=2),
+                        tf32x3.tf32_image(w_pbt if emit_r else w_pbt[:, :BLOCK], 2),
+                        bool(emit_r))
+
+    return per_operator(("ssb_image", bool(emit_r)), (w_ssb, w_pbt), make)
 
 
 def _check_image(image, emit_r: bool, device) -> None:
@@ -536,12 +530,8 @@ def _check_image(image, emit_r: bool, device) -> None:
                          "(sweep.ssb_image(w_ssb, w_pbt, emit_r))")
     if image.emit_r != bool(emit_r):
         raise ValueError(f"an image for emit_r={image.emit_r} given to emit_r={bool(emit_r)}")
-    check_tensors({"image band": (image.band, (32, 2, 2, 1024), torch.float32),
-                   "image pbt": (image.pbt, (32, 2, 2, 1024 if emit_r else 512), torch.float32)},
-                  device)
-    for t in image:
-        if torch.is_tensor(t) and (not t.is_contiguous() or t.data_ptr() % 16):
-            raise ValueError("the image's tensors must be contiguous and 16-byte aligned")
+    tf32x3.check_image({"image band": (image.band, (32, 2, 2, 1024)),
+                        "image pbt": (image.pbt, (32, 2, 2, 1024 if emit_r else 512))}, device)
 
 
 def am_cluster_size(channels: int, clusters: int, split: int | None = None) -> int:
@@ -845,7 +835,8 @@ def sweep_mix_filter_demod(xr, xi, inc, phase0, w, out_gain=1.0, block_c=8, chun
                    ``_even_chunks``); the result does not depend on them
 
     The framing tails start at zero. Returns the audio (C, n) f32. CPU
-    tensors run the plain version; CUDA tensors launch the kernel, or raise.
+    tensors run the plain version (and build no image); CUDA tensors launch
+    the kernel on w's ``staged.mix_image``, or raise.
     """
     global LAUNCHES_SWEEP_MIX
     if xr.device.type == "cpu":
@@ -853,11 +844,13 @@ def sweep_mix_filter_demod(xr, xi, inc, phase0, w, out_gain=1.0, block_c=8, chun
     if xr.device.type != "cuda":
         raise ValueError(f"sweep_mix_filter_demod runs on cuda or cpu, not {xr.device}")
     _check_sweep_mix(xr, xi, inc, phase0, w, block_c, chunk_t)
+    image = staged.mix_image(w)
+    staged.check_image(image, xr.device)
     check_launch("sweep_mix_filter_demod", (xr, xi, inc, phase0, w))
     c, n = xr.shape
     audio = torch.empty_like(xr)
     staged.launch("sweep_mix_demod", xr.device,
-                  *(t.data_ptr() for t in (xr, xi, inc, phase0, w, audio)),
+                  *(t.data_ptr() for t in (xr, xi, inc, phase0, image, audio)),
                   c, n, xr.device.index or 0, float(np.float32(out_gain)))
     LAUNCHES_SWEEP_MIX += 1
     return audio

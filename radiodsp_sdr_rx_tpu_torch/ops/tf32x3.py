@@ -13,14 +13,14 @@ path calls them: on the CPU the wrappers run the plain fp32 versions.
 (``csrc/tc_gemm.cuh``'s pre-laid feed): split once, outside the kernel, and
 laid out as the exact image ``wgmma`` reads, every warpgroup's part of a K
 step in one contiguous block, which the kernel brings into shared memory with
-one bulk copy.
+one bulk copy; ``check_image`` refuses what those copies cannot read.
 """
 
 from __future__ import annotations
 
 import torch
 
-from radiodsp_sdr_rx_tpu_torch.ops.chain_common import matmul_fp32
+from radiodsp_sdr_rx_tpu_torch.ops.chain_common import check_tensors, matmul_fp32
 
 _LOW = (1 << 13) - 1   # the 13 mantissa bits TF32 drops
 
@@ -81,3 +81,16 @@ def tf32_image(w: torch.Tensor, parts: int, ksplit: int = 1) -> torch.Tensor:
 
     big, small = split_tf32(w)
     return torch.stack([lay(big), lay(small)], dim=2).contiguous()
+
+
+def check_image(images: dict, device) -> None:
+    """images: name -> (tensor, shape). Raise ValueError unless each is an
+    fp32 tensor of its shape on ``device``, contiguous and 16-byte aligned, as
+    the kernels' bulk copies read it."""
+    for name, (t, shape) in images.items():
+        if not torch.is_tensor(t):
+            raise ValueError(f"{name}: the kernel takes its operator's image, "
+                             f"not {type(t).__name__}")
+        check_tensors({name: (t, shape, torch.float32)}, device)
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name}: the image must be contiguous and 16-byte aligned")

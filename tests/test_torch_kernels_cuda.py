@@ -11,7 +11,12 @@ shapes (1, 3 and 129 channels; 1 and 3 chunks and a partial last one), and
 K1-nb's blanker carries to the plain chain's, its keep mask exactly. K1-ssb
 and K1-mono (on the tensor cores too, fed from their operators' pre-split
 image) over threaded segments at 8 and 7 channels with a partial last
-chunk.
+chunk. K2a (``mix_demod``, on the tensor cores too, 128-row items fed from
+``staged.mix_image``) with a warm tail and gains 0.7 / 1.02 at partial items
+(64, 48 and 5 rows), 257 channels (more items than SMs: each block walks
+several) and an odd count of 64-row chunks; a second call on the cached
+image gives the same bits, a wrong image is refused, and the wrapper builds
+one image per operator.
 The LMS kernel is held to 2e-4, the JAX twin bound (tests/test_pallas_lms.py:
 35): its 96-tap sums run in another order and the adaptation carries that.
 The NR bank's staged routes are held to the port's ReceiverBank at 2e-3
@@ -34,7 +39,7 @@ dense DFT products over two threaded segments with a partial last chunk (a
 frame with a bin near the floor to 1e-4 plus the flips' size). K8
 (``sweep.sweep_mix_filter_demod``, kernel sweep_mix_demod) is held to its
 plain version at 1e-4, to K2a with a zero tail bit for bit, across chunk_t
-bit for bit. The single-channel ``Receiver`` on the card is held to the same
+bit for bit, also at 257 channels. The single-channel ``Receiver`` on the card is held to the same
 Receiver on the CPU (1e-4, LMS 2e-4), to the committed goldens (1e-4 x
 their peak) and to the CPU's sequence of I2S repairs. K9 (``ring_shift``,
 parallel/halo.py) equals its plain copies bit for bit, one launch per
@@ -958,6 +963,7 @@ def test_nr_chain_wrapper_rejects_bad_arguments(cuda_device):
     (8, 4 * 4096, 8, 1.0),      # four chunks of 64 rows
     (3, 3 * 2048, 1, 1.1),      # a partial last chunk (48 rows)
     (16, 5 * 128, 4, 1.0),      # five rows
+    (257, 8192, 257, 1.1),      # more items than SMs
 ])
 def test_sweep_mix_kernel_matches_plain(cuda_device, channels, n, block_c, out_gain):
     from radiodsp_sdr_rx_tpu_torch.ops import fir_design, nco
@@ -985,6 +991,71 @@ def test_sweep_mix_kernel_matches_plain(cuda_device, channels, n, block_c, out_g
                                                         chunk_t), got)
     with pytest.raises(ValueError):
         sweep.sweep_mix_filter_demod(xr[:, :n - 64], xi[:, :n - 64], inc, ph, w)
+
+
+def _mix_inputs(device, channels, n):
+    """K2a's inputs: noise with a burst, DDS words 1 kHz apart from random
+    phases, a warm tail, gains 0.7 and 0.7 x 1.02, the bank's operator."""
+    from radiodsp_sdr_rx_tpu_torch.ops import nco
+
+    gen = torch.Generator(device=device).manual_seed(channels * 7 + n)
+    xr = torch.randn((channels, n), generator=gen, device=device) * 0.1
+    xi = torch.randn((channels, n), generator=gen, device=device) * 0.1
+    xr[:, n // 3:n // 3 + 100] *= 30.0
+    inc = torch.tensor([int(nco.freq_to_phase_inc(1000.0 * k, 44117.64706))
+                        for k in range(channels)], dtype=torch.int64, device=device)
+    ph = torch.randint(0, 2**32, (channels,), generator=gen, device=device, dtype=torch.int64)
+    tail = torch.randn((channels, 256), generator=gen, device=device) * 0.1
+    g_i = np.float32(0.7)
+    w = _bank(AGCMode.MEDIUM, 1, device, backend="staged").params.w_ssb
+    return xr, xi, inc, ph, w, tail, float(g_i), float(g_i * np.float32(1.02))
+
+
+@pytest.mark.parametrize("channels, n", [
+    (8, 8192),          # one partial item (64 rows)
+    (3, 6144),          # 48 rows
+    (16, 640),          # five rows
+    (257, 8192),        # more items than SMs: each block walks several
+    (4, 3 * 8192),      # an odd count of 64-row chunks: an item and a half
+])
+def test_mix_demod_kernel_matches_plain_at_item_shapes(cuda_device, channels, n):
+    args = _mix_inputs(cuda_device, channels, n)
+    before = staged.LAUNCHES_MIX_DEMOD
+    got = staged.fused_mix_filter_demod(*args)
+    assert staged.LAUNCHES_MIX_DEMOD == before + 1
+    _close([got], [staged.fused_mix_filter_demod_plain(*args)])
+    assert torch.equal(staged.fused_mix_filter_demod(*args), got)   # on the cached image
+
+
+def test_mix_demod_kernels_refuse_a_wrong_image(cuda_device, monkeypatch):
+    args = _mix_inputs(cuda_device, 4, 1024)
+    w = args[4]
+    before = (staged.LAUNCHES_MIX_DEMOD, sweep.LAUNCHES_SWEEP_MIX)
+    for bad in (sweep.ssb_image(w, torch.zeros((256, 256), device=cuda_device)).band,
+                staged.mix_image(w).cpu(), staged.mix_image(w).double()):
+        monkeypatch.setattr(staged, "mix_image", lambda w, bad=bad: bad)   # a planted image
+        with pytest.raises(ValueError, match="image"):
+            staged.fused_mix_filter_demod(*args)
+        with pytest.raises(ValueError, match="image"):
+            sweep.sweep_mix_filter_demod(*args[:5], 1.0, 4)
+    assert (staged.LAUNCHES_MIX_DEMOD, sweep.LAUNCHES_SWEEP_MIX) == before
+
+
+def test_mix_image_is_built_once_per_operator_on_the_card(cuda_device, monkeypatch):
+    from radiodsp_sdr_rx_tpu_torch.ops import tf32x3
+
+    built = []
+    real = tf32x3.tf32_image
+    monkeypatch.setattr(tf32x3, "tf32_image", lambda w, parts, ksplit=1: built.append(parts)
+                        or real(w, parts, ksplit))
+    bank = _bank(AGCMode.MEDIUM, 3, cuda_device, backend="staged")
+    state = bank.init_state()
+    for _ in range(3):
+        x = torch.randn((3, 1024), device=cuda_device) * 0.1
+        _, state = bank.process_planar(x, x, state)
+        sweep.sweep_mix_filter_demod(x, x, bank.incs, state.nco_phase, bank.params.w_ssb, 1.0, 1)
+    torch.cuda.synchronize()
+    assert built == [1]
 
 
 def _leaves(state):

@@ -1,7 +1,9 @@
 """The operators' images of the SSB chain's tensor-core feed, on the CPU.
 
 K1-ssb (``sweep_chain_ssb``) and K1-mono (``sweep_chain_ssb_mono``) read
-their operators pre-split and pre-laid (``csrc/tc_gemm.cuh``'s feed):
+their operators pre-split and pre-laid (``csrc/tc_gemm.cuh``'s feed), and so
+do K2a (``mix_demod``) and K8 (``sweep_mix_demod``), whose image of ``w_ssb``
+(``ops/staged.mix_image``) is one part a K step that both warpgroups read:
 ``ops/tf32x3.tf32_image`` splits each fp32 operator into TF32 big and small
 (``split_tf32``, the kernels' split) and lays each K step of the block out as
 one contiguous block of both warpgroups' parts, each big then small, in
@@ -10,12 +12,14 @@ byte 16 (n % 8) + 128 (k // 4) + 256 (n // 8) + 4 (k % 4)); the kernel
 brings each step into shared memory with one bulk copy. Held here:
 
 - the images of the bank's operators, built from the JAX ``build_params``
-  (``w_ssb`` 512 x 128 in one range, ``w_pbt`` 256 x 256 in two, and
-  ``w_pbt``'s L half 256 x 128 in two), read back through that formula,
-  give ``split_tf32``'s big and small bit for bit;
+  (``w_ssb`` 512 x 128 in one range, split over K and, for K2a, not;
+  ``w_pbt`` 256 x 256 in two, and ``w_pbt``'s L half 256 x 128 in two),
+  read back through that formula, give ``split_tf32``'s big and small bit
+  for bit;
 - every K step of the two warpgroups is one contiguous block at a 16-byte
   aligned offset, of the size the kernel copies (16 KB, or 8 KB for L's
-  half), the band-pass's split over K (step j: K steps j and 32 + j);
+  half and for K2a's one part), the band-pass's split over K (step j: K
+  steps j and 32 + j);
 - ``ops/sweep.ssb_image`` builds an image once while its operators stay
   unchanged, anew after they change; the banks build theirs once, not per
   segment.
@@ -31,7 +35,7 @@ from radiodsp_sdr_rx_tpu.models.config import AGCMode, DemodMode, NRMode, Receiv
 from radiodsp_sdr_rx_tpu.models.receiver import build_params
 from radiodsp_sdr_rx_tpu_torch.models import config as tconfig
 from radiodsp_sdr_rx_tpu_torch.models.fused import FusedNRBank, FusedSSBBank
-from radiodsp_sdr_rx_tpu_torch.ops import sweep, tf32x3
+from radiodsp_sdr_rx_tpu_torch.ops import chain_common, sweep, tf32x3
 
 CFG = ReceiverConfig(mode=DemodMode.USB, vfo_freq=7_200_000.0, capture_center_freq=7_190_000.0,
                      agc=AGCMode.MEDIUM)
@@ -46,7 +50,7 @@ def _operators():
 # (operator, its columns, the warpgroups' K shares and column ranges, a
 # step's bytes: the kernel's one copy)
 CASES = [("w_ssb", slice(None), 2, 1, 16384), ("w_pbt", slice(None), 1, 2, 16384),
-         ("w_pbt", slice(0, 128), 1, 2, 8192)]
+         ("w_pbt", slice(0, 128), 1, 2, 8192), ("w_ssb", slice(None), 1, 1, 8192)]
 
 
 def _read_back(image, k, n, ksplit, parts):
@@ -80,7 +84,7 @@ def test_steps_are_contiguous_and_aligned(name, cols, ksplit, parts, step_bytes)
     image = tf32x3.tf32_image(w, parts, ksplit)
     assert image.is_contiguous() and image.data_ptr() % 16 == 0
     assert image[0].numel() * 4 == step_bytes and step_bytes % 16 == 0
-    assert image.shape[0] == 32   # a product's K steps of the two warpgroups
+    assert image.shape[0] == w.shape[0] // 8 // ksplit   # a product's K steps of the block
     for j in range(image.shape[0]):
         assert image[j].data_ptr() - image.data_ptr() == j * step_bytes
         assert image[j].is_contiguous()
@@ -133,7 +137,7 @@ def test_ssb_image_cache_lets_go_of_dead_operators():
     ops = _operators()
     sweep.ssb_image(ops["w_ssb"].clone(), ops["w_pbt"].clone())   # operators dropped at once
     sweep.ssb_image(ops["w_ssb"], ops["w_pbt"])
-    assert all(a() is not None and b() is not None for a, b, _ in sweep._IMAGES.values())
+    assert all(r() is not None for refs, _ in chain_common._PER_OPERATOR.values() for r in refs)
 
 
 def test_ssb_image_checks_the_operators():
