@@ -98,8 +98,16 @@ banks against the port's reference chain, and times them:
     2 x 8,192, a locked-carrier scene) against the unsharded chain and split
     against unbroken, and USB + DNR (K3, one launch a segment) and USB +
     spectral at 128 channels x 2^19; ``ShardedFusedBank`` of the SSB bank,
-    1,024 channels x 2^17 on channel=8, bit for bit with the one bank; and
-    ``ReceiverBank(backend="vmap")`` with DNR2 at 129 channels (fault F1).
+    1,024 channels x 2^17 on channel=8, bit for bit with the one bank;
+    ``ReceiverBank(backend="vmap")`` with DNR2 at 129 channels (fault F1);
+    and K9 across processes (``ring_shift_group``: ``GroupRing``, each rank
+    writing into its right neighbour's slot through CUDA IPC): gloo groups
+    of 2 and then 4 spawned ranks, all on cuda:0 (``make_global_mesh(...,
+    device="cuda:0")``), 100 exchanges of fresh blocks bit for bit with the
+    plain exchange, timed beside the gloo ppermute halo, and on the 4-rank
+    group the time-sharded USB and AM chains with the kernel halo, bit for
+    bit the group's ppermute halo and the in-process kernel halo; every rank
+    joined with a timeout.
 
 Every phase prints one flushed line with the seconds elapsed. Any failure
 raises and exits non-zero; without a CUDA card it exits non-zero at once.
@@ -112,10 +120,13 @@ from __future__ import annotations
 import contextlib
 import functools
 import json
+import multiprocessing
 import re
 import subprocess
 import sys
+import tempfile
 import time
+import traceback
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -238,6 +249,10 @@ extern "C" int pll_latency(long long* cycles, float* sink) {
 """ % LATENCY_LINKS
 LIBRARIES = ("sweep_chain", "staged", "lms", "sweep_spec", "sam", "sam_wide", "sweep_denoise",
              "sweep_notch", "halo")
+GROUP_WORLDS = (2, 4)    # the gloo process groups of phase 7g, every rank on cuda:0
+GROUP_EXCHANGES = 100    # K9 across processes: the chain of fresh exchanges, and timed
+GROUP_BLOCK = (128, 128)  # complex64, the bank tail of phase 7f
+GROUP_JOIN_S = 240       # each rank's results, and then its exit, wait at most this
 
 
 def say(msg: str) -> None:
@@ -477,6 +492,150 @@ def unsharded_full_chain(mode, nr, nb, iq, incs, p, st, mu):
     return audio, spec_in
 
 
+def group_rank(rank: int, world: int, rdv: str, streams: dict, want: dict, results) -> None:
+    """One rank of phase 7g, every rank on cuda:0 in a gloo group of
+    ``world``: K9 across processes alone (GROUP_EXCHANGES exchanges of fresh
+    blocks, held bit for bit to what the left neighbour sent and to the
+    plain exchange, then timed beside the plain exchange and the host
+    handshake alone), and on the 4-rank group the time-sharded USB and AM
+    chains of phase 7b with the kernel halo (bit for bit the group's
+    ppermute halo and, on rank 0, phase 7b's in-process kernel halo,
+    ``want``). Puts (rank, results, None) or (rank, None, traceback)."""
+    try:
+        torch.set_num_threads(2)
+        torch.cuda.set_device(0)
+        import torch.distributed as dist
+
+        from radiodsp_sdr_rx_tpu_torch.models.config import AGCMode, DemodMode, ReceiverConfig
+        from radiodsp_sdr_rx_tpu_torch.models.receiver import build_params
+        from radiodsp_sdr_rx_tpu_torch.parallel import (
+            halo, initialize_distributed, make_global_mesh, make_time_sharded_ssb_chain)
+
+        initialize_distributed(f"file://{rdv}", world, rank, backend="gloo")
+        mesh = make_global_mesh(channel=1, time=world, device="cuda:0")
+        axis = mesh.group.axes["time"]
+        out = {}
+
+        def stream_of(seed):   # the fresh blocks rank `seed` sends, one an exchange
+            gen = torch.Generator(device="cuda").manual_seed(1000 + seed)
+            return lambda: torch.randn(GROUP_BLOCK, generator=gen, device="cuda",
+                                       dtype=torch.complex64)
+
+        def exchanges(kernel):
+            mine, left, first = stream_of(rank), stream_of(rank - 1), stream_of(world)
+            got = torch.empty((GROUP_EXCHANGES,) + GROUP_BLOCK, dtype=torch.complex64,
+                              device="cuda")
+            sent = torch.empty_like(got)
+            for k in range(GROUP_EXCHANGES):
+                x, f = mine(), first()
+                sent[k].copy_(f if rank == 0 else left())
+                # read on the stream before the next exchanges: a write into a slot
+                # still in use would show here
+                got[k].copy_(axis.shift_from_left([x], f, kernel=kernel)[0])
+            torch.cuda.synchronize()
+            return got, sent
+
+        halo.LAUNCHES = halo.LAUNCHES_GROUP = 0
+        got, sent = exchanges(True)
+        out["launches_alone"] = (halo.LAUNCHES_GROUP, halo.LAUNCHES)
+        plain, _ = exchanges(False)
+        out["alone_equal"] = (bool(torch.equal(got, sent)), bool(torch.equal(got, plain)))
+        del got, sent, plain
+
+        def per_exchange(kernel):
+            x, f = stream_of(rank)(), stream_of(world)()
+            dist.barrier(group=axis.group)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(GROUP_EXCHANGES):
+                x = axis.shift_from_left([x], f, kernel=kernel)[0]
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t) / GROUP_EXCHANGES * 1e3
+
+        per_exchange(True)   # warm
+        times = {"kernel": [], "ppermute": []}
+        for kernel in (True, False, True, False):
+            times["kernel" if kernel else "ppermute"].append(per_exchange(kernel))
+        # the host handshake alone: the same exchanges with every CUDA entry a no-op
+        ring = axis.ring(stream_of(rank)())
+        real, ring._lib = ring._lib, {k: (lambda *a: 0) for k in ring._lib}
+        try:
+            times["handshake"] = [per_exchange(True)]
+        finally:
+            ring._lib = real
+        out["times_ms"] = times
+
+        if world == 4:
+            for mode, agc_mode in (("usb", AGCMode.FAST), ("am", AGCMode.MEDIUM)):
+                p = build_params(ReceiverConfig(
+                    mode=DemodMode.AM if mode == "am" else DemodMode.USB, agc=agc_mode,
+                    vfo_freq=7_060_000.0, capture_center_freq=7_050_000.0,
+                    iq_gain_balance=1.0))
+                args = (p.nco_inc, p.w_sideband, p.w_audio, p.agc_release, p.agc_target,
+                        p.agc_max_gain, p.output_gain)
+                iq = torch.from_numpy(streams[mode]).cuda()
+                chains = {h: make_time_sharded_ssb_chain(mesh, am=mode == "am", sample_rate=FS,
+                                                         halo=h) for h in ("kernel", "ppermute")}
+                halo.LAUNCHES = halo.LAUNCHES_GROUP = 0
+                a = chains["kernel"](iq, *args)
+                torch.cuda.synchronize()
+                launched = (halo.LAUNCHES_GROUP, halo.LAUNCHES)
+                b = chains["ppermute"](iq, *args)
+                same_local = (bool(np.array_equal(a.cpu().numpy(), want[mode])) if rank == 0
+                              else None)
+                path = {"kernel": [], "ppermute": []}
+                for h in ("kernel", "ppermute", "kernel", "ppermute"):
+                    dist.barrier(group=axis.group)
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    chains[h](iq, *args)
+                    torch.cuda.synchronize()
+                    path[h].append((time.perf_counter() - t) * 1e3)
+                out[mode] = dict(launched=launched, same_halos=bool(torch.equal(a, b)),
+                                 same_local=same_local, finite=bool(torch.isfinite(a).all()),
+                                 path_ms=path)
+        mesh.close()
+        results.put((rank, out, None))
+        dist.destroy_process_group()
+    except Exception:   # the parent reports it and fails the run
+        results.put((rank, None, traceback.format_exc()))
+
+
+def run_group(world: int, streams: dict, want: dict) -> dict:
+    """Phase 7g on a gloo group of ``world`` processes, a file rendezvous in a
+    temporary directory: every rank's results (rank -> dict). Raises if a
+    rank fails or does not put its results, or a process is left alive,
+    within GROUP_JOIN_S; every process is stopped."""
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    got, errors = {}, []
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [ctx.Process(target=group_rank, args=(r, world, f"{tmp}/rdv", streams, want,
+                                                      results)) for r in range(world)]
+        for p in procs:
+            p.start()
+        try:
+            deadline = time.perf_counter() + GROUP_JOIN_S
+            for _ in range(world):
+                rank, res, err = results.get(timeout=max(1.0, deadline - time.perf_counter()))
+                if err:
+                    errors.append(f"rank {rank}:\n{err}")
+                got[rank] = res
+        finally:
+            for p in procs:
+                p.join(timeout=30)
+            alive = [p.pid for p in procs if p.is_alive()]
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join(timeout=10)
+    check(not errors, f"K9 across processes, {world} ranks: " + "\n".join(errors))
+    check(not alive, f"K9 across processes, {world} ranks: processes {alive} did not exit")
+    check(all(p.exitcode == 0 for p in procs),
+          f"K9 across processes, {world} ranks: exit codes {[p.exitcode for p in procs]}")
+    return got
+
+
 def sharded_paths(gen, reset_counts, counts, only, launches, err, timing) -> None:
     """7. the sharded paths on one card: K9 alone, the time-sharded chains
     with the kernel halo, the full 2-D chain, the sharded fused bank, and
@@ -526,6 +685,7 @@ def sharded_paths(gen, reset_counts, counts, only, launches, err, timing) -> Non
     iq_am = siggen.am_signal(n_1d, 10_000.0, mod_hz=900.0, fs=FS).astype(np.complex64)
     kw = dict(vfo_freq=7_060_000.0, capture_center_freq=7_050_000.0, iq_gain_balance=1.0)
     ring_calls, launched = 0, dict.fromkeys(counts(), 0)
+    in_process = {}   # the kernel halo's outputs, for phase 7g
     for am, iq1, agc_mode in ((False, iq_usb, AGCMode.FAST), (True, iq_am, AGCMode.MEDIUM)):
         cfg1 = ReceiverConfig(mode=DemodMode.AM if am else DemodMode.USB, agc=agc_mode, **kw)
         p = build_params(cfg1)
@@ -550,6 +710,7 @@ def sharded_paths(gen, reset_counts, counts, only, launches, err, timing) -> Non
             f"- unsharded Receiver| = {d:.3e} (tolerance {TOL_PARITY:g}); rms "
             f"{float(got.square().mean().sqrt()):.4f}")
         check(torch.equal(got, ref), f"the kernel halo differs from the ppermute ({label})")
+        in_process[label.lower()] = got.cpu().numpy()
         check(d <= TOL_PARITY and bool(torch.isfinite(got).all()),
               f"the time-sharded {label} chain differs from the Receiver: {d:.3e}")
         path_ms[f"time-sharded {label} chain, kernel halo (1 x {n_1d}, time=4)"] = time_ms(
@@ -560,7 +721,8 @@ def sharded_paths(gen, reset_counts, counts, only, launches, err, timing) -> Non
     check(launched == only(ring_shift=2 * ring_calls), f"the kernel-halo chains launched "
           f"{launched}, expected 2 ring_shift per call ({ring_calls} calls) and no other")
     say(f"time-sharded chains, kernel halo: kernel launches {launched}")
-    del iq_usb, iq_am, audio_in, iq_dev, got, ref, single
+    streams = {"usb": iq_usb, "am": iq_am}
+    del audio_in, iq_dev, got, ref, single
 
     # 7c. the full 2-D chain on channel=2 x time=4 over cuda:0
     mesh24 = make_mesh(channel=2, time=4, devices=[torch.device("cuda:0")] * 8)
@@ -712,13 +874,21 @@ def sharded_paths(gen, reset_counts, counts, only, launches, err, timing) -> Non
         return bufs
 
     b_ms, b_by, s_ms = bound(0, nbytes)
+    turns = {"kernel": [], "library": []}   # in turns: kernel, library, kernel, library
+    for name in ("kernel", "library", "kernel", "library"):
+        turns[name].append(time_ms(chain_of(halo.ring_shift_right if name == "kernel"
+                                            else copies), 3) / 100)
     timing["ring_shift"] = dict(
-        ms=time_ms(chain_of(halo.ring_shift_right), 3) / 100,
+        ms=sum(turns["kernel"]) / 2,
         plain_ms=time_ms(chain_of(halo.ring_shift_right_plain), 3) / 100,
         bound_ms=b_ms, bound_by=b_by, simt_bound_ms=s_ms,
-        library_ms=time_ms(chain_of(copies), 3) / 100,
+        library_ms=sum(turns["library"]) / 2,
         flops=0, samples=4 * 128 * 128, plain_from=4 * 128 * 128)
-    busy = {}   # the device's own time per exchange, from a profiler trace
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    chain_of(halo.ring_shift_right)()
+    host_us = (time.perf_counter() - t) * 1e4   # the host's time per exchange, no wait
+    busy, split = {}, {}   # the device's own time per exchange, and the host's, by the profiler
     for name, fn in (("kernel", halo.ring_shift_right), ("library", copies)):
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                                 torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -726,14 +896,79 @@ def sharded_paths(gen, reset_counts, counts, only, launches, err, timing) -> Non
             torch.cuda.synchronize()
         ops = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
         busy[name] = (sum(e.time_range.elapsed_us() for e in ops) / 100, len(ops) / 100)
+        host = sorted(((e.self_cpu_time_total / 100, e.key) for e in prof.key_averages()
+                       if e.self_cpu_time_total > 0), reverse=True)
+        split[name] = ", ".join(f"{k} {v:.2f}" for v, k in host[:6])
     tm = timing["ring_shift"]
     say(f"timing ring_shift (K9), 4 shards of (128, 128) complex64 on cuda:0, a chain of 100 "
-        f"exchanges: kernel {tm['ms'] * 1e3:.2f} us per exchange (one launch), plain (4 "
-        f"copies) {tm['plain_ms'] * 1e3:.2f} us, library (4 copy_ into buffers) "
-        f"{tm['library_ms'] * 1e3:.2f} us, bound {tm['bound_ms'] * 1e3:.3f} us ({b_by}, "
-        f"{nbytes} B); device busy per exchange by the profiler: kernel "
-        f"{busy['kernel'][0]:.2f} us in {busy['kernel'][1]:.0f} operation(s), library "
-        f"{busy['library'][0]:.2f} us in {busy['library'][1]:.0f}")
+        f"exchanges: kernel {tm['ms'] * 1e3:.2f} us per exchange (one launch; in turns "
+        f"{', '.join(f'{v * 1e3:.2f}' for v in turns['kernel'])}), plain (4 copies) "
+        f"{tm['plain_ms'] * 1e3:.2f} us, library (4 copy_ into buffers) "
+        f"{tm['library_ms'] * 1e3:.2f} us (in turns "
+        f"{', '.join(f'{v * 1e3:.2f}' for v in turns['library'])}), bound "
+        f"{tm['bound_ms'] * 1e3:.3f} us ({b_by}, {nbytes} B); the host's time per kernel "
+        f"exchange without a wait {host_us:.2f} us; device busy per exchange by the profiler: "
+        f"kernel {busy['kernel'][0]:.2f} us in {busy['kernel'][1]:.0f} operation(s), library "
+        f"{busy['library'][0]:.2f} us in {busy['library'][1]:.0f}; the host's self time per "
+        f"exchange by the profiler (us, under it): kernel {split['kernel']}; library "
+        f"{split['library']}")
+
+    # 7g. K9 across processes: gloo groups of 2 and then 4 ranks, all on cuda:0
+    group_bytes = {w: 2 * w * 128 * 128 * 8 for w in GROUP_WORLDS}
+    group = {}
+    for world in GROUP_WORLDS:
+        t = time.perf_counter()
+        got = run_group(world, streams, in_process)
+        alone = [got[r]["launches_alone"] for r in range(world)]
+        check(all(got[r]["alone_equal"] == (True, True) for r in range(world)),
+              f"K9 across {world} processes differs from what the left neighbour sent or from "
+              f"the plain exchange: {[got[r]['alone_equal'] for r in range(world)]}")
+        check(alone == [(GROUP_EXCHANGES, 0)] * (world - 1) + [(0, 0)],
+              f"K9 across {world} processes: launches (across, in process) per rank {alone}")
+        tms = {k: [max(got[r]["times_ms"][k][i] for r in range(world))
+                   for i in range(len(got[0]["times_ms"][k]))] for k in got[0]["times_ms"]}
+        say(f"check K9 across processes, {world} gloo ranks on cuda:0 (ring_shift through "
+            f"csrc/halo.cu group_ring_send, CUDA IPC): {GROUP_EXCHANGES} exchanges of fresh "
+            f"(128, 128) complex64 blocks bit for bit what the left neighbour sent and the plain "
+            f"exchange (the gloo ppermute halo); launches per rank {[a[0] for a in alone]}; us "
+            f"per exchange, the slowest rank, in turns: kernel "
+            f"{', '.join(f'{v * 1e3:.1f}' for v in tms['kernel'])}, gloo ppermute halo "
+            f"{', '.join(f'{v * 1e3:.1f}' for v in tms['ppermute'])}; the host handshake alone "
+            f"{tms['handshake'][0] * 1e3:.1f}; bound {group_bytes[world] / PEAK_BYTES_S * 1e6:.3f} "
+            f"us (bytes, {group_bytes[world]} B); {time.perf_counter() - t:.1f} s with the "
+            f"processes' start")
+        group[world] = (got, tms)
+    got, tms = group[max(GROUP_WORLDS)]
+    group_launches = 0
+    for mode in ("usb", "am"):
+        res = [got[r][mode] for r in range(max(GROUP_WORLDS))]
+        launched = [r["launched"] for r in res]
+        group_launches += sum(a for a, _ in launched)
+        check(all(r["same_halos"] and r["finite"] for r in res) and res[0]["same_local"],
+              f"the time-sharded {mode} chain across processes: kernel halo == ppermute "
+              f"{[r['same_halos'] for r in res]}, == the in-process kernel halo "
+              f"{res[0]['same_local']}")
+        check(launched == [(2, 0)] * 3 + [(0, 0)],
+              f"the time-sharded {mode} chain across processes: launches per rank {launched}")
+        path = {h: [max(r["path_ms"][h][i] for r in res) for i in range(2)]
+                for h in ("kernel", "ppermute")}
+        say(f"check time-sharded {mode.upper()} chain, 1 stream x {1 << 21} on a gloo group of 4 "
+            f"ranks on cuda:0 (make_global_mesh(channel=1, time=4, device='cuda:0')): kernel halo "
+            f"bit for bit the group's ppermute halo and phase 7b's in-process kernel halo; "
+            f"launches per rank {[a for a, _ in launched]}; ms per call, the slowest rank, in "
+            f"turns: kernel halo {', '.join(f'{v:.3f}' for v in path['kernel'])}, ppermute halo "
+            f"{', '.join(f'{v:.3f}' for v in path['ppermute'])}")
+        path_ms[f"time-sharded {mode.upper()} chain across 4 processes, kernel halo"] = (
+            sum(path["kernel"]) / 2)
+        path_ms[f"time-sharded {mode.upper()} chain across 4 processes, ppermute halo"] = (
+            sum(path["ppermute"]) / 2)
+    launches["ring_shift_group"] += group_launches
+    b_ms, b_by, s_ms = bound(0, group_bytes[max(GROUP_WORLDS)])
+    timing["ring_shift_group"] = dict(
+        ms=sum(tms["kernel"]) / 2, plain_ms=sum(tms["ppermute"]) / 2, bound_ms=b_ms,
+        bound_by=b_by, simt_bound_ms=s_ms, library_ms=None, flops=0,
+        samples=max(GROUP_WORLDS) * 128 * 128, plain_from=max(GROUP_WORLDS) * 128 * 128)
+    err["ring_shift_group"] = 0.0
     say("timing sharded paths: " + "; ".join(f"{k} {v:.3f} ms" for k, v in path_ms.items()))
 
 
@@ -778,7 +1013,7 @@ def main() -> None:
         sam_wide.LAUNCHES = sam_wide.LAUNCHES_NB = 0
         lanes.LAUNCHES.update(dict.fromkeys(lanes.LAUNCHES, 0))
         sweep.LAUNCHES_SWEEP_MIX = 0
-        halo.LAUNCHES = 0
+        halo.LAUNCHES = halo.LAUNCHES_GROUP = 0
 
     def counts() -> dict:
         return {"sweep_chain_ssb": sweep.LAUNCHES, "sweep_chain_ssb_nb": sweep.LAUNCHES_NB,
@@ -789,7 +1024,7 @@ def main() -> None:
                 "sweep_chain_sam": sweep.LAUNCHES_SAM, "sweep_chain_sam_nb": sweep.LAUNCHES_SAM_NB,
                 "sam_wide": sam_wide.LAUNCHES, "sam_wide_nb": sam_wide.LAUNCHES_NB,
                 **lanes.LAUNCHES, "sweep_mix_demod": sweep.LAUNCHES_SWEEP_MIX,
-                "ring_shift": halo.LAUNCHES}
+                "ring_shift": halo.LAUNCHES, "ring_shift_group": halo.LAUNCHES_GROUP}
 
     def only(**launched) -> dict:
         """The counts of a path that launched these kernels and no other."""
@@ -2535,7 +2770,8 @@ def main() -> None:
                **{k: (f"{sweep.LIBRARIES[k.split('_')[2]]}.cu", "ops/pallas_chain_lanes.py:98")
                   for k in lanes.KERNELS},
                "sweep_mix_demod": ("staged.cu", "ops/pallas_sweep.py:59"),
-               "ring_shift": ("halo.cu", "parallel/pallas_halo.py:36")}
+               "ring_shift": ("halo.cu", "parallel/pallas_halo.py:36"),
+               "ring_shift_group": ("halo.cu", "parallel/pallas_halo.py:36")}
     print(json.dumps({"kernels": [{
         "name": kname, "route": "cuda",
         "source": f"radiodsp_sdr_rx_tpu_torch/csrc/{src}",

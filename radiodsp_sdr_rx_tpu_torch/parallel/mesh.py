@@ -11,7 +11,8 @@ gives each its collectives):
     shard is a tensor of its own on the one card.
   - over a process group, ``make_global_mesh``: one shard per rank, rank r
     at (r // time, r % time), after ``initialize_distributed`` (NCCL for
-    CUDA, gloo for the CPU).
+    CUDA, gloo for the CPU; gloo ranks may also share a card, with
+    ``device="cuda:0"``).
 
 ``Mesh.shard`` and ``Mesh.unshard`` cut a global tensor into the pieces a
 partition spec names and put them back, as ``shard_map``'s in_specs and
@@ -100,6 +101,14 @@ class Mesh:
         return torch.cat(grid, dim=spec[self.axis_names[0]]) if len(grid) > 1 else grid[0]
 
 
+    def close(self) -> None:
+        """Free what the mesh's collectives hold on the cards (the kernel
+        halo's rings across processes); every rank together. A no-op in one
+        process."""
+        if self.group:
+            for axis in self.group.axes.values():
+                axis.close()
+
     def shard_state(self, state, spec: dict, coord):
         """``shard`` on every tensor of a (nested) NamedTuple state; a 0-d
         leaf (a flag for the whole bank) goes whole to the shard's device."""
@@ -180,17 +189,30 @@ def initialize_distributed(coordinator: str | None = None, num_processes: int | 
                             init_method=url, world_size=num_processes, rank=process_id)
 
 
-def make_global_mesh(channel: int = 1, time: int = 1) -> Mesh:
+def make_global_mesh(channel: int = 1, time: int = 1, device=None) -> Mesh:
     """A (channel, time) mesh over the process group, one shard per rank:
-    rank r holds (r // time, r % time), on CUDA device r mod the count under
-    NCCL, else on the CPU. Channel lines then span ranks ``time`` apart and
-    time lines neighbouring ranks. Call ``initialize_distributed`` first."""
+    rank r holds (r // time, r % time). ``device=None`` puts it on CUDA
+    device r mod the count under NCCL, else on the CPU; an explicit device
+    (``"cuda:0"``, ``"cpu"``) puts it there under either backend, so several
+    gloo ranks can share one card. A card that is not there raises. Channel
+    lines then span ranks ``time`` apart and time lines neighbouring ranks.
+    Call ``initialize_distributed`` first."""
     if not dist.is_initialized():
         raise RuntimeError("make_global_mesh: call initialize_distributed first")
-    if dist.get_backend() == "nccl":
-        device = torch.device("cuda", dist.get_rank() % torch.cuda.device_count())
+    if device is None:
+        if dist.get_backend() == "nccl":
+            device = torch.device("cuda", dist.get_rank() % torch.cuda.device_count())
+        else:
+            device = torch.device("cpu")
     else:
-        device = torch.device("cpu")
+        device = torch.device(device)
+        if device.type == "cuda":
+            count = torch.cuda.device_count() if torch.cuda.is_available() else 0
+            index = device.index if device.index is not None else 0
+            if index >= count:
+                raise RuntimeError(f"make_global_mesh: no {device} here ({count} CUDA "
+                                   "device(s)); there is no CPU fallback")
+            device = torch.device("cuda", index)
     group = _Group(channel, time, device)
     grid = [[None] * time for _ in range(channel)]
     c, t = group.coord

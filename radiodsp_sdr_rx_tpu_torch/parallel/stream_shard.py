@@ -84,7 +84,9 @@ def sharded_overlap_save(xs, w, first_tail, axis, halo: str = "ppermute"):
     per-shard list of a replicated one (each line's first shard's counts).
     ``halo``: "ppermute" (the collective) or "kernel" (K9,
     ``parallel/halo.py``). Returns (ys, each shard's own last F/2 samples);
-    the last shard's is the stream's next carry."""
+    the last shard's is the stream's next carry. The halo is read here, right
+    after its exchange: on a process group's card K9 hands back a receive
+    slot that is valid only until the exchange after next."""
     _check_halo(halo)
     half = _each(first_tail, 1)[0].shape[-1]
     my_tails = [x[..., -half:].contiguous() for x in xs]

@@ -6,8 +6,13 @@ the 8 virtual CPU devices of tests/conftest.py: ``_shift_from_left`` (the
 ppermute) and ``shift_from_left_pallas`` and ``ring_shift_right_pallas``
 (the Pallas kernel in the Mosaic interpreter, remote DMAs and the barrier
 simulated), as tests/test_parallel.py:326-374 holds them to each other. The
-CUDA launch and its count are in tests/test_torch_kernels_cuda.py.
+one-card launch's host side (its table, one allocation an exchange) runs
+on a stand-in for the C entry; the CUDA launch and its count are in
+tests/test_torch_kernels_cuda.py.
 """
+
+import ctypes
+import struct
 
 import numpy as np
 import pytest
@@ -133,3 +138,49 @@ def test_arguments_the_ring_refuses():
         halo.ring_shift_right([torch.zeros(2, HALF, device="meta")] * 2)
     with pytest.raises(ValueError, match="halo must be"):
         sharded_overlap_save([f], torch.zeros(256, 128), f, None, halo="pallas")
+
+
+class _OnCard(torch.Tensor):
+    """A CPU tensor that says it is on a card, to reach the launch's host side."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.complex64])
+def test_one_card_launch_table_is_the_plain_shift(dtype, monkeypatch):
+    """The host side of the one-card launch (``ring_shift``): one table of
+    source pointers, destination p the p-th block of one new allocation.
+    A stand-in for the C entry copies by that table; the per-shard views it
+    hands back equal the plain shifts, one launch an exchange, two rings of
+    four included."""
+    calls = []
+
+    def shift(srcs, dsts, pairs, floats, device, stream):
+        calls.append((pairs, floats))
+        dsts = struct.unpack(f"{pairs}Q", dsts)
+        assert all(d == dsts[0] + p * floats * 4 for p, d in enumerate(dsts))
+        for src, dst in zip(struct.unpack(f"{pairs}Q", srcs), dsts):
+            ctypes.memmove(dst, src, floats * 4)
+        return 0
+
+    monkeypatch.setattr(halo, "_library", lambda: {"ring_shift": shift})
+    monkeypatch.setattr(halo, "_raw_stream", lambda index: 0)
+    rng = np.random.default_rng(11)
+    plain = [torch.from_numpy(rng.standard_normal((3, 5)).astype(np.float32)).to(dtype)
+             for _ in range(8)]
+    blocks = [b.as_subclass(_OnCard) for b in plain]
+    firsts = [torch.full((5,), 2.0, dtype=dtype), torch.full((5,), -3.0, dtype=dtype)]
+    before = halo.LAUNCHES
+    got = [halo.ring_shift_right(blocks), halo.ring_shift_right(blocks, ring=4),
+           halo.shift_from_left_kernel(blocks, firsts, ring=4)]
+    want = [halo.ring_shift_right_plain(plain), halo.ring_shift_right_plain(plain, ring=4),
+            halo.shift_from_left_plain(plain, firsts, ring=4)]
+    assert halo.LAUNCHES - before == 3
+    assert calls == [(8, 15 * (2 if dtype == torch.complex64 else 1))] * 3
+    for g, w in zip(got, want):
+        assert all(torch.equal(a.as_subclass(torch.Tensor), b) for a, b in zip(g, w))
+        assert len({a.untyped_storage().data_ptr() for a in g}) == 1   # one allocation
+    with pytest.raises(ValueError, match="contiguous"):
+        halo.ring_shift_right([b.t() for b in blocks])

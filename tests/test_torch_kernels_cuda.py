@@ -45,10 +45,17 @@ their peak) and to the CPU's sequence of I2S repairs. K9 (``ring_shift``,
 parallel/halo.py) equals its plain copies bit for bit, one launch per
 exchange on one card (every ring of the list in it), one per source card
 across cards (skipped with fewer than two), and the time-sharded chain's
-kernel halo equals its ppermute halo bit for bit.
+kernel halo equals its ppermute halo bit for bit. K9 across processes
+(``halo.GroupRing``): two gloo ranks on the one card, 100 exchanges of fresh
+blocks bit for bit what the left neighbour sent and the plain exchange, the
+time-sharded chain's kernel halo bit for bit the group's ppermute halo, one
+launch a rank and exchange, and a neighbour's slot that cannot be opened
+raises on both ranks.
 """
 
 import functools
+import multiprocessing as mp
+import traceback
 
 import numpy as np
 import pytest
@@ -1240,3 +1247,88 @@ def test_time_sharded_chain_kernel_halo_on_card(cuda_device):
     assert torch.equal(out["cuda", "kernel"], out["cuda", "ppermute"])
     np.testing.assert_allclose(out["cuda", "kernel"].numpy(), out["cpu", "kernel"].numpy(),
                                atol=ATOL, rtol=0)
+
+
+GROUP_JOIN_S = 180
+
+
+def _group_rank(rank, rdv, results):
+    """One of two gloo ranks on cuda:0 (test_kernel_halo_across_processes)."""
+    try:
+        import torch.distributed as dist
+
+        from radiodsp_sdr_rx_tpu_torch.models.receiver import build_params
+        from radiodsp_sdr_rx_tpu_torch.parallel import (
+            halo, initialize_distributed, make_global_mesh, make_time_sharded_ssb_chain)
+
+        torch.cuda.set_device(0)
+        initialize_distributed(f"file://{rdv}", 2, rank, backend="gloo")
+        mesh = make_global_mesh(channel=1, time=2, device="cuda:0")
+        axis = mesh.group.axes["time"]
+        gens = [torch.Generator(device="cuda").manual_seed(s) for s in (rank, rank - 1, 9)]
+
+        def draw(g):
+            return torch.randn((3, 128), generator=g, device="cuda", dtype=torch.complex64)
+
+        halo.LAUNCHES_GROUP = 0
+        got, sent, plain = [], [], []
+        for _ in range(100):
+            x, first = draw(gens[0]), draw(gens[2])
+            sent.append(first if rank == 0 else draw(gens[1]))
+            got.append(axis.shift_from_left([x], first, kernel=True)[0].clone())
+            plain.append(axis.shift_from_left([x], first)[0])
+        torch.cuda.synchronize()
+        launched = halo.LAUNCHES_GROUP
+        p = build_params(ReceiverConfig(mode=DemodMode.USB, vfo_freq=7_060_000.0,
+                                        capture_center_freq=7_050_000.0, iq_gain_balance=1.0))
+        args = (p.nco_inc, p.w_sideband, p.w_audio, p.agc_release, p.agc_target,
+                p.agc_max_gain, p.output_gain)
+        iq = (torch.randn(2 * 8192, generator=torch.Generator().manual_seed(4),
+                          dtype=torch.complex64) * 0.1).cuda()
+        chains = {h: make_time_sharded_ssb_chain(mesh, halo=h)(iq, *args)
+                  for h in ("kernel", "ppermute")}
+        real = halo._library()
+        connect = real["group_ring_connect"]
+        halo._library = lambda: {**real, "group_ring_connect": lambda ring, left, right: connect(
+            ring, left, None if right is None else bytes(len(right)))}
+        try:
+            axis.shift_from_left([torch.zeros(7, device="cuda")], torch.zeros(7), kernel=True)
+            refused = "no error"
+        except RuntimeError as err:
+            refused = str(err)
+        results.put((rank, dict(
+            alone=all(torch.equal(a, b) for a, b in zip(got, sent)),
+            plain=all(torch.equal(a, b) for a, b in zip(got, plain)), launched=launched,
+            chain=bool(torch.equal(chains["kernel"], chains["ppermute"])), refused=refused),
+            None))
+        mesh.close()
+        dist.destroy_process_group()
+    except Exception:   # the parent reports it
+        results.put((rank, None, traceback.format_exc()))
+
+
+def test_kernel_halo_across_processes(cuda_device, tmp_path):
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    procs = [ctx.Process(target=_group_rank, args=(r, tmp_path / "rdv", results))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    got = {}
+    try:
+        for _ in range(2):
+            rank, res, err = results.get(timeout=GROUP_JOIN_S)
+            assert err is None, f"rank {rank} failed:\n{err}"
+            got[rank] = res
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+        alive = [p.pid for p in procs if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+    assert not alive, f"processes {alive} did not exit"
+    assert all(r["alone"] and r["plain"] and r["chain"] for r in got.values()), got
+    assert [got[r]["launched"] for r in range(2)] == [100, 0]
+    assert "cannot open its neighbours' slots" in got[0]["refused"]
+    assert "could not open" in got[1]["refused"]
