@@ -107,7 +107,25 @@ banks against the port's reference chain, and times them:
     plain exchange, timed beside the gloo ppermute halo, and on the 4-rank
     group the time-sharded USB and AM chains with the kernel halo, bit for
     bit the group's ppermute halo and the in-process kernel halo; every rank
-    joined with a timeout.
+    joined with a timeout;
+  - the scopes, the channelized bank and the host utilities (plain PyTorch,
+    no kernel of the kernels line): ``models/metrics.analyze`` after the USB
+    ``Receiver`` (AGC medium) on CLI_BLOCKS threaded 16,384-sample blocks of
+    the QRM scene, held to the same run on the CPU (the threshold cells
+    counted), once under ``torch.cuda.set_sync_debug_mode("error")``, its
+    biquad scan's kernels counted against the block's log2, at the
+    appliance's 4,096-sample cadence too, timed per call and per CLI block
+    beside the Receiver alone; ``ChannelizedBank(n_channels=64)`` (cli.py's
+    scan default) on two threaded 2^19-sample segments of the 40 m band
+    scene in power, AM and SSB (offsets whose int32 DDS angle wraps within
+    a segment, AGC medium), each held to the CPU, SSB also fed at unaligned
+    cuts (``buffer_remainder``) against the aligned run, and ``ddc_planar``
+    at a factor of 8, each timed; checkpoints of the card's
+    ``ReceiverState``, ``ScopeState`` and ``ChannelizedState`` round-tripped
+    and resumed bit for bit; ``utils/profiling.trace`` around a CLI block
+    naming the card's kernels; the native IQ ring (built with g++ from
+    ``csrc/rdsp_io.cpp``) feeding the Receiver its blocks from a capture
+    thread, nothing dropped, bit for bit the direct run.
 
 Every phase prints one flushed line with the seconds elapsed. Any failure
 raises and exits non-zero; without a CUDA card it exits non-zero at once.
@@ -125,6 +143,7 @@ import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import traceback
 from concurrent.futures import ThreadPoolExecutor
@@ -253,6 +272,20 @@ GROUP_WORLDS = (2, 4)    # the gloo process groups of phase 7g, every rank on cu
 GROUP_EXCHANGES = 100    # K9 across processes: the chain of fresh exchanges, and timed
 GROUP_BLOCK = (128, 128)  # complex64, the bank tail of phase 7f
 GROUP_JOIN_S = 240       # each rank's results, and then its exit, wait at most this
+# phase 8: the scopes, the channelized bank, the host utilities
+SCOPE_TOL = 1e-4         # card vs CPU, of each panadapter output's peak (biquad scan, FFT)
+SCOPE_AUDIO_TOL = 5e-4   # the audio scope: its input, the Receiver's audio, is within TOL
+#                          (1e-4) card vs CPU on a 0.5 full scale
+S_TOL = 1e-3             # S-units and S9+ dB, card vs CPU, away from the S9 clamp
+APPLIANCE_BLOCK = 4096   # models/appliance.py's block
+APPLIANCE_BLOCKS = 8
+SCAN_CHANNELS = 64       # ChannelizedBank(n_channels=64), cli.py:404's scan default
+CHANNELIZED_TOL = 1e-4   # card vs CPU, of each output's peak; the SSB audio, after an AGC
+#                          whose gain reaches 316, is held to TOL (absolute), the bound of
+#                          every AGC'd audio here (a 1e-7 relative change of the input moves
+#                          it by up to 3.8e-5 of its 0.5 peak on the CPU)
+DDC_FACTOR = 8
+RING_WAIT_S = 120        # the ring's consumer gives up after this
 
 
 def say(msg: str) -> None:
@@ -970,6 +1003,362 @@ def sharded_paths(gen, reset_counts, counts, only, launches, err, timing) -> Non
         samples=max(GROUP_WORLDS) * 128 * 128, plain_from=max(GROUP_WORLDS) * 128 * 128)
     err["ring_shift_group"] = 0.0
     say("timing sharded paths: " + "; ".join(f"{k} {v:.3f} ms" for k, v in path_ms.items()))
+
+
+def scope_and_host_paths(dev, reset_counts, counts, only, blocks: int = CLI_BLOCKS,
+                         seg: int = SEG_LEN) -> None:
+    """8. The scopes at the CLI's size, the channelized bank at the scan's
+    width and the host utilities, on ``dev`` (the card), each held to the
+    port on the CPU; none launches a kernel of the kernels line, which the
+    counts show. ``dev`` may be the CPU and the sizes smaller, to rehearse
+    the phase without a card."""
+    from radiodsp_sdr_rx_tpu_torch.models.channelized import ChannelizedBank
+    from radiodsp_sdr_rx_tpu_torch.models.config import AGCMode, DemodMode, ReceiverConfig
+    from radiodsp_sdr_rx_tpu_torch.models.metrics import analyze, scope_init
+    from radiodsp_sdr_rx_tpu_torch.models.receiver import Receiver
+    from radiodsp_sdr_rx_tpu_torch.ops import decimate, iir, nco
+    from radiodsp_sdr_rx_tpu_torch.utils import checkpoint, display, native_io, profiling, scenes
+
+    on_card = dev.type == "cuda"
+    t_phase = time.perf_counter()
+
+    def sync() -> None:
+        if on_card:
+            torch.cuda.synchronize(dev)
+
+    def rel(got, ref) -> float:
+        """max |got - ref| over ref's peak."""
+        g, r = got.detach().cpu().double(), ref.detach().cpu().double()
+        if not r.numel():
+            return 0.0
+        return float((g - r).abs().max()) / max(float(r.abs().max()), 1e-30)
+
+    def host_ms(fn, n: int) -> float:
+        sync()
+        t = time.perf_counter()
+        for k in range(n):
+            fn(k)
+        sync()
+        return (time.perf_counter() - t) * 1e3 / n
+
+    def device_ops(fn) -> int:
+        """Kernels and copies on the card in one call of fn, by the profiler."""
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn()
+            sync()
+        return sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+
+    def no_launches(what: str) -> None:
+        launched = counts()
+        check(launched == only(), f"{what}: launches {launched}")
+
+    # 8a. the scopes: CLI blocks of the QRM scene through the USB Receiver,
+    # then analyze on the raw capture and the audio, card and CPU in step
+    iq_np, truth = scenes.qrm_ssb_scene((blocks + 1) * CLI_BLOCK)
+    iq_dev = torch.from_numpy(iq_np).to(dev)
+    cfg = ReceiverConfig(mode=DemodMode.USB, vfo_freq=truth["station_freq"],
+                         capture_center_freq=truth["center"], agc=AGCMode.MEDIUM)
+    rx_d, rx_h = Receiver(cfg, device=dev), Receiver(cfg, device="cpu")
+
+    def scope_run(block: int, n_blocks: int, **kw):
+        """n_blocks threaded blocks on the card and the CPU: the worst
+        relative differences, the threshold cells and the last states."""
+        st_d, st_h = rx_d.init_state(), rx_h.init_state()
+        sc_d, sc_h = scope_init(dev), scope_init("cpu")
+        worst = dict.fromkeys(("spectrum", "view", "waterfall", "smeter_uv", "audio_spectrum",
+                               "s_units", "s9_plus_db"), 0.0)
+        cells = near_cells = cls_off = s_near = 0
+        reset_counts()
+        for k in range(n_blocks):
+            blk = slice(k * block, (k + 1) * block)
+            o_d, st_d = rx_d.process(iq_dev[blk], st_d)
+            m_d, sc_d = analyze(iq_dev[blk], o_d["audio_l"], sc_d, **kw)
+            o_h, st_h = rx_h.process(iq_np[blk], st_h)
+            m_h, sc_h = analyze(torch.from_numpy(iq_np[blk]), o_h["audio_l"], sc_h, **kw)
+            for key in ("spectrum", "view", "waterfall", "smeter_uv", "audio_spectrum"):
+                worst[key] = max(worst[key], rel(m_d[key], m_h[key]))
+            wf = m_h["waterfall"]
+            near = torch.zeros(wf.shape, dtype=torch.bool)
+            for th in display.WATERFALL_THRESHOLDS:
+                near |= (wf - th).abs() <= SCOPE_TOL * float(wf.abs().max())
+            cells += wf.numel()
+            near_cells += int(near.sum())
+            cls_off += int(((m_d["waterfall_cls"].cpu() != m_h["waterfall_cls"]) & ~near).sum())
+            # the S9 clamp is the S-meter's threshold: the raw reading near it
+            # may land on either side
+            s_raw = 1.0 + (10.0 + 20.0 * np.log10(max(float(m_h["smeter_uv"][-1]), 1e-12))
+                           * 1.2) / 6.0
+            if abs(s_raw - 9.0) <= S_TOL:
+                s_near += 1
+            else:
+                for key in ("s_units", "s9_plus_db"):
+                    worst[key] = max(worst[key], abs(float(m_d[key]) - float(m_h[key])))
+        sync()
+        no_launches(f"the scopes at {block}-sample blocks")
+        return worst, (cells, near_cells, cls_off, s_near), (st_d, sc_d, o_d, m_d)
+
+    def scope_verdict(label: str, worst: dict, thr) -> None:
+        cells, near_cells, cls_off, s_near = thr
+        say(f"check scopes {label}: max |card - cpu| / peak: "
+            + ", ".join(f"{k} {v:.3e}" for k, v in worst.items() if k not in ("s_units",
+                                                                           "s9_plus_db"))
+            + f" (tolerance {SCOPE_TOL:g}, the audio spectrum {SCOPE_AUDIO_TOL:g}); "
+            f"S-units {worst['s_units']:.3e}, S9+ dB {worst['s9_plus_db']:.3e} (tolerance "
+            f"{S_TOL:g}); colour classes off in {cls_off} of {cells - near_cells} cells away "
+            f"from a threshold ({near_cells} of {cells} within the tolerance of one); "
+            f"{s_near} block(s) with the raw S reading within {S_TOL:g} of the S9 clamp")
+        check(all(v <= SCOPE_TOL for k, v in worst.items()
+                  if k in ("spectrum", "view", "waterfall", "smeter_uv"))
+              and worst["audio_spectrum"] <= SCOPE_AUDIO_TOL
+              and worst["s_units"] <= S_TOL and worst["s9_plus_db"] <= S_TOL and cls_off == 0,
+              f"the scopes on the card disagree with the CPU ({label})")
+
+    worst, thr, (st_d, sc_d, o_d, m_d) = scope_run(CLI_BLOCK, blocks)
+    scope_verdict(f"({blocks} threaded CLI blocks of {CLI_BLOCK}, Receiver USB AGC medium, "
+                  "then analyze)", worst, thr)
+    check(tuple(m_d["spectrum"].shape) == (CLI_BLOCK // 128 // 30, 256)
+          and m_d["spectrum"].device.type == dev.type
+          and bool(torch.isfinite(m_d["spectrum"]).all()), "analyze's spectrum")
+    app_navg = max(1, min(30, APPLIANCE_BLOCK // 512))   # models/appliance.py:153
+    worst_a, thr_a, _ = scope_run(APPLIANCE_BLOCK, APPLIANCE_BLOCKS, audio_naverage=app_navg)
+    scope_verdict(f"at the appliance's cadence ({APPLIANCE_BLOCKS} blocks of "
+                  f"{APPLIANCE_BLOCK}, audio_naverage {app_navg})", worst_a, thr_a)
+
+    nxt = slice(blocks * CLI_BLOCK, (blocks + 1) * CLI_BLOCK)
+    audio_nxt = rx_d.process(iq_dev[nxt], st_d)[0]["audio_l"]
+    if on_card:   # steady state: the window and bin order are on the card already
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            analyze(iq_dev[nxt], audio_nxt, sc_d)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        say("check analyze under torch.cuda.set_sync_debug_mode(\"error\"): no synchronising "
+            "call (it would have raised)")
+        c = iir.biquad_highpass(500.0, FS, 0.5)
+        ops = {n: device_ops(lambda n=n: iir.biquad_apply(torch.ones(n, device=dev), c,
+                                                         torch.zeros(2, device=dev)))
+               for n in (1024, 2048, CLI_BLOCK)}
+        per_pass = ops[2048] - ops[1024]
+        say(f"check biquad_apply's kernels on the card: {ops} for blocks of 1024 / 2048 / "
+            f"{CLI_BLOCK} samples, {per_pass} a doubling: the count grows with log2 of the "
+            "block; analyze runs "
+            f"{device_ops(lambda: analyze(iq_dev[nxt], audio_nxt, sc_d))} kernels and copies "
+            "per CLI block")
+        check(0 < per_pass <= 20 and ops[CLI_BLOCK] - ops[1024] == 4 * per_pass,
+              f"biquad_apply's kernels do not grow with log2 of the block: {ops}")
+
+    def rx_alone(k):
+        rx_d.process(iq_dev[k * CLI_BLOCK:(k + 1) * CLI_BLOCK], st_d)
+
+    def rx_scope(k):
+        blk = slice(k * CLI_BLOCK, (k + 1) * CLI_BLOCK)
+        o, _ = rx_d.process(iq_dev[blk], st_d)
+        analyze(iq_dev[blk], o["audio_l"], sc_d)
+
+    turns = {"Receiver": [], "Receiver + analyze": []}
+    reset_counts()
+    for name in ("Receiver", "Receiver + analyze", "Receiver + analyze", "Receiver"):
+        turns[name].append(host_ms(rx_alone if name == "Receiver" else rx_scope, blocks))
+    audio_blk = o_d["audio_l"]
+    analyze_ms = host_ms(lambda k: analyze(iq_dev[:CLI_BLOCK], audio_blk, sc_d), blocks)
+    app_ms = host_ms(lambda k: analyze(iq_dev[:APPLIANCE_BLOCK], audio_blk[:APPLIANCE_BLOCK],
+                                       sc_d, audio_naverage=app_navg), blocks)
+    no_launches("the scopes' timing")
+    block_ms = CLI_BLOCK / FS * 1e3
+    say(f"timing scopes: analyze {analyze_ms:.3f} ms per CLI block of {CLI_BLOCK} "
+        f"({app_ms:.3f} ms per appliance block of {APPLIANCE_BLOCK}), host clock around "
+        f"{blocks} calls; per CLI block (host clock, {blocks} threaded blocks, in turns): "
+        + ", ".join(f"{k} " + " / ".join(f"{v:.3f}" for v in ms) + " ms (real-time factor "
+                    + " / ".join(f"{block_ms / v:.1f}" for v in ms) + ")"
+                    for k, ms in turns.items())
+        + f" against the block's {block_ms:.1f} ms of signal")
+
+    # 8b. the channelized bank at the scan's width, two threaded segments of
+    # the 40 m band scene
+    iq_b, _ = scenes.band_scene_40m_ssb(2 * seg)
+    iq_b_dev = torch.from_numpy(iq_b).to(dev)
+    ch_rate = 2.0 * FS / SCAN_CHANNELS
+    offsets = np.random.default_rng(64).uniform(-0.4, 0.4, SCAN_CHANNELS) * ch_rate
+    chan_ms, ends = {}, {}
+    for demod in ("power", "am", "ssb"):
+        kw = dict(offsets_hz=offsets, agc="medium") if demod == "ssb" else {}
+        b_d = ChannelizedBank(SCAN_CHANNELS, demod=demod, device=dev, **kw)
+        b_h = ChannelizedBank(SCAN_CHANNELS, demod=demod, device="cpu", **kw)
+        s_d, s_h, worst, wraps, agc_abs = b_d.init_state(), b_h.init_state(), {}, 0, 0.0
+        auds = []
+        reset_counts()
+        for k in range(2):
+            if demod == "ssb":   # channels whose int32 angle wraps in this segment
+                n_out = 2 * seg // SCAN_CHANNELS
+                words = ((s_h.nco.numpy()[:, None] + np.arange(n_out)[None, :]
+                          * b_h._incs.astype(np.int64)[:, None]) % (1 << 32))
+                wraps += int(((words >= 1 << 31).any(1) & (words < 1 << 31).any(1)).sum())
+            o_d, s_d = b_d.process(iq_b_dev[k * seg:(k + 1) * seg], s_d)
+            o_h, s_h = b_h.process(iq_b[k * seg:(k + 1) * seg], s_h)
+            for key in o_h:
+                worst[key] = max(worst.get(key, 0.0), rel(o_d[key], o_h[key]))
+            if demod == "ssb":
+                agc_abs = max(agc_abs, float((o_d["audio"].cpu() - o_h["audio"]).abs().max()))
+            auds.append(o_d.get("audio"))
+        sync()
+        no_launches(f"ChannelizedBank {demod}")
+        check(torch.equal(s_d.nco.cpu(), s_h.nco), f"ChannelizedBank {demod}: the DDS words")
+        say(f"check ChannelizedBank({SCAN_CHANNELS}, demod={demod!r}) 2 x {seg} samples: max "
+            "|card - cpu| / peak: " + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+            + f" (tolerance {CHANNELIZED_TOL:g})"
+            + (f"; the AGC'd audio max |card - cpu| {agc_abs:.3e} (tolerance {TOL:g}); "
+               f"{wraps} channel-segments of {2 * SCAN_CHANNELS} whose int32 DDS angle wraps"
+               if demod == "ssb" else ""))
+        check(max(v for k, v in worst.items() if not (demod == "ssb" and k == "audio"))
+              <= CHANNELIZED_TOL and agc_abs <= TOL,
+              f"ChannelizedBank {demod} on the card disagrees with the CPU")
+        check(demod != "ssb" or wraps > 0, "no channel's DDS angle wrapped")
+        xr, xi = iq_b_dev.real[:seg].contiguous(), iq_b_dev.imag[:seg].contiguous()
+        chan_ms[demod] = host_ms(lambda k: b_d.process_planar(xr, xi, s_d), REPS)
+        no_launches(f"ChannelizedBank {demod} timing")
+        ends[demod] = (b_d, s_d, auds)
+
+    b_ssb, s_ssb, auds = ends["ssb"]
+    aligned = torch.cat(auds, dim=-1)
+    fed = ChannelizedBank(SCAN_CHANNELS, demod="ssb", device=dev, buffer_remainder=True,
+                          offsets_hz=offsets, agc="medium")
+    st_f, pieces = fed.init_state(), []
+    cuts = [0, 1000, seg // 2 + 1, seg + 777, 2 * seg - 5, 2 * seg]
+    for a, b in zip(cuts[:-1], cuts[1:]):
+        o, st_f = fed.process(iq_b_dev[a:b], st_f)
+        pieces.append(o["audio"])
+    d_fed = float((torch.cat(pieces, dim=-1) - aligned).abs().max())
+    say(f"check ChannelizedBank ssb buffer_remainder, the same 2 x {seg} samples cut at "
+        f"{cuts[1:-1]}: max |fed - aligned| over the AGC'd audio {d_fed:.3e} (tolerance "
+        f"{TOL:g}), pending {fed.pending_samples}")
+    check(d_fed <= TOL and fed.pending_samples == 0
+          and torch.cat(pieces, dim=-1).shape == aligned.shape,
+          "the unaligned feed differs from the aligned run")
+
+    w_dec = decimate.design_decimator(DDC_FACTOR, FS)
+    inc = int(nco.freq_to_phase_inc(5_000.0, FS))
+    ddc_d = [torch.from_numpy(w_dec).to(dev), torch.zeros(128, device=dev),
+             torch.zeros(128, device=dev)]
+    ddc_h = [torch.from_numpy(w_dec), torch.zeros(128), torch.zeros(128)]
+    ph_d = ph_h = 0
+    d_ddc = 0.0
+    for k in range(2):
+        part = slice(k * seg, (k + 1) * seg)
+        yr_d, yi_d, ph_d, *t_d = decimate.ddc_planar(
+            iq_b_dev.real[part].contiguous(), iq_b_dev.imag[part].contiguous(), ph_d, inc,
+            ddc_d[0], *ddc_d[1:])
+        yr_h, yi_h, ph_h, *t_h = decimate.ddc_planar(
+            torch.from_numpy(iq_b.real[part].copy()), torch.from_numpy(iq_b.imag[part].copy()),
+            ph_h, inc, ddc_h[0], *ddc_h[1:])
+        ddc_d[1:], ddc_h[1:] = t_d, t_h
+        d_ddc = max(d_ddc, rel(yr_d, yr_h), rel(yi_d, yi_h))
+    check(int(ph_d) == int(ph_h) and d_ddc <= CHANNELIZED_TOL,
+          f"ddc_planar on the card disagrees with the CPU: {d_ddc:.3e}")
+    xr, xi = iq_b_dev.real[:seg].contiguous(), iq_b_dev.imag[:seg].contiguous()
+    ddc_ms = host_ms(lambda k: decimate.ddc_planar(xr, xi, 0, inc, *ddc_d), REPS)
+    no_launches("ddc_planar")
+    say(f"check ddc_planar (factor {DDC_FACTOR}, 5 kHz) 2 x {seg} samples: max |card - cpu| / "
+        f"peak {d_ddc:.3e} (tolerance {CHANNELIZED_TOL:g})")
+    say(f"timing channelized: ChannelizedBank({SCAN_CHANNELS}) per {seg}-sample segment "
+        "(host clock, completion forced): "
+        + ", ".join(f"{k} {v:.3f} ms ({seg / v / 1e3:.1f} Msamples/s)"
+                    for k, v in chan_ms.items())
+        + f"; ddc_planar factor {DDC_FACTOR} {ddc_ms:.3f} ms ({seg / ddc_ms / 1e3:.1f} "
+        "Msamples/s)")
+
+    # 8c. the host utilities: checkpoints of the card's states, a trace of a
+    # CLI block, the native ring feeding the Receiver
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        live = {"ReceiverState": (st_d, rx_d.init_state()),
+                "ScopeState": (sc_d, scope_init(dev)),
+                "ChannelizedState": (s_ssb, b_ssb.init_state())}
+        loaded = {}
+        for name, (state, template) in live.items():
+            path = f"{tmp}/{name}.npz"
+            checkpoint.save_state(path, state, cfg)
+            loaded[name], cfg_back = checkpoint.load_state(path, template)
+            pairs = list(zip(checkpoint.flatten_with_paths(loaded[name]),
+                             checkpoint.flatten_with_paths(state)))
+            check(cfg_back == cfg and all(a[0] == b[0] and a[1].device == b[1].device
+                                          and torch.equal(a[1], b[1]) for a, b in pairs),
+                  f"the {name} checkpoint does not round-trip bit for bit")
+        o1, _ = rx_d.process(iq_dev[nxt], st_d)
+        o2, _ = rx_d.process(iq_dev[nxt], loaded["ReceiverState"])
+        m1, _ = analyze(iq_dev[nxt], o1["audio_l"], sc_d)
+        m2, _ = analyze(iq_dev[nxt], o1["audio_l"], loaded["ScopeState"])
+        c1, _ = b_ssb.process(iq_b_dev[:seg], s_ssb)
+        c2, _ = b_ssb.process(iq_b_dev[:seg], loaded["ChannelizedState"])
+        check(all(torch.equal(a[k], b[k]) for a, b in ((o1, o2), (m1, m2), (c1, c2))
+                  for k in a), "a run resumed from a checkpoint differs from the unbroken one")
+        say("check checkpoints on the card: ReceiverState, ScopeState and ChannelizedState "
+            "saved and loaded bit for bit on the card, and the next block / segment from each "
+            "equal bit for bit to the unbroken run")
+
+        with profiling.trace(f"{tmp}/trace", device=dev):
+            rx_scope(0)
+        trace_file = next(Path(f"{tmp}/trace").glob("trace_*.json"))
+        events = json.loads(trace_file.read_text())["traceEvents"]
+        kernels = sorted({e["name"] for e in events if e.get("cat") == "kernel"})
+        say(f"check profiling.trace around one CLI block (Receiver + analyze): "
+            f"{trace_file.stat().st_size} bytes, {len(kernels)} distinct CUDA kernels named, "
+            f"e.g. {kernels[:2]}")
+        check(not on_card or kernels, "the trace names no CUDA kernel")
+    report = profiling.stage_report(device=dev)
+    say("timing profiling.stage_report (16 ch x 2^16, the chain's plain stages): "
+        + ", ".join(f"{k} {v['ms_per_call']:.3f} ms ({v['msamples_per_s']:.1f} Msamples/s)"
+                    for k, v in report.items()))
+
+    ring = native_io.IQRing(1 << 16)
+    total = blocks * CLI_BLOCK
+    push_failed = []
+
+    def producer():
+        pos = 0
+        while pos < total:
+            n = min(CLI_BLOCK // 4, total - pos)   # capture-sized pushes
+            while ring.capacity - ring.available < n:
+                time.sleep(1e-4)
+            got = ring.push_complex(iq_np[pos:pos + n])
+            if got != n:
+                push_failed.append((pos, got))
+                return
+            pos += n
+
+    rx_r, ring_out = Receiver(cfg, device=dev), []
+    st_r = rx_r.init_state()
+    reset_counts()
+    feeder = threading.Thread(target=producer, daemon=True)
+    feeder.start()
+    deadline, done = time.monotonic() + RING_WAIT_S, 0
+    while done < total:
+        check(time.monotonic() < deadline and not push_failed, f"the ring stalled: {push_failed}")
+        if ring.available >= CLI_BLOCK:
+            o, st_r = rx_r.process(ring.pop_complex(CLI_BLOCK), st_r)
+            ring_out.append(o["audio_l"])
+            done += CLI_BLOCK
+        else:
+            time.sleep(1e-4)
+    feeder.join(timeout=30)
+    check(not feeder.is_alive(), "the ring's producer did not finish")
+    stats = ring.stats
+    ring.close()
+    q15 = (np.clip(np.trunc(iq_np[:total].real * 32768), -32768, 32767) / 32768
+           + 1j * np.clip(np.trunc(iq_np[:total].imag * 32768), -32768, 32767) / 32768
+           ).astype(np.complex64)
+    st_q, same = rx_r.init_state(), True
+    for k in range(blocks):
+        o, st_q = rx_r.process(q15[k * CLI_BLOCK:(k + 1) * CLI_BLOCK], st_q)
+        same = same and torch.equal(o["audio_l"], ring_out[k])
+    no_launches("the ring-fed Receiver")
+    say(f"check native_io ring (csrc/rdsp_io.cpp built with g++ into "
+        f"{Path(native_io.ensure_built()).parent.name}/) feeding the Receiver {blocks} blocks of "
+        f"{CLI_BLOCK} from a capture thread: {stats}; the audio bit for bit the direct run on the "
+        f"same q15 samples: {same}")
+    check(stats["dropped"] == 0 and stats["pushed"] == stats["popped"] == total and same,
+          f"the ring-fed Receiver: {stats}, same {same}")
+    say(f"phase 8 (scopes, channelized bank, host utilities) took "
+        f"{time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> None:
@@ -2752,6 +3141,8 @@ def main() -> None:
     # 6. the per-kernel record
     # 7. the sharded paths
     sharded_paths(gen, reset_counts, counts, only, launches, err, timing)
+    # 8. the scopes, the channelized bank and the host utilities
+    scope_and_host_paths(torch.device("cuda"), reset_counts, counts, only)
 
     sources = {"sweep_chain_ssb": ("sweep_chain.cu", "ops/pallas_sweep.py:261"),
                "sweep_chain_ssb_nb": ("sweep_chain.cu", "ops/pallas_sweep.py:261"),

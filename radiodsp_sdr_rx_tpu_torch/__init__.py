@@ -38,19 +38,42 @@ Layers, from the entry point down:
   utils/siggen.py, utils/scenes.py  synthetic signals and band scenes
   ops/chain_common.py  the mix, framings and argument checks the plain
                    versions, wrappers and the reference chain share
+  models/metrics.py  analyze: the scopes (panadapter, waterfall, S-meter,
+                   audio scope) on the device of their inputs, no host sync
+                   (ops/analyzers.py, ops/iir.py's biquad scan,
+                   utils/smeter.py, utils/display.py with the ASCII renderers)
+  models/channelized.py  ChannelizedBank: the PFB front end and per-channel
+                   baseband / AM / power / SSB (ops/channelizer.py,
+                   ops/decimate.py's DDC)
+  utils/io.py, utils/native_io.py, utils/audio_sink.py, utils/checkpoint.py,
+  utils/profiling.py  the host runtime: WAV and raw IQ files, the native IQ
+                   ring (csrc/rdsp_io.cpp, built with g++), the audio sink,
+                   checkpoints that either package loads, torch.profiler
+                   traces and stage timing
   csrc/*.cu        the kernels (shared device code in csrc/chain_common.cuh
                    and, for the SAM PLL, csrc/sam_pll.cuh)
   models/config.py, models/receiver.py, ops/{fir_design,operators,agc,nco}.py
                    host-side design, bit-equal to the JAX package's
 """
 
-from radiodsp_sdr_rx_tpu_torch.models.config import (
+from radiodsp_sdr_rx_tpu_torch.version import __version__
+
+# The reference's invariants: the exact Teensy AUDIO_SAMPLE_RATE_EXACT of all
+# its frequency arithmetic (RDSP_convolutional.h:35), the audio block
+# (:34) and the overlap-save FFT length (:36).
+SAMPLE_RATE = 44117.64706  # Hz
+BLOCK_SIZE = 128           # samples per audio block
+FFT_LENGTH = 256           # overlap-save FFT length
+
+from radiodsp_sdr_rx_tpu_torch.models.config import (  # noqa: E402
     AGCMode,
+    AudioFilter,
     DemodMode,
+    FilterWindow,
     NRMode,
     ReceiverConfig,
 )
-from radiodsp_sdr_rx_tpu_torch.models.fused import (
+from radiodsp_sdr_rx_tpu_torch.models.fused import (  # noqa: E402
     FusedAMBank,
     FusedAMBankState,
     FusedBankState,
@@ -60,9 +83,14 @@ from radiodsp_sdr_rx_tpu_torch.models.fused import (
     FusedSAMBankState,
     FusedSSBBank,
 )
-from radiodsp_sdr_rx_tpu_torch.models.receiver import Receiver, ReceiverBank, ReceiverState
+from radiodsp_sdr_rx_tpu_torch.models.receiver import (  # noqa: E402
+    Receiver,
+    ReceiverBank,
+    ReceiverState,
+)
 
-__all__ = ["AGCMode", "DemodMode", "FusedAMBank", "FusedAMBankState", "FusedBankState",
+__all__ = ["__version__", "SAMPLE_RATE", "BLOCK_SIZE", "FFT_LENGTH",
+           "AGCMode", "AudioFilter", "DemodMode", "FilterWindow", "FusedAMBank", "FusedAMBankState", "FusedBankState",
            "FusedNRBank", "FusedNRBankState", "FusedSAMBank", "FusedSAMBankState",
            "FusedSSBBank", "NRMode", "Receiver", "ReceiverBank", "ReceiverConfig",
            "ReceiverState"]

@@ -335,9 +335,9 @@ extern "C" void group_ring_disconnect(void* ring_ptr) {
 
 // Disconnect if not yet, then free the slots and events. The caller makes
 // sure no neighbour writes into the slots or still maps them: every rank of
-// the line has disconnected (parallel/halo.close_rings). At process exit,
-// where the line cannot meet, a neighbour may still map them; its mapping
-// dies with its own process.
+// the line has disconnected (parallel/halo.close_rings, or, where the line
+// cannot meet, every rank's disconnected flag; without them the caller
+// leaks the slots and events rather than call this).
 extern "C" void group_ring_destroy(void* ring_ptr) {
   if (!ring_ptr) return;
   GroupRing* ring = static_cast<GroupRing*>(ring_ptr);

@@ -47,6 +47,10 @@ def nco_mix_planar(xr, xi, phase0, phase_inc):
     return yr, yi, nco.advance_phase(phase0, n, phase_inc)
 
 
+# the JAX package's name for the overlap-save framing (ops/decimate.py frames by it)
+frame_planar = frame_overlap_save
+
+
 def _frames(x, tail):
     """Overlap-save frames [prev | cur] (C, rows, 2*block) of x (C, n) and
     its tail (C, block), block = fft_length / 2, n a multiple of block."""

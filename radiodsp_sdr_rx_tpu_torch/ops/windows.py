@@ -10,8 +10,8 @@ reference FIR designer (ref: src/RadioDSP_SDR_RX/RDSP_convolutional.h:152-179):
   other -> Blackman-Nuttall
 
 Evaluated in float64 on the host, as the reference computes its coefficients
-in ``double``. ``hann_periodic`` is the panadapter's analyzer window; the
-other analyzer window of the JAX module comes with the scopes.
+in ``double``. ``hann_periodic`` and ``blackman_nuttall_periodic`` are the
+spectrum analyzers' windows.
 """
 
 from __future__ import annotations
@@ -46,3 +46,10 @@ def hann_periodic(n: int) -> np.ndarray:
     """Periodic Hann window of the spectrum analyzers (the Teensy
     ``AudioWindowHanning256`` table, RadioDSP_SDR_RX.ino:144-148)."""
     return 0.5 - 0.5 * np.cos(2.0 * np.pi * np.arange(n, dtype=np.float64) / n)
+
+
+def blackman_nuttall_periodic(n: int) -> np.ndarray:
+    """Periodic Blackman-Nuttall (the analyzer default window, analyze_fft256iq.h)."""
+    t = 2.0 * np.pi * np.arange(n, dtype=np.float64) / n
+    a = _BLACKMAN_NUTTALL
+    return a[0] - a[1] * np.cos(t) + a[2] * np.cos(2.0 * t) - a[3] * np.cos(3.0 * t)

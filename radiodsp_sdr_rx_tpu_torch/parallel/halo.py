@@ -35,6 +35,7 @@ import ctypes
 import mmap
 import os
 import struct
+import sys
 import tempfile
 import time
 import weakref
@@ -270,11 +271,15 @@ class GroupRing:
     clones it first.
 
     ``close_rings`` frees a line's rings, every rank together; ``close`` (also
-    run when the ring is collected or the process exits) frees this rank's
-    end alone.
+    run when the ring is collected or the process exits, where the line
+    cannot meet) frees this rank's end alone: it closes its mappings, raises
+    its disconnected flag, and frees its slots and events only once every
+    rank of the line has raised its own (``_Teardown``), or leaks them after
+    ``DISCONNECT_WAIT_S`` seconds and says so on stderr.
     """
 
     WAIT_S = 120.0   # a neighbour's flag waited for longer than this raises
+    DISCONNECT_WAIT_S = 5.0   # a rank freeing alone waits this long for the line's disconnects
 
     def __init__(self, ranks, index: int, group, shape, dtype, device):
         if dtype not in (torch.float32, torch.complex64):
@@ -305,9 +310,10 @@ class GroupRing:
                                        ctypes.byref(slots), handles)
         what = f"cannot allocate its slots and events on cuda:{self.index} (cudaError {err})"
         self._ring = ring.value
-        # at exit the line cannot meet: destroy closes this rank's mappings
-        # before it frees, but the left neighbour may still map the slots
-        self._finalizer = weakref.finalize(self, lib["group_ring_destroy"], self._ring)
+        # the teardown holds no reference to the ring, so that the ring can
+        # be collected; it takes the flags once they are mapped
+        self._teardown = _Teardown(lib, self._ring, index, self.rank, self.DISCONNECT_WAIT_S)
+        self._finalizer = weakref.finalize(self, self._teardown)
         path = ""
         if index == 0 and not err:
             try:
@@ -326,8 +332,8 @@ class GroupRing:
             what = f"cannot open its neighbours' slots and events (cudaError {err})"
         if not err:
             try:
-                self._flags = _Flags(bytes(every[0][size:].numpy()).rstrip(b"\0").decode(),
-                                     len(ranks))
+                self._flags = self._teardown.flags = _Flags(
+                    bytes(every[0][size:].numpy()).rstrip(b"\0").decode(), len(ranks))
             except (OSError, UnicodeDecodeError) as exc:
                 err, what = -2, f"cannot map the line's flag file ({exc})"
         failed = _line_sum(1 if err else 0, group, self.wire)   # every rank mapped or failed
@@ -407,20 +413,19 @@ class GroupRing:
         return self.views[slot]
 
     def disconnect(self) -> None:
-        """Close the neighbours' handles: the first half of ``close_rings``."""
+        """Close the neighbours' handles and raise this rank's disconnected
+        flag: the first half of ``close_rings``."""
         if self._finalizer is not None:
-            self._lib["group_ring_disconnect"](self._ring)
+            self._teardown.disconnect()
 
     def close(self) -> None:
-        """Close the neighbours' handles, free the slots and events. Alone, a
-        neighbour may still map the slots: a line frees its rings with
-        ``close_rings``."""
+        """Close the neighbours' handles, free the slots and events. Alone
+        (not in ``close_rings``), it frees them once every rank of the line
+        has disconnected, or leaks them after ``DISCONNECT_WAIT_S``."""
         if self._finalizer is not None:
             self._finalizer()
             self._finalizer = None
-        if self._flags is not None:
-            self._flags.release()
-            self._flags = None
+        self._flags = None
 
 
 def _line_sum(value: int, group, wire: torch.device) -> int:
@@ -445,12 +450,64 @@ def close_rings(rings, group) -> None:
         ring.disconnect()
     _line_sum(0, group, rings[0].wire)
     for ring in rings:
+        ring._teardown.met = True   # every rank disconnected: no flag to wait for
         ring.close()
+
+
+class _Teardown:
+    """The end of one rank's ring, run once, by ``close`` or by the ring's
+    finalizer (collection, interpreter exit). It closes this rank's mappings
+    of its neighbours' slots and events and raises its disconnected flag in
+    the line's flag file. It frees the slots and events once the line has met
+    after every rank disconnected (``close_rings`` sets ``met``) or every
+    rank's flag is up, polled for at most ``wait_s`` seconds: the left
+    neighbour maps this rank's slots and the right one its events, and a
+    cudaFree of an exported allocation that another process still maps is
+    undefined. Past the wait it leaks them and says so on stderr; they go
+    with this process's CUDA context. It holds no reference to the ring."""
+
+    def __init__(self, lib, ring: int, position: int, rank: int, wait_s: float):
+        self.lib, self.ring, self.position, self.rank = lib, ring, position, rank
+        self.wait_s = wait_s
+        self.flags: _Flags | None = None
+        self.met = False
+        self.disconnected = False
+
+    def disconnect(self) -> None:
+        if not self.disconnected:
+            self.lib["group_ring_disconnect"](self.ring)
+            self.disconnected = True
+            if self.flags is not None:
+                self.flags[self.flags.disconnected(self.position)] = 1
+
+    def _line_disconnected(self) -> bool:
+        flags = self.flags
+        if flags is None:
+            return False
+        deadline = time.monotonic() + self.wait_s
+        while not all(flags[flags.disconnected(p)] for p in range(flags.ranks)):
+            if time.monotonic() > deadline:
+                return False
+            time.sleep(0.001)
+        return True
+
+    def __call__(self) -> None:
+        self.disconnect()
+        if self.met or self._line_disconnected():
+            self.lib["group_ring_destroy"](self.ring)
+        else:
+            print(f"radiodsp_sdr_rx_tpu_torch: rank {self.rank} leaks its kernel-halo ring's "
+                  f"slots and events: not every rank of the line closed its mappings within "
+                  f"{self.wait_s:g} s", file=sys.stderr, flush=True)
+        if self.flags is not None:
+            self.flags.release()
+            self.flags = None
 
 
 _PATH_BYTES = 512   # the flag file's path, as the line's first rank sends it
 _NOT_READY = 600    # cudaErrorNotReady
 _FLAG_STRIDE = 8    # int64s between two flags: one cache line each
+_FLAGS_A_RANK = 3   # slots freed, slots written, disconnected
 
 
 def _flag_file(ranks: int) -> str:
@@ -458,7 +515,7 @@ def _flag_file(ranks: int) -> str:
     directory; its path."""
     fd, path = tempfile.mkstemp(prefix="radiodsp_k9_")
     try:
-        os.ftruncate(fd, 2 * ranks * _FLAG_STRIDE * 8)
+        os.ftruncate(fd, _FLAGS_A_RANK * ranks * _FLAG_STRIDE * 8)
     finally:
         os.close(fd)
     return path
@@ -466,17 +523,22 @@ def _flag_file(ranks: int) -> str:
 
 class _Flags:
     """The line's flags, mapped: ``flags[2 p]`` is position p's slots freed,
-    ``flags[2 p + 1]`` its slots written (counts of exchanges), each on a
-    cache line of its own. Aligned 8-byte loads and stores, which the host
-    makes whole."""
+    ``flags[2 p + 1]`` its slots written (counts of exchanges), and
+    ``flags[disconnected(p)]`` 1 once it closed its mappings of its
+    neighbours' slots and events; each on a cache line of its own. Aligned
+    8-byte loads and stores, which the host makes whole."""
 
     def __init__(self, path: str, ranks: int):
+        self.ranks = ranks
         fd = os.open(path, os.O_RDWR)
         try:
-            self._map = mmap.mmap(fd, 2 * ranks * _FLAG_STRIDE * 8)
+            self._map = mmap.mmap(fd, _FLAGS_A_RANK * ranks * _FLAG_STRIDE * 8)
         finally:
             os.close(fd)
         self._view = memoryview(self._map).cast("q")
+
+    def disconnected(self, position: int) -> int:
+        return 2 * self.ranks + position
 
     def __getitem__(self, i: int) -> int:
         return self._view[i * _FLAG_STRIDE]

@@ -5,12 +5,14 @@ package's ``ReceiverParams`` and of its bank states (``FusedBankState``,
 ``FusedAMBankState``, ``FusedNRBankState``, ``FusedSAMBankState`` with its
 PLL planes padded to the JAX bank's lanes, the nested ``ReceiverState`` with
 its ``sam`` PLL state, the sharded chain's ``ShardedChainState`` with its
-complex64 tails and (C,) LMS ``first`` flags) as numpy arrays (a dict,
+complex64 tails and (C,) LMS ``first`` flags, the scope's ``ScopeState``
+and the channelized bank's ``ChannelizedState``) as numpy arrays (a dict,
 e.g. ``state._asdict()``; nested states as NamedTuples or dicts) and return
 the port's; ``state_to_numpy`` goes back, nested states as dicts. Both
-packages then compute from the same operators and carries. DDS words are
-uint32 in JAX and int64 in the port (ops/nco.py); the LMS ``first`` flags
-stay bool and complex leaves complex64.
+packages then compute from the same operators and carries. DDS words
+(``nco_phase``, the channelized bank's ``nco``) are uint32 in JAX and int64
+in the port (ops/nco.py); the LMS ``first`` flags stay bool and complex
+leaves complex64.
 """
 
 from __future__ import annotations
@@ -62,20 +64,25 @@ def params_from_numpy(d: Mapping, device):
     return ReceiverParams(**out)
 
 
+DDS_WORDS = ("nco_phase", "nco")   # the state fields that hold DDS phase words
+
+
 def _state_types():
+    from radiodsp_sdr_rx_tpu_torch.models.channelized import ChannelizedState
     from radiodsp_sdr_rx_tpu_torch.models.fused import (
         FusedAMBankState,
         FusedBankState,
         FusedNRBankState,
         FusedSAMBankState,
     )
+    from radiodsp_sdr_rx_tpu_torch.models.metrics import ScopeState
     from radiodsp_sdr_rx_tpu_torch.models.receiver import ReceiverState
     from radiodsp_sdr_rx_tpu_torch.ops.lms import LMSState
     from radiodsp_sdr_rx_tpu_torch.ops.planar import SAMStatePlanar
     from radiodsp_sdr_rx_tpu_torch.parallel.stream_shard import ShardedChainState
 
     return (FusedBankState, FusedAMBankState, FusedNRBankState, FusedSAMBankState,
-            ReceiverState, ShardedChainState), {
+            ReceiverState, ShardedChainState, ScopeState, ChannelizedState), {
         "lms": LMSState, "sam": SAMStatePlanar}
 
 
@@ -86,7 +93,8 @@ def _fields(v) -> Mapping:
 def state_from_numpy(d: Mapping, device):
     """The fields of a JAX bank state -> the port's state of the same fields
     (``FusedBankState``, ``FusedAMBankState``, ``FusedNRBankState``,
-    ``FusedSAMBankState``, ``ReceiverState`` or ``ShardedChainState``)."""
+    ``FusedSAMBankState``, ``ReceiverState``, ``ShardedChainState``,
+    ``ScopeState`` or ``ChannelizedState``)."""
     tops, nested = _state_types()
     d = _fields(d)
     cls = next((t for t in tops if set(t._fields) == set(d)), None)
@@ -95,7 +103,7 @@ def state_from_numpy(d: Mapping, device):
 
     def leaf(name, v):
         a = np.array(v)   # a writable copy: JAX hands out read-only arrays
-        if name == "nco_phase":
+        if name in DDS_WORDS:
             a = a.astype(np.int64)
         elif a.dtype != np.bool_:
             a = a.astype(np.complex64 if np.iscomplexobj(a) else np.float32)
@@ -113,7 +121,7 @@ def state_to_numpy(state) -> dict:
     dicts)."""
     def leaf(name, v):
         a = v.cpu().numpy()
-        if name == "nco_phase":
+        if name in DDS_WORDS:
             return a.astype(np.uint32)
         if a.dtype == np.bool_:
             return a

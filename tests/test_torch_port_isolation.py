@@ -48,7 +48,21 @@ def test_port_has_modules():
             "radiodsp_sdr_rx_tpu_torch/utils/siggen.py",
             "radiodsp_sdr_rx_tpu_torch/utils/scenes.py",
             "radiodsp_sdr_rx_tpu_torch/models/receiver.py",
-            "radiodsp_sdr_rx_tpu_torch/models/fused.py"} <= names
+            "radiodsp_sdr_rx_tpu_torch/models/fused.py",
+            "radiodsp_sdr_rx_tpu_torch/version.py",
+            "radiodsp_sdr_rx_tpu_torch/ops/analyzers.py",
+            "radiodsp_sdr_rx_tpu_torch/ops/windows.py",
+            "radiodsp_sdr_rx_tpu_torch/ops/decimate.py",
+            "radiodsp_sdr_rx_tpu_torch/ops/channelizer.py",
+            "radiodsp_sdr_rx_tpu_torch/models/metrics.py",
+            "radiodsp_sdr_rx_tpu_torch/models/channelized.py",
+            "radiodsp_sdr_rx_tpu_torch/utils/smeter.py",
+            "radiodsp_sdr_rx_tpu_torch/utils/display.py",
+            "radiodsp_sdr_rx_tpu_torch/utils/io.py",
+            "radiodsp_sdr_rx_tpu_torch/utils/checkpoint.py",
+            "radiodsp_sdr_rx_tpu_torch/utils/profiling.py",
+            "radiodsp_sdr_rx_tpu_torch/utils/audio_sink.py",
+            "radiodsp_sdr_rx_tpu_torch/utils/native_io.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(ROOT).as_posix())

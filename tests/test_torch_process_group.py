@@ -27,7 +27,9 @@ parallel test workers do not collide on a port) and builds:
     keep in step, through ``GroupAxis.shift_from_left(kernel=True)``
     on tensors that say they are on a card; a neighbour that cannot be
     opened and a launch that fails raise, and nothing falls back to
-    ``batch_isend_irecv``.
+    ``batch_isend_irecv``; a ring dropped without ``close()`` (its
+    finalizer, as at interpreter exit) frees its slots only after every rank
+    of the line disconnected, and leaks them when one never does (fault F2).
 
 ``make_global_mesh(device=...)`` takes an explicit CPU device and raises for
 a card that is not there. Every process is joined with a timeout and the
@@ -35,7 +37,10 @@ tests fail if one is left alive. The kernel halo on a card across processes
 is in tests/test_torch_kernels_cuda.py and chip_smoke.py.
 """
 
+import contextlib
 import ctypes
+import gc
+import io
 import multiprocessing as mp
 import tempfile
 import time
@@ -63,6 +68,8 @@ TOL_JAX = 1e-5    # sharded port against sharded JAX (PERF.md section 2)
 MODES = ("usb", "am")
 EXCHANGES = 10    # the ring's host side on a stand-in: past the slots' first round
 SLOTS = 8         # the stand-in's receive slots a rank, as csrc/halo.cu's
+STAGGER_S = 0.2   # the ranks drop their rings this far apart (rank r after r x this)
+LEAK_WAIT_S = 0.5  # the disconnect wait of the rings whose neighbour never disconnects
 
 
 def _args():
@@ -186,10 +193,12 @@ def _fake_halo(rank, fail=None):
 def _ring_host_side(rank, mesh14):
     """GroupRing on the stand-in: EXCHANGES exchanges through the time=4 line's
     GroupAxis and its close, then a neighbour that cannot be opened (rank 2),
-    then a launch that fails (a line of one rank). Returns what each showed."""
+    then a launch that fails (a line of one rank), then rings on the line
+    dropped without close(): every rank's (finalizer), and every rank's but
+    the last (leak). Returns what each showed."""
     axis = mesh14.group.axes["time"]
     out, saved = {}, (halo._library, halo._slot_views, halo._raw_stream,
-                      torch.distributed.batch_isend_irecv)
+                      torch.distributed.batch_isend_irecv, halo.GroupRing.DISCONNECT_WAIT_S)
 
     def no_fallback(ops):
         raise AssertionError("the kernel halo fell back to batch_isend_irecv")
@@ -228,9 +237,30 @@ def _ring_host_side(rank, mesh14):
         except RuntimeError as err:
             out["launch"] = str(err)
         ring.close()
+        for case in ("finalizer", "leak"):
+            funcs, calls, stamps = _fake_halo(rank)
+            halo._library = lambda: funcs
+            if case == "leak":
+                halo.GroupRing.DISCONNECT_WAIT_S = LEAK_WAIT_S
+            ring = halo.GroupRing(axis.ranks, axis.indices[0], axis.group, (3,), torch.float32,
+                                  torch.device("cpu"))
+            for _ in range(3):
+                ring.shift(torch.zeros(3), torch.ones(3) if rank == 0 else None)
+            kept = case == "leak" and rank == WORLD - 1   # never disconnects while the others wait
+            time.sleep(STAGGER_S * rank)
+            said = io.StringIO()
+            with contextlib.redirect_stderr(said):
+                if not kept:
+                    del ring   # its finalizer, as at interpreter exit
+                    gc.collect()
+                torch.distributed.barrier(group=axis.group)
+                if kept:
+                    del ring
+                    gc.collect()
+            out[case] = (calls, stamps, said.getvalue())
     finally:
         (halo._library, halo._slot_views, halo._raw_stream,
-         torch.distributed.batch_isend_irecv) = saved
+         torch.distributed.batch_isend_irecv, halo.GroupRing.DISCONNECT_WAIT_S) = saved
     return out
 
 
@@ -391,6 +421,37 @@ def test_group_ring_teardown_disconnects_every_rank_before_any_frees(spawned, ca
     got, _ = spawned
     stamps = [r["ring"][case] for r in got.values()]
     assert max(s["disconnect"] for s in stamps) < min(s["destroy"] for s in stamps)
+
+
+def test_group_ring_finalizer_frees_only_after_every_rank_disconnects(spawned):
+    """Fault F2: a ring dropped without close() (its finalizer, which also
+    runs at interpreter exit, where the line cannot meet) closes its
+    mappings, raises its flag, and frees its slots only once every rank of
+    the line has raised its own. The ranks drop their ends STAGGER_S apart,
+    so rank 0 frees only after rank 3, the last, disconnected."""
+    got, _ = spawned
+    stamps = [r["ring"]["finalizer"][1] for r in got.values()]
+    assert max(s["disconnect"] for s in stamps) < min(s["destroy"] for s in stamps)
+    assert min(s["destroy"] for s in stamps) - got[0]["ring"]["finalizer"][1]["disconnect"] > (
+        2 * STAGGER_S)
+    for r in got.values():
+        calls, _, said = r["ring"]["finalizer"]
+        assert calls[-2:] == [("disconnect",), ("destroy",)] and said == ""
+
+
+def test_group_ring_finalizer_leaks_when_a_rank_never_disconnects(spawned):
+    """Fault F2's other half: while the line's last rank keeps its ring,
+    the others' finalizers wait LEAK_WAIT_S for its flag, then leak their
+    slots and events (no destroy) and say so once on stderr; the last rank,
+    dropping its ring after them, sees every flag up and frees."""
+    got, _ = spawned
+    for rank, r in got.items():
+        calls, stamps, said = r["ring"]["leak"]
+        if rank == WORLD - 1:
+            assert calls[-2:] == [("disconnect",), ("destroy",)] and said == ""
+        else:
+            assert calls[-1] == ("disconnect",) and "destroy" not in stamps
+            assert said.count("leaks its kernel-halo ring") == 1, said
 
 
 def test_group_ring_result_lives_until_the_exchange_after_next(spawned):
