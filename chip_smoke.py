@@ -106,7 +106,9 @@ banks against the port's reference chain, and times them:
     device="cuda:0")``), 100 exchanges of fresh blocks bit for bit with the
     plain exchange, timed beside the gloo ppermute halo, and on the 4-rank
     group the time-sharded USB and AM chains with the kernel halo, bit for
-    bit the group's ppermute halo and the in-process kernel halo; every rank
+    bit the group's ppermute halo and the in-process kernel halo; with two
+    cards or more the same on an NCCL group of up to four ranks, rank r on
+    cuda:r (on one card a line says that case was skipped); every rank
     joined with a timeout;
   - the scopes, the channelized bank and the host utilities (plain PyTorch,
     no kernel of the kernels line): ``models/metrics.analyze`` after the USB
@@ -125,7 +127,24 @@ banks against the port's reference chain, and times them:
     and resumed bit for bit; ``utils/profiling.trace`` around a CLI block
     naming the card's kernels; the native IQ ring (built with g++ from
     ``csrc/rdsp_io.cpp``) feeding the Receiver its blocks from a capture
-    thread, nothing dropped, bit for bit the direct run.
+    thread, nothing dropped, bit for bit the direct run;
+  - the app (plain PyTorch and host code; K3 under every LMS stage, its
+    launches counted into the kernels line): ``cli.main`` as a user calls it
+    on a 2^21-sample capture of the QRM scene (47.5 s), as a stereo WAV and
+    raw cs16: ``demod`` USB (and DNR2 and NOTCH on 2^18 samples, K3 once),
+    each WAV within one q15 count of ``main(argv, device="cpu")``'s,
+    ``stream --block 16384`` against ``demod`` (K3 once a block with DNR2),
+    the ``StreamingReceiver`` with the scope fed by a producer thread, bit
+    for bit its ``run_file``, ``scope`` and ``scope --dual`` frames against
+    the CPU's away from thresholds, ``scan --channels 64`` on planted
+    carriers, ``tui --frames 40`` headless, the ``Appliance`` driven by
+    scripted events (tune, steps, the mode cycle with SAM on two blocks, the
+    NR cycle, the AGC cycle, PBT) card and CPU in step, ``info``, and the
+    ``Receiver``'s SAM (a per-sample loop) timed a 16,384-sample block.
+
+``--only app`` runs the app's phase alone after the builds, ``--only nccl``
+phase 7g's NCCL group alone (two cards or more); each prints its launches
+and times in place of the kernels line.
 
 Every phase prints one flushed line with the seconds elapsed. Any failure
 raises and exits non-zero; without a CUDA card it exits non-zero at once.
@@ -136,6 +155,7 @@ per-kernel JSON record.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import functools
 import json
 import multiprocessing
@@ -269,6 +289,7 @@ extern "C" int pll_latency(long long* cycles, float* sink) {
 LIBRARIES = ("sweep_chain", "staged", "lms", "sweep_spec", "sam", "sam_wide", "sweep_denoise",
              "sweep_notch", "halo")
 GROUP_WORLDS = (2, 4)    # the gloo process groups of phase 7g, every rank on cuda:0
+NCCL_MAX_WORLD = 4       # phase 7g's NCCL group: one rank a card, on up to this many cards
 GROUP_EXCHANGES = 100    # K9 across processes: the chain of fresh exchanges, and timed
 GROUP_BLOCK = (128, 128)  # complex64, the bank tail of phase 7f
 GROUP_JOIN_S = 240       # each rank's results, and then its exit, wait at most this
@@ -286,6 +307,18 @@ CHANNELIZED_TOL = 1e-4   # card vs CPU, of each output's peak; the SSB audio, af
 #                          it by up to 3.8e-5 of its 0.5 peak on the CPU)
 DDC_FACTOR = 8
 RING_WAIT_S = 120        # the ring's consumer gives up after this
+# phase 9: the app
+APP_CAPTURE = 1 << 21     # 47.5 s of the QRM scene, the capture the CLI runs on
+APP_LMS_CAPTURE = 1 << 18  # the LMS runs' own capture (the plain LMS on the CPU)
+APP_SCAN = 1 << 20        # the scan's scene of planted carriers
+APP_SCAN_PLANTED = (3, 9, 17, 24, 40, 47, 55, 61)   # channels of 64 with a carrier
+APP_TUI_FRAMES = 40
+APP_TIMED_STEPS = 20      # appliance steps timed with the scope
+APP_SAM_BLOCKS = 2        # the Receiver's SAM (a per-sample loop) timed on this many blocks
+STREAM_TOL = 2e-3         # stream vs demod: the q15 ring (tests/test_streaming.py:39)
+APP_AUDIO_SCOPE_TOL = 1e-3  # the appliance's audio scope card vs CPU, of its peak: its
+#                            input within TOL_LMS (2e-4) on a 0.5 full scale
+SNR_PRINT_TOL = 0.1       # dB: scan's SNR column, printed to 0.1 dB
 
 
 def say(msg: str) -> None:
@@ -525,18 +558,50 @@ def unsharded_full_chain(mode, nr, nb, iq, incs, p, st, mu):
     return audio, spec_in
 
 
-def group_rank(rank: int, world: int, rdv: str, streams: dict, want: dict, results) -> None:
-    """One rank of phase 7g, every rank on cuda:0 in a gloo group of
-    ``world``: K9 across processes alone (GROUP_EXCHANGES exchanges of fresh
-    blocks, held bit for bit to what the left neighbour sent and to the
-    plain exchange, then timed beside the plain exchange and the host
-    handshake alone), and on the 4-rank group the time-sharded USB and AM
+def time_sharded_streams() -> dict:
+    """Phase 7b's streams, 2^21 samples each: a USB voice and an AM tone,
+    10 kHz above the capture centre."""
+    from radiodsp_sdr_rx_tpu_torch.utils import siggen
+
+    n = 1 << 21
+    usb = siggen.ssb_from_audio(siggen.voice_like(n, FS), 10_000.0, FS, "usb", amp=0.4)
+    return {"usb": usb.astype(np.complex64),
+            "am": siggen.am_signal(n, 10_000.0, mod_hz=900.0, fs=FS).astype(np.complex64)}
+
+
+def kernel_halo_outputs(streams: dict) -> dict:
+    """Phase 7b's in-process kernel halo on time=4 over cuda:0 (USB with the
+    fast AGC, AM with the medium one), for a run of phase 7g alone."""
+    from radiodsp_sdr_rx_tpu_torch.models.config import AGCMode, DemodMode, ReceiverConfig
+    from radiodsp_sdr_rx_tpu_torch.models.receiver import build_params
+    from radiodsp_sdr_rx_tpu_torch.parallel import make_mesh, make_time_sharded_ssb_chain
+
+    out = {}
+    for mode, agc_mode in (("usb", AGCMode.FAST), ("am", AGCMode.MEDIUM)):
+        p = build_params(ReceiverConfig(
+            mode=DemodMode.AM if mode == "am" else DemodMode.USB, agc=agc_mode,
+            vfo_freq=7_060_000.0, capture_center_freq=7_050_000.0, iq_gain_balance=1.0))
+        mesh = make_mesh(channel=1, time=4, devices=[torch.device("cuda:0")] * 4)
+        chain = make_time_sharded_ssb_chain(mesh, am=mode == "am", sample_rate=FS, halo="kernel")
+        out[mode] = chain(torch.from_numpy(streams[mode]).cuda(), p.nco_inc, p.w_sideband,
+                          p.w_audio, p.agc_release, p.agc_target, p.agc_max_gain,
+                          p.output_gain).cpu().numpy()
+    return out
+
+
+def group_rank(rank: int, world: int, backend: str, rdv: str, streams: dict, want: dict,
+               results) -> None:
+    """One rank of phase 7g: under gloo every rank on cuda:0, under NCCL rank
+    r on cuda:r. K9 across processes alone (GROUP_EXCHANGES exchanges of
+    fresh blocks, held bit for bit to what the left neighbour sent and to
+    the plain exchange, then timed beside the plain exchange and the host
+    handshake alone), and on a 4-rank group the time-sharded USB and AM
     chains of phase 7b with the kernel halo (bit for bit the group's
     ppermute halo and, on rank 0, phase 7b's in-process kernel halo,
     ``want``). Puts (rank, results, None) or (rank, None, traceback)."""
     try:
         torch.set_num_threads(2)
-        torch.cuda.set_device(0)
+        torch.cuda.set_device(0 if backend == "gloo" else rank)
         import torch.distributed as dist
 
         from radiodsp_sdr_rx_tpu_torch.models.config import AGCMode, DemodMode, ReceiverConfig
@@ -544,10 +609,11 @@ def group_rank(rank: int, world: int, rdv: str, streams: dict, want: dict, resul
         from radiodsp_sdr_rx_tpu_torch.parallel import (
             halo, initialize_distributed, make_global_mesh, make_time_sharded_ssb_chain)
 
-        initialize_distributed(f"file://{rdv}", world, rank, backend="gloo")
-        mesh = make_global_mesh(channel=1, time=world, device="cuda:0")
+        initialize_distributed(f"file://{rdv}", world, rank, backend=backend)
+        mesh = make_global_mesh(channel=1, time=world,
+                                device="cuda:0" if backend == "gloo" else None)
         axis = mesh.group.axes["time"]
-        out = {}
+        out = {"device": str(mesh.group.device)}
 
         def stream_of(seed):   # the fresh blocks rank `seed` sends, one an exchange
             gen = torch.Generator(device="cuda").manual_seed(1000 + seed)
@@ -634,17 +700,17 @@ def group_rank(rank: int, world: int, rdv: str, streams: dict, want: dict, resul
         results.put((rank, None, traceback.format_exc()))
 
 
-def run_group(world: int, streams: dict, want: dict) -> dict:
-    """Phase 7g on a gloo group of ``world`` processes, a file rendezvous in a
-    temporary directory: every rank's results (rank -> dict). Raises if a
-    rank fails or does not put its results, or a process is left alive,
-    within GROUP_JOIN_S; every process is stopped."""
+def run_group(world: int, streams: dict, want: dict, backend: str = "gloo") -> dict:
+    """Phase 7g on a ``backend`` group of ``world`` processes, a file
+    rendezvous in a temporary directory: every rank's results (rank ->
+    dict). Raises if a rank fails or does not put its results, or a process
+    is left alive, within GROUP_JOIN_S; every process is stopped."""
     ctx = multiprocessing.get_context("spawn")
     results = ctx.Queue()
     got, errors = {}, []
     with tempfile.TemporaryDirectory() as tmp:
-        procs = [ctx.Process(target=group_rank, args=(r, world, f"{tmp}/rdv", streams, want,
-                                                      results)) for r in range(world)]
+        procs = [ctx.Process(target=group_rank, args=(r, world, backend, f"{tmp}/rdv", streams,
+                                                      want, results)) for r in range(world)]
         for p in procs:
             p.start()
         try:
@@ -662,10 +728,11 @@ def run_group(world: int, streams: dict, want: dict) -> dict:
                 if p.is_alive():
                     p.kill()
                     p.join(timeout=10)
-    check(not errors, f"K9 across processes, {world} ranks: " + "\n".join(errors))
-    check(not alive, f"K9 across processes, {world} ranks: processes {alive} did not exit")
+    what = f"K9 across processes, {world} {backend} ranks"
+    check(not errors, f"{what}: " + "\n".join(errors))
+    check(not alive, f"{what}: processes {alive} did not exit")
     check(all(p.exitcode == 0 for p in procs),
-          f"K9 across processes, {world} ranks: exit codes {[p.exitcode for p in procs]}")
+          f"{what}: exit codes {[p.exitcode for p in procs]}")
     return got
 
 
@@ -685,7 +752,6 @@ def sharded_paths(gen, reset_counts, counts, only, launches, err, timing) -> Non
         ShardedFusedBank, halo, make_mesh, make_time_sharded_ssb_chain)
     from radiodsp_sdr_rx_tpu_torch.parallel.stream_shard import (
         make_full_sharded_chain, sharded_chain_init)
-    from radiodsp_sdr_rx_tpu_torch.utils import siggen
 
     def card(n):
         return make_mesh(channel=1, time=n, devices=[torch.device("cuda:0")] * n)
@@ -712,10 +778,9 @@ def sharded_paths(gen, reset_counts, counts, only, launches, err, timing) -> Non
     err["ring_shift"] = 0.0
 
     # 7b. the time-sharded chains at full width: a 2^21-sample stream on time=4
-    n_1d = 1 << 21
-    audio_in = siggen.voice_like(n_1d, FS)
-    iq_usb = siggen.ssb_from_audio(audio_in, 10_000.0, FS, "usb", amp=0.4).astype(np.complex64)
-    iq_am = siggen.am_signal(n_1d, 10_000.0, mod_hz=900.0, fs=FS).astype(np.complex64)
+    streams = time_sharded_streams()
+    iq_usb, iq_am = streams["usb"], streams["am"]
+    n_1d = len(iq_usb)
     kw = dict(vfo_freq=7_060_000.0, capture_center_freq=7_050_000.0, iq_gain_balance=1.0)
     ring_calls, launched = 0, dict.fromkeys(counts(), 0)
     in_process = {}   # the kernel halo's outputs, for phase 7g
@@ -754,8 +819,7 @@ def sharded_paths(gen, reset_counts, counts, only, launches, err, timing) -> Non
     check(launched == only(ring_shift=2 * ring_calls), f"the kernel-halo chains launched "
           f"{launched}, expected 2 ring_shift per call ({ring_calls} calls) and no other")
     say(f"time-sharded chains, kernel halo: kernel launches {launched}")
-    streams = {"usb": iq_usb, "am": iq_am}
-    del audio_in, iq_dev, got, ref, single
+    del iq_dev, got, ref, single
 
     # 7c. the full 2-D chain on channel=2 x time=4 over cuda:0
     mesh24 = make_mesh(channel=2, time=4, devices=[torch.device("cuda:0")] * 8)
@@ -946,63 +1010,98 @@ def sharded_paths(gen, reset_counts, counts, only, launches, err, timing) -> Non
         f"exchange by the profiler (us, under it): kernel {split['kernel']}; library "
         f"{split['library']}")
 
-    # 7g. K9 across processes: gloo groups of 2 and then 4 ranks, all on cuda:0
-    group_bytes = {w: 2 * w * 128 * 128 * 8 for w in GROUP_WORLDS}
-    group = {}
-    for world in GROUP_WORLDS:
+    # 7g. K9 across processes: gloo groups on cuda:0, NCCL one rank a card
+    group_paths(streams, in_process, launches, err, timing, path_ms)
+    say("timing sharded paths: " + "; ".join(f"{k} {v:.3f} ms" for k, v in path_ms.items()))
+
+
+def group_paths(streams: dict, in_process: dict, launches, err, timing, path_ms,
+                gloo: bool = True) -> None:
+    """7g. K9 across processes: gloo groups of 2 and then 4 ranks, all on
+    cuda:0 (with ``gloo``), then, with two cards or more, an NCCL group of
+    up to NCCL_MAX_WORLD ranks, rank r on cuda:r; on one card a line says
+    that the NCCL case was skipped, and why. ``streams`` and ``in_process``
+    are phase 7b's streams and its in-process kernel halo's outputs. Adds
+    the time-sharded chains' launches and K9 across processes' record: its
+    times the 4-rank gloo group's, the NCCL group's beside them."""
+    cards = torch.cuda.device_count()
+    groups = [("gloo", w) for w in GROUP_WORLDS] if gloo else []
+    if cards >= 2:
+        groups.append(("nccl", min(NCCL_MAX_WORLD, cards)))
+    else:
+        say(f"skip K9 across processes on NCCL, one rank a card: {cards} CUDA card here, the "
+            f"case needs 2 or more (rank r on cuda:r, up to {NCCL_MAX_WORLD}); its times come "
+            "from a multi-card run")
+    record = {}
+    for backend, world in groups:
         t = time.perf_counter()
-        got = run_group(world, streams, in_process)
+        got = run_group(world, streams, in_process, backend)
+        devices = [got[r]["device"] for r in range(world)]
+        where = "on cuda:0" if backend == "gloo" else "one a card"
+        mesh_call = ("make_global_mesh(channel=1, time=4, device='cuda:0')" if backend == "gloo"
+                     else "make_global_mesh(channel=1, time=4)")
+        check(devices == (["cuda:0"] * world if backend == "gloo"
+                          else [f"cuda:{r}" for r in range(world)]),
+              f"K9 across {world} {backend} processes: the ranks' devices {devices}")
         alone = [got[r]["launches_alone"] for r in range(world)]
         check(all(got[r]["alone_equal"] == (True, True) for r in range(world)),
-              f"K9 across {world} processes differs from what the left neighbour sent or from "
-              f"the plain exchange: {[got[r]['alone_equal'] for r in range(world)]}")
+              f"K9 across {world} {backend} processes differs from what the left neighbour "
+              f"sent or from the plain exchange: "
+              f"{[got[r]['alone_equal'] for r in range(world)]}")
         check(alone == [(GROUP_EXCHANGES, 0)] * (world - 1) + [(0, 0)],
-              f"K9 across {world} processes: launches (across, in process) per rank {alone}")
+              f"K9 across {world} {backend} processes: launches (across, in process) per rank "
+              f"{alone}")
         tms = {k: [max(got[r]["times_ms"][k][i] for r in range(world))
                    for i in range(len(got[0]["times_ms"][k]))] for k in got[0]["times_ms"]}
-        say(f"check K9 across processes, {world} gloo ranks on cuda:0 (ring_shift through "
-            f"csrc/halo.cu group_ring_send, CUDA IPC): {GROUP_EXCHANGES} exchanges of fresh "
-            f"(128, 128) complex64 blocks bit for bit what the left neighbour sent and the plain "
-            f"exchange (the gloo ppermute halo); launches per rank {[a[0] for a in alone]}; us "
-            f"per exchange, the slowest rank, in turns: kernel "
-            f"{', '.join(f'{v * 1e3:.1f}' for v in tms['kernel'])}, gloo ppermute halo "
+        nbytes = 2 * world * GROUP_BLOCK[0] * GROUP_BLOCK[1] * 8
+        say(f"check K9 across processes, {world} {backend} ranks {where} ({', '.join(devices)}; "
+            f"ring_shift through csrc/halo.cu group_ring_send, CUDA IPC): {GROUP_EXCHANGES} "
+            f"exchanges of fresh (128, 128) complex64 blocks bit for bit what the left "
+            f"neighbour sent and the plain exchange (the {backend} ppermute halo); launches per "
+            f"rank {[a[0] for a in alone]}; us per exchange, the slowest rank, in turns: kernel "
+            f"{', '.join(f'{v * 1e3:.1f}' for v in tms['kernel'])}, {backend} ppermute halo "
             f"{', '.join(f'{v * 1e3:.1f}' for v in tms['ppermute'])}; the host handshake alone "
-            f"{tms['handshake'][0] * 1e3:.1f}; bound {group_bytes[world] / PEAK_BYTES_S * 1e6:.3f} "
-            f"us (bytes, {group_bytes[world]} B); {time.perf_counter() - t:.1f} s with the "
-            f"processes' start")
-        group[world] = (got, tms)
-    got, tms = group[max(GROUP_WORLDS)]
-    group_launches = 0
-    for mode in ("usb", "am"):
-        res = [got[r][mode] for r in range(max(GROUP_WORLDS))]
-        launched = [r["launched"] for r in res]
-        group_launches += sum(a for a, _ in launched)
-        check(all(r["same_halos"] and r["finite"] for r in res) and res[0]["same_local"],
-              f"the time-sharded {mode} chain across processes: kernel halo == ppermute "
-              f"{[r['same_halos'] for r in res]}, == the in-process kernel halo "
-              f"{res[0]['same_local']}")
-        check(launched == [(2, 0)] * 3 + [(0, 0)],
-              f"the time-sharded {mode} chain across processes: launches per rank {launched}")
-        path = {h: [max(r["path_ms"][h][i] for r in res) for i in range(2)]
-                for h in ("kernel", "ppermute")}
-        say(f"check time-sharded {mode.upper()} chain, 1 stream x {1 << 21} on a gloo group of 4 "
-            f"ranks on cuda:0 (make_global_mesh(channel=1, time=4, device='cuda:0')): kernel halo "
-            f"bit for bit the group's ppermute halo and phase 7b's in-process kernel halo; "
-            f"launches per rank {[a for a, _ in launched]}; ms per call, the slowest rank, in "
-            f"turns: kernel halo {', '.join(f'{v:.3f}' for v in path['kernel'])}, ppermute halo "
-            f"{', '.join(f'{v:.3f}' for v in path['ppermute'])}")
-        path_ms[f"time-sharded {mode.upper()} chain across 4 processes, kernel halo"] = (
-            sum(path["kernel"]) / 2)
-        path_ms[f"time-sharded {mode.upper()} chain across 4 processes, ppermute halo"] = (
-            sum(path["ppermute"]) / 2)
-    launches["ring_shift_group"] += group_launches
-    b_ms, b_by, s_ms = bound(0, group_bytes[max(GROUP_WORLDS)])
+            f"{tms['handshake'][0] * 1e3:.1f}; bound {nbytes / PEAK_BYTES_S * 1e6:.3f} us "
+            f"(bytes, {nbytes} B); {time.perf_counter() - t:.1f} s with the processes' start")
+        record[backend] = (world, tms)
+        if world != 4:
+            continue
+        for mode in ("usb", "am"):
+            res = [got[r][mode] for r in range(world)]
+            launched = [r["launched"] for r in res]
+            launches["ring_shift_group"] += sum(a for a, _ in launched)
+            check(all(r["same_halos"] and r["finite"] for r in res) and res[0]["same_local"],
+                  f"the time-sharded {mode} chain across {backend} processes: kernel halo == "
+                  f"ppermute {[r['same_halos'] for r in res]}, == the in-process kernel halo "
+                  f"{res[0]['same_local']}")
+            check(launched == [(2, 0)] * 3 + [(0, 0)],
+                  f"the time-sharded {mode} chain across {backend} processes: launches per "
+                  f"rank {launched}")
+            path = {h: [max(r["path_ms"][h][i] for r in res) for i in range(2)]
+                    for h in ("kernel", "ppermute")}
+            say(f"check time-sharded {mode.upper()} chain, 1 stream x {1 << 21} on a {backend} "
+                f"group of 4 ranks {where} ({mesh_call}): kernel halo bit for "
+                f"bit the group's ppermute halo and phase 7b's in-process kernel halo; launches "
+                f"per rank {[a for a, _ in launched]}; ms per call, the slowest rank, in turns: "
+                f"kernel halo {', '.join(f'{v:.3f}' for v in path['kernel'])}, ppermute halo "
+                f"{', '.join(f'{v:.3f}' for v in path['ppermute'])}")
+            for h in ("kernel", "ppermute"):
+                path_ms[f"time-sharded {mode.upper()} chain across 4 {backend} processes, "
+                        f"{h} halo"] = sum(path[h]) / 2
+    world, tms = record["gloo" if gloo else "nccl"]
+    b_ms, b_by, s_ms = bound(0, 2 * world * GROUP_BLOCK[0] * GROUP_BLOCK[1] * 8)
     timing["ring_shift_group"] = dict(
         ms=sum(tms["kernel"]) / 2, plain_ms=sum(tms["ppermute"]) / 2, bound_ms=b_ms,
         bound_by=b_by, simt_bound_ms=s_ms, library_ms=None, flops=0,
-        samples=max(GROUP_WORLDS) * 128 * 128, plain_from=max(GROUP_WORLDS) * 128 * 128)
+        samples=world * GROUP_BLOCK[0] * GROUP_BLOCK[1],
+        plain_from=world * GROUP_BLOCK[0] * GROUP_BLOCK[1], nccl_ms=None, nccl_plain_ms=None,
+        nccl_ranks=None)
+    if "nccl" in record:
+        world, tms = record["nccl"]
+        timing["ring_shift_group"].update(nccl_ms=sum(tms["kernel"]) / 2,
+                                          nccl_plain_ms=sum(tms["ppermute"]) / 2,
+                                          nccl_ranks=world)
     err["ring_shift_group"] = 0.0
-    say("timing sharded paths: " + "; ".join(f"{k} {v:.3f} ms" for k, v in path_ms.items()))
 
 
 def scope_and_host_paths(dev, reset_counts, counts, only, blocks: int = CLI_BLOCKS,
@@ -1042,12 +1141,20 @@ def scope_and_host_paths(dev, reset_counts, counts, only, blocks: int = CLI_BLOC
         return (time.perf_counter() - t) * 1e3 / n
 
     def device_ops(fn) -> int:
-        """Kernels and copies on the card in one call of fn, by the profiler."""
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+        """Kernels and copies on the card in one call of fn: the nodes of its
+        CUDA graph, an exact count (the profiler's device records can miss a
+        few kernels of a short trace, so a count from them varies by run)."""
+        fn()    # warm: plans and constants made before the capture
+        sync()
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        with torch.cuda.graph(graph):
             fn()
-            sync()
-        return sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+        nodes = ctypes.c_size_t(0)
+        rc = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes(
+            ctypes.c_void_p(graph.raw_cuda_graph()), None, ctypes.byref(nodes))
+        graph.reset()
+        check(rc == 0, f"cuGraphGetNodes returned {rc}")
+        return nodes.value
 
     def no_launches(what: str) -> None:
         launched = counts()
@@ -1361,8 +1468,421 @@ def scope_and_host_paths(dev, reset_counts, counts, only, blocks: int = CLI_BLOC
         f"{time.perf_counter() - t_phase:.1f} s")
 
 
-def main() -> None:
+def app_paths(dev, reset_counts, counts, only, launches, n_cap: int = APP_CAPTURE,
+              n_lms: int = APP_LMS_CAPTURE, n_scan: int = APP_SCAN,
+              tui_frames: int = APP_TUI_FRAMES, sam_block: int = CLI_BLOCK) -> None:
+    """9. The app on ``dev`` (the card): the CLI's subcommands through
+    ``cli.main`` as a user calls it (no device: the card), each held to
+    ``main(argv, device="cpu")`` on the same files; the StreamingReceiver fed
+    by a producer thread; the Appliance driven by scripted events, card and
+    CPU in step; ``info``; the Receiver's SAM timed. K3's launches on the
+    app's paths add to ``launches``. ``dev`` may be the CPU and the sizes
+    smaller, to rehearse the phase without a card."""
+    import io as io_mod
+    import wave
 
+    from radiodsp_sdr_rx_tpu_torch import cli
+    from radiodsp_sdr_rx_tpu_torch.models.appliance import Appliance
+    from radiodsp_sdr_rx_tpu_torch.models.config import DemodMode
+    from radiodsp_sdr_rx_tpu_torch.models.receiver import Receiver
+    from radiodsp_sdr_rx_tpu_torch.models.streaming import StreamingReceiver
+    from radiodsp_sdr_rx_tpu_torch.utils import io as io_utils
+    from radiodsp_sdr_rx_tpu_torch.utils import scenes, siggen
+
+    on_card = dev.type == "cuda"
+    user = None if on_card else dev    # main()'s device as a user leaves it: the card
+    t_phase = time.perf_counter()
+
+    def sync() -> None:
+        if on_card:
+            torch.cuda.synchronize(dev)
+
+    def run(argv, device):
+        """(stdout, seconds) of one cli.main call."""
+        buf = io_mod.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv, device=device)
+        check(rc == 0, f"cli.main({argv}) returned {rc}")
+        return buf.getvalue(), time.perf_counter() - t
+
+    def counted(what: str, fn, **want):
+        """fn() with the counts set to 0 just before and read just after:
+        the kernels of ``want`` and no other; K3's launches are the app's."""
+        reset_counts()
+        out = fn()
+        sync()
+        got = counts()
+        check(got == only(**want), f"{what}: launches {got}, expected {want or 'none'}")
+        launches["lms_nr"] += got.get("lms_nr", 0)
+        return out
+
+    def wav_counts(path):
+        with wave.open(path, "rb") as w:
+            return np.frombuffer(w.readframes(w.getnframes()), "<i2").astype(np.int32)
+
+    def perturbed(m, sign, audio_tol):
+        """The metrics moved by their card-vs-CPU tolerances, all one way."""
+        out = {}
+        for k, v in m.items():
+            if k in ("s_units", "s9_plus_db"):
+                out[k] = v + sign * S_TOL
+            elif k in ("spectrum", "view", "waterfall", "smeter_uv", "audio_spectrum") \
+                    and v.numel():
+                tol = audio_tol if k == "audio_spectrum" else SCOPE_TOL
+                out[k] = v + sign * tol * float(v.abs().max())
+            else:
+                out[k] = v
+        return out
+
+    def frame_verdict(got: str, want: str, render, m, audio_tol) -> tuple[int, int, int]:
+        """(cells of ``got`` off ``want`` away from a threshold, cells of
+        ``want`` within a tolerance of one, cells): a cell is near a threshold
+        when it changes with the CPU's metrics ``m`` moved by their
+        tolerances (``render`` draws a frame of metrics)."""
+        alts = [render(perturbed(m, sign, audio_tol)).splitlines() for sign in (1, -1)]
+        g, w = got.splitlines(), want.splitlines()
+        rows = max([len(g), len(w)] + [len(a) for a in alts])
+        near = off = cells = 0
+        for i in range(rows):
+            lines = [x[i] if i < len(x) else "" for x in [g, w] + alts]
+            width = max(len(x) for x in lines)
+            lines = [x.ljust(width, "\0") for x in lines]
+            for j in range(width):
+                moved = any(a[j] != lines[1][j] for a in lines[2:])
+                near += moved
+                off += lines[0][j] != lines[1][j] and not moved
+            cells += width
+        return off, near, cells
+
+    def rtf(n, seconds) -> float:
+        return n / FS / seconds
+
+    tmp_dir = tempfile.TemporaryDirectory()
+    tmp = tmp_dir.name
+    try:
+        # the capture: the QRM scene, a stereo WAV and raw cs16
+        t = time.perf_counter()
+        iq, truth = scenes.qrm_ssb_scene(n_cap)
+        wav, raw, lms_wav = f"{tmp}/qrm.wav", f"{tmp}/qrm.cs16", f"{tmp}/qrm_lms.wav"
+        io_utils.write_wav(wav, np.stack([iq.real, iq.imag], 1), FS)
+        io_utils.write_raw_iq(raw, iq)
+        io_utils.write_wav(lms_wav, np.stack([iq.real[:n_lms], iq.imag[:n_lms]], 1), FS)
+        rx_args = ["--mode", "usb", "--vfo", f"{truth['station_freq']:.0f}", "--center",
+                   f"{truth['center']:.0f}", "--agc", "medium"]
+        say(f"phase 9 capture: {n_cap} samples of the QRM scene ({n_cap / FS:.1f} s at "
+            f"{FS:g} Hz) as a stereo WAV and raw cs16, and its first {n_lms} as a WAV, in "
+            f"{time.perf_counter() - t:.1f} s")
+
+        # demod: USB, then DNR2 and NOTCH (K3, one launch: one segment)
+        demod_wav = {}
+        for label, path, extra, want in (("USB", wav, [], {}), ("USB raw cs16", raw, ["--raw"], {}),
+                                         ("USB + DNR2", lms_wav, ["--nr", "dnr2"],
+                                          {"lms_nr": 1}),
+                                         ("USB + NOTCH", lms_wav, ["--nr", "notch"],
+                                          {"lms_nr": 1})):
+            n = n_lms if path == lms_wav else n_cap
+            argv = ["demod", path] + rx_args + extra
+            out_d, out_h = f"{tmp}/demod_card.wav", f"{tmp}/demod_cpu.wav"
+            text, secs = counted(f"demod {label}", lambda: run(argv + ["--out", out_d], user),
+                                 **(want if on_card else {}))
+            check(re.search(r"\[\d+\.\d+s, \d+x real time\]", text) is not None,
+                  f"demod {label} printed {text!r}")
+            # cmd_demod's processing (one Receiver call and the host copy), timed
+            # apart from the files, in turns
+            args_k = cli.parser().parse_args(argv)
+            rx_k, iq_k = Receiver(cli._build_config(args_k), device=user), cli._load_iq(args_k)[0]
+
+            def process(rx_k=rx_k, iq_k=iq_k):
+                t = time.perf_counter()
+                cli._stereo(rx_k.process(iq_k, rx_k.init_state())[0])
+                return time.perf_counter() - t
+
+            spent = sorted(process() for _ in range(3))[1]
+            got = wav_counts(out_d)
+            run(argv + ["--out", out_h], "cpu")
+            ref = wav_counts(out_h)
+            diff = np.abs(got - ref)
+            demod_wav[label] = got
+            say(f"check demod {label} ({n} samples): the WAV card vs CPU within "
+                f"{int(diff.max())} q15 count(s) (tolerance 1), {int((diff == 1).sum())} of "
+                f"{diff.size} samples off by one; {secs:.2f} s in cli.main with the files "
+                f"(real-time factor {rtf(n, secs):.1f}); its processing alone {spent * 1e3:.3f} "
+                f"ms, the median of 3 (real-time factor {rtf(n, spent):.1f})")
+            check(got.shape == ref.shape == (2 * n,) and int(diff.max()) <= 1,
+                  f"demod {label}: the card's WAV differs from the CPU's")
+        check(np.array_equal(demod_wav["USB"], demod_wav["USB raw cs16"]),
+              "demod of the raw cs16 capture differs from the WAV's")
+
+        # stream: the native ring, 16,384-sample blocks
+        for label, path, extra, n in (("USB", wav, [], n_cap),
+                                      ("USB + DNR2", lms_wav, ["--nr", "dnr2"], n_lms)):
+            argv = ["stream", path, "--block", str(CLI_BLOCK)] + rx_args + extra
+            out_s = f"{tmp}/stream_card.wav"
+            text, secs = counted(f"stream {label}", lambda: run(argv + ["--out", out_s], user),
+                                 **({"lms_nr": n // CLI_BLOCK} if extra and on_card else {}))
+            got = wav_counts(out_s)
+            ref = demod_wav[label][0::2]
+            d = int(np.abs(got - ref).max()) / 32768
+            check("(dropped 0)" in text and got.shape == ref.shape and d <= STREAM_TOL,
+                  f"stream {label}: {text.strip()}; max |stream - demod| {d:.3e}")
+            say(f"check stream {label} --block {CLI_BLOCK} ({n} samples, {n // CLI_BLOCK} "
+                f"blocks): max |stream - demod| = {d:.3e} (tolerance {STREAM_TOL:g}, the q15 "
+                f"ring), dropped 0, K3 launches "
+                f"{n // CLI_BLOCK if extra and on_card else 0}; {secs:.2f} s in cli.main "
+                f"(real-time factor {rtf(n, secs):.1f})")
+
+        # the StreamingReceiver fed by a producer thread, metrics on
+        cfg = cli._build_config(cli.parser().parse_args(["demod", wav] + rx_args))
+        iq_q = io_utils.read_iq_wav(wav)[0]
+        sr = StreamingReceiver(cfg, block=CLI_BLOCK, metrics=True, device=user)
+        outs, failed = [], []
+
+        def producer():
+            pos = 0
+            while pos < n_cap:
+                n = min(CLI_BLOCK // 4, n_cap - pos)   # capture-sized pushes
+                while sr.ring.capacity - sr.ring.available < n:
+                    time.sleep(1e-4)
+                got = sr.push(iq_q[pos:pos + n])
+                if got != n:
+                    failed.append((pos, got))
+                    return
+                pos += n
+
+        def consume():
+            feeder = threading.Thread(target=producer, daemon=True)
+            t = time.perf_counter()
+            feeder.start()
+            deadline, total = time.monotonic() + RING_WAIT_S, 0
+            while total < n_cap:
+                check(time.monotonic() < deadline and not failed, f"the stream stalled: {failed}")
+                got = sr.process_available()
+                outs.extend(got)
+                total += sum(len(o) for o in got)
+                if not got:
+                    time.sleep(1e-4)
+            feeder.join(timeout=30)
+            check(not feeder.is_alive(), "the StreamingReceiver's producer did not finish")
+            return time.perf_counter() - t
+
+        secs = counted("StreamingReceiver", consume)
+        stats, metrics = sr.stats, sr.last_metrics
+        sr.close()
+        one = StreamingReceiver(cfg, block=CLI_BLOCK, metrics=True, device=user)
+        whole = counted("StreamingReceiver.run_file", lambda: one.run_file(iq_q))
+        one.close()
+        threaded = np.concatenate(outs)
+        same = threaded.shape == whole.shape and np.array_equal(threaded, whole)
+        say(f"check StreamingReceiver(metrics=True) fed by a producer thread, {n_cap} samples in "
+            f"{CLI_BLOCK}-sample blocks: {stats}; the audio bit for bit run_file's: {same}; "
+            f"last_metrics on {metrics['view'].device}; {secs:.2f} s (real-time factor "
+            f"{rtf(n_cap, secs):.1f})")
+        check(same and stats["dropped"] == 0 and stats["popped"] == n_cap
+              and metrics["view"].device.type == dev.type
+              and bool(torch.isfinite(metrics["view"]).all()), "the StreamingReceiver")
+
+        # scope and scope --dual: the card's frame against the CPU's
+        iq_w, fs_w = io_utils.read_iq_wav(wav)
+        for extra in ([], ["--dual"]):
+            argv = ["scope", wav] + rx_args + extra
+            got, secs = counted(f"scope {' '.join(extra)}", lambda: run(argv, user))
+            want, _ = run(argv, "cpu")
+            args_h = cli.parser().parse_args(argv)
+            args_h.device = "cpu"
+            m_h = cli.scope_metrics(args_h, iq_w, fs_w)
+
+            def render(mm, dual=bool(extra)):
+                return cli.scope_text(mm, fs_w, truth["center"], dual)
+
+            check(want == render(m_h) + "\n", "scope's CPU printout is not scope_text's")
+            off, near, cells = frame_verdict(got, want, render, m_h, SCOPE_AUDIO_TOL)
+            say(f"check scope {' '.join(extra)}: the card's frame against the CPU's: {off} of "
+                f"{cells} cells off away from a threshold, {near} within a tolerance of one "
+                f"(the metrics moved by SCOPE_TOL / SCOPE_AUDIO_TOL / S_TOL); {secs:.2f} s")
+            check(off == 0, f"scope {' '.join(extra)}: the card's frame differs from the CPU's")
+
+        # scan --channels 64: a scene of planted carriers at channel centres
+        m_ch = SCAN_CHANNELS
+        t_s = np.arange(n_scan) / FS
+        gen_np = np.random.default_rng(90)
+        band = siggen.noise(n_scan, 0.01, 90).astype(np.complex128)
+        for i, k in enumerate(APP_SCAN_PLANTED):
+            f = (k if k < m_ch // 2 else k - m_ch) * FS / m_ch
+            band += 0.2 * 0.75 ** i * np.exp(1j * (2 * np.pi * f * t_s + gen_np.uniform(0, 6)))
+        scan_wav = f"{tmp}/band.wav"
+        io_utils.write_wav(scan_wav, np.stack([band.real, band.imag], 1).astype(np.float32), FS)
+        argv = ["scan", scan_wav, "--center", f"{truth['center']:.0f}", "--channels", str(m_ch)]
+        got, secs = counted("scan", lambda: run(argv, user))
+        want, _ = run(argv, "cpu")
+        row = re.compile(r"  ch +(\d+) +([\d.]+) MHz  \+ *([\d.]+) dB")
+        listed = {f: [(int(a), b, float(c)) for a, b, c in row.findall(x)]
+                  for f, x in (("card", got), ("cpu", want))}
+        floor = {f: float(re.search(r"floor (-?[\d.]+) dBfs", x).group(1))
+                 for f, x in (("card", got), ("cpu", want))}
+        snr_d = max((abs(a[2] - b[2]) for a, b in zip(listed["card"], listed["cpu"])),
+                    default=0.0)
+        same_list = [a[:2] for a in listed["card"]] == [b[:2] for b in listed["cpu"]]
+        planted = set(APP_SCAN_PLANTED) <= {k for k, _, _ in listed["card"]}
+        say(f"check scan --channels {m_ch} ({n_scan} samples, carriers at channels "
+            f"{list(APP_SCAN_PLANTED)}): listed on the card {[k for k, _, _ in listed['card']]}; "
+            f"every planted carrier listed {planted}; the list (channel, MHz) the CPU's "
+            f"{same_list}, SNR within {snr_d:.2f} dB and floor within "
+            f"{abs(floor['card'] - floor['cpu']):.2f} dB of the CPU's printed values (tolerance "
+            f"{SNR_PRINT_TOL:g}); {secs:.2f} s (real-time factor {rtf(n_scan, secs):.1f})")
+        check(planted and same_list and snr_d <= SNR_PRINT_TOL + 1e-9
+              and abs(floor["card"] - floor["cpu"]) <= SNR_PRINT_TOL + 1e-9,
+              "scan on the card differs from the CPU's")
+
+        # tui, headless
+        argv = ["tui", wav] + rx_args + ["--frames", str(tui_frames), "--block",
+                                          str(APPLIANCE_BLOCK)]
+        got, secs = counted("tui", lambda: run(argv, user))
+        check(got.count("S-meter:") == tui_frames and got.count("=" * 80) == tui_frames,
+              f"tui --frames {tui_frames}: {got.count('S-meter:')} S-meter lines")
+        say(f"check tui --frames {tui_frames} --block {APPLIANCE_BLOCK}, headless: "
+            f"{tui_frames} frames and S-meter lines; {secs:.2f} s "
+            f"({secs * 1e3 / tui_frames:.1f} ms a frame with the start)")
+
+        # the Appliance driven directly, card and CPU with the same events
+        to_l2 = [("menu",), ("encoder", +1), ("menu",)]
+        to_l4 = [("menu",), ("encoder", +1), ("menu",)]
+        script = (
+            [[], [("encoder", +1)], [("encoder", -1)], [("b",)], [("encoder", +1)],
+             [("b",), ("b",), ("b",), ("b",), ("b",), ("b",)], [("encoder", -1)]]
+            + [[("a",)], [], [("a",)], [("a",)], []]                  # LSB, AM, SAM x 2
+            + [[("a",)], [("a",)], [("a",)], [("a",)]]                # RTTY, CW-N, CW, USB
+            + [to_l2 + [("b",)]] + [[("b",)]] * 5                     # NOTCH, DNR1-4, OFF
+            + [[("a",)], [("a",)]]                                    # the filter cycle
+            + [[("menu",), ("encoder", +1), ("menu",), ("b",)]] + [[("b",)]] * 3  # AGC cycle
+            + [[("a",)], []]                                          # the panadapter
+            + [to_l4 + [("pbt", "lo"), ("encoder", +2)], [("pbt", "hi"), ("encoder", -4)], []]
+            + [[("menu",), ("encoder", -3), ("menu",), ("encoder", +2)], []])
+        # the scene with a carrier 17 Hz above the tuned frequency, on which SAM's
+        # PLL locks (it is chaotic on a suppressed-carrier voice)
+        n_app = len(script) * APPLIANCE_BLOCK
+        t_app = np.arange(n_app) / FS
+        iq_app = (iq[:n_app] + 0.15 * np.exp(2j * np.pi * (truth["station_freq"] + 17.0
+                                                            - truth["center"]) * t_app)
+                  ).astype(np.complex64)
+        blocks = [iq_app[k * APPLIANCE_BLOCK:(k + 1) * APPLIANCE_BLOCK]
+                  for k in range(len(script))]
+        app_d = Appliance(cfg, block=APPLIANCE_BLOCK, device=user)
+        app_h = Appliance(cfg, block=APPLIANCE_BLOCK, device="cpu")
+
+        def render_h(mm):
+            keep, app_h.metrics = app_h.metrics, mm
+            try:
+                return app_h.render_frame()
+            finally:
+                app_h.metrics = keep
+
+        worst = {"audio": 0.0, "audio LMS": 0.0}
+        off_total = near_total = cells_total = lms_blocks = sam_blocks = 0
+        reconf_same, modes = True, []
+
+        def drive():
+            nonlocal off_total, near_total, cells_total, lms_blocks, sam_blocks, reconf_same
+            for k, (evs, blk) in enumerate(zip(script, blocks)):
+                o_d, o_h = app_d.step(blk, events=evs), app_h.step(blk, events=evs)
+                cfg_k = app_h.plane.config
+                lms = cfg_k.nr.kind in ("notch", "lms")
+                lms_blocks += lms
+                sam_blocks += cfg_k.mode is DemodMode.SAM
+                modes.append(cfg_k.mode.name + ("" if cfg_k.nr.name == "OFF"
+                                                else "+" + cfg_k.nr.name))
+                reconf_same &= o_d["reconfigured"] == o_h["reconfigured"]
+                d = max_diff([o_d[k].cpu() for k in ("audio_l", "audio_r")],
+                             [o_h[k] for k in ("audio_l", "audio_r")])
+                key = "audio LMS" if lms else "audio"
+                worst[key] = max(worst[key], d)
+                off, near, cells = frame_verdict(app_d.render_frame(), app_h.render_frame(),
+                                                 render_h, app_h.metrics, APP_AUDIO_SCOPE_TOL)
+                off_total, near_total, cells_total = (off_total + off, near_total + near,
+                                                      cells_total + cells)
+
+        t = time.perf_counter()
+        counted("the Appliance's scripted session", drive,
+                **({"lms_nr": 5} if on_card else {}))
+        session_s = time.perf_counter() - t
+        check(lms_blocks == 5 and sam_blocks == 2, f"the script ran {lms_blocks} LMS and "
+              f"{sam_blocks} SAM blocks: {modes}")
+        plane_d, plane_h = app_d.plane, app_h.plane
+        same_plane = (plane_d.config == plane_h.config and plane_d.vfo == plane_h.vfo
+                      and (plane_d.menu_level, plane_d.scope) == (plane_h.menu_level,
+                                                                  plane_h.scope))
+        say(f"check Appliance, {len(script)} scripted blocks of {APPLIANCE_BLOCK} (tune, step "
+            f"cycle, modes {' '.join(dict.fromkeys(modes))}, AGC cycle, the panadapter, PBT at "
+            f"level 4; K3 on {lms_blocks} blocks): max |card - cpu| audio {worst['audio']:.3e} "
+            f"(tolerance {TOL:g}), with an LMS stage {worst['audio LMS']:.3e} (tolerance "
+            f"{TOL_LMS:g}); reconfigured equal {reconf_same}; the frames: {off_total} of "
+            f"{cells_total} cells off away from a threshold, {near_total} within a tolerance "
+            f"of one; control planes equal {same_plane}; {session_s:.1f} s with the CPU's "
+            "steps")
+        check(worst["audio"] <= TOL and worst["audio LMS"] <= TOL_LMS and reconf_same
+              and off_total == 0 and same_plane, "the Appliance on the card differs from the CPU")
+
+        app_t = Appliance(cfg, block=APPLIANCE_BLOCK, device=user)
+        app_t.step(blocks[0])
+        sync()
+
+        def timed_steps():
+            t = time.perf_counter()
+            for k in range(APP_TIMED_STEPS):
+                app_t.step(blocks[k % 8])
+            sync()
+            step_s = (time.perf_counter() - t) / APP_TIMED_STEPS
+            t = time.perf_counter()
+            for _ in range(APP_TIMED_STEPS):
+                app_t.render_frame()
+            return step_s, (time.perf_counter() - t) / APP_TIMED_STEPS
+
+        step_s, paint_s = counted("the Appliance's timed steps", timed_steps)
+        say(f"timing Appliance (USB, AGC medium, the scopes on): {step_s * 1e3:.3f} ms per "
+            f"step of {APPLIANCE_BLOCK} samples (real-time factor "
+            f"{rtf(APPLIANCE_BLOCK, step_s):.1f}), render_frame {paint_s * 1e3:.3f} ms (one "
+            "host read a paint)")
+
+        # info names the card
+        text, _ = run(["info"], user)
+        names = [torch.cuda.get_device_name(i) for i in range(torch.cuda.device_count())] \
+            if on_card else []
+        check(text.startswith("radiodsp_sdr_rx_tpu_torch ")
+              and all(nm in text for nm in names), f"info: {text!r}")
+        say("check info: " + text.strip().replace("\n", "; "))
+
+        # the Receiver's SAM: a per-sample PLL loop of small launches on the card
+        rx_s = Receiver(cfg.with_(mode=DemodMode.SAM), device=user)
+        st = rx_s.init_state()
+        sam_s = []
+
+        def sam_blocks_run():
+            nonlocal st
+            for k in range(APP_SAM_BLOCKS):
+                t = time.perf_counter()
+                o, st = rx_s.process(iq[k * sam_block:(k + 1) * sam_block], st)
+                sync()
+                sam_s.append(time.perf_counter() - t)
+                check(bool(torch.isfinite(o["audio_l"]).all()), "SAM audio is not finite")
+
+        counted("the Receiver's SAM", sam_blocks_run)
+        say(f"timing Receiver SAM (ops/planar.demod_sam_planar, a Python loop over samples): "
+            + ", ".join(f"{v * 1e3:.1f}" for v in sam_s) + f" ms per {sam_block}-sample block "
+            f"(real-time factor " + ", ".join(f"{rtf(sam_block, v):.3f}" for v in sam_s) + ")")
+    finally:
+        tmp_dir.cleanup()
+    say(f"phase 9 (the app) took {time.perf_counter() - t_phase:.1f} s")
+
+
+def main() -> None:
+    import argparse
+
+    parser = argparse.ArgumentParser(description="Smoke run of the port on the card.")
+    parser.add_argument("--only", choices=("app", "nccl"), default=None,
+                        help="after the builds, run phase 9 alone (app) or phase 7g's NCCL "
+                             "group alone (nccl, two cards or more) and print its results "
+                             "in place of the kernels line")
+    only_phase = parser.parse_args().only
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; this run needs a CUDA card")
 
@@ -1443,6 +1963,25 @@ def main() -> None:
         for kname, regs, spills in ptxas_summary(build.build_log(lib)):
             say(f"ptxas {lib}.cu {kname}: {regs}; {spills}")
             ptxas[kname] = f"{regs}; {spills}"
+    if only_phase is not None:
+        err = dict.fromkeys(counts(), 0.0)
+        launches = dict.fromkeys(counts(), 0)
+        timing, path_ms = {}, {}
+        if only_phase == "app":
+            app_paths(torch.device("cuda"), reset_counts, counts, only, launches)
+        else:
+            check(torch.cuda.device_count() >= 2, "--only nccl needs two cards or more")
+            streams = time_sharded_streams()
+            group_paths(streams, kernel_halo_outputs(streams), launches, err, timing, path_ms,
+                        gloo=False)
+            say("timing sharded paths: " + "; ".join(f"{k} {v:.3f} ms"
+                                                     for k, v in path_ms.items()))
+        print(json.dumps({"only": only_phase, "launches": {k: v for k, v in launches.items()
+                                                           if v},
+                          "timing": timing}), flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)
+        return
 
     cfg = ReceiverConfig(mode=DemodMode.USB, vfo_freq=7_200_000.0,
                          capture_center_freq=7_190_000.0, agc=AGCMode.MEDIUM)
@@ -3143,6 +3682,8 @@ def main() -> None:
     sharded_paths(gen, reset_counts, counts, only, launches, err, timing)
     # 8. the scopes, the channelized bank and the host utilities
     scope_and_host_paths(torch.device("cuda"), reset_counts, counts, only)
+    # 9. the app: the CLI, the streaming receiver, the appliance
+    app_paths(torch.device("cuda"), reset_counts, counts, only, launches)
 
     sources = {"sweep_chain_ssb": ("sweep_chain.cu", "ops/pallas_sweep.py:261"),
                "sweep_chain_ssb_nb": ("sweep_chain.cu", "ops/pallas_sweep.py:261"),
@@ -3174,7 +3715,9 @@ def main() -> None:
         "library_ms": timing[kname]["library_ms"],
         "plain_timed_samples": timing[kname].get("plain_from", timing[kname].get("seg", SEG_LEN)),
         **({"tf32_pass_tflops": timing[kname]["tf32_pass_tflops"]}
-           if "tf32_pass_tflops" in timing[kname] else {})}
+           if "tf32_pass_tflops" in timing[kname] else {}),
+        **({k: timing[kname][k] for k in ("nccl_ms", "nccl_plain_ms", "nccl_ranks")}
+           if kname == "ring_shift_group" else {})}
         for kname, (src, tpu) in sources.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)

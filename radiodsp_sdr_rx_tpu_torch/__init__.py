@@ -7,6 +7,14 @@ kernel under ``csrc/``, built with ``nvcc`` at first use (utils/build.py),
 beside a plain PyTorch version of the same function that runs on the CPU.
 
 Layers, from the entry point down:
+  cli.py, __main__.py  the app: ``python -m radiodsp_sdr_rx_tpu_torch``
+                   demod / scope / stream / tui / scan / info on the card;
+                   ``cli.main(argv, device="cpu")`` on the CPU
+  models/appliance.py, models/controls.py, models/vfo.py  the appliance:
+                   UI events through the control plane retune or rebuild
+                   the receiver; the scopes beside it
+  models/streaming.py  StreamingReceiver: the native ring feeding the
+                   receiver (and the scopes) block by block
   models/fused.py  FusedSSBBank: state threading; sweep backend one launch
                    per segment (noise blanker included), staged backend two;
                    FusedAMBank: one launch per segment (blanker included);

@@ -386,6 +386,13 @@ class Receiver:
                 "mode", "nr", "noise_blanker", "quantize_output", "fft_length",
                 "sample_rate")):
             return Receiver(new_config, self.device)
+        return self.retuned(new_config)
+
+    def retuned(self, new_config: ReceiverConfig) -> "Receiver":
+        """A receiver of ``new_config``, whose chain settings the caller has
+        found equal to this one's: it shares this receiver's chain settings
+        and the parameter tensors whose values did not change, and keeps the
+        locked I2S repair and its carry (``retune``; ``models/appliance``)."""
         new_rx = object.__new__(Receiver)
         new_rx.config, new_rx.device, new_rx.statics = new_config, self.device, self.statics
         new_rx._host_params = build_params(new_config)

@@ -50,7 +50,10 @@ kernel halo equals its ppermute halo bit for bit. K9 across processes
 blocks bit for bit what the left neighbour sent and the plain exchange, the
 time-sharded chain's kernel halo bit for bit the group's ppermute halo, one
 launch a rank and exchange, and a neighbour's slot that cannot be opened
-raises on both ranks.
+raises on both ranks; the same on an NCCL group of up to four ranks, rank r
+on cuda:r (skipped with fewer than two cards). The CLI's ``Receiver`` with
+DNR2 launches K3 once for ``demod``'s one segment and once a block for
+``stream``, its WAVs within one q15 count of the CPU's.
 """
 
 import functools
@@ -1252,8 +1255,9 @@ def test_time_sharded_chain_kernel_halo_on_card(cuda_device):
 GROUP_JOIN_S = 180
 
 
-def _group_rank(rank, rdv, results):
-    """One of two gloo ranks on cuda:0 (test_kernel_halo_across_processes)."""
+def _group_rank(rank, world, backend, rdv, results):
+    """One rank of test_kernel_halo_across_processes: gloo ranks share
+    cuda:0, NCCL ranks take a card each (rank r on cuda:r)."""
     try:
         import torch.distributed as dist
 
@@ -1261,9 +1265,11 @@ def _group_rank(rank, rdv, results):
         from radiodsp_sdr_rx_tpu_torch.parallel import (
             halo, initialize_distributed, make_global_mesh, make_time_sharded_ssb_chain)
 
-        torch.cuda.set_device(0)
-        initialize_distributed(f"file://{rdv}", 2, rank, backend="gloo")
-        mesh = make_global_mesh(channel=1, time=2, device="cuda:0")
+        torch.cuda.set_device(0 if backend == "gloo" else rank)
+        initialize_distributed(f"file://{rdv}", world, rank, backend=backend)
+        mesh = make_global_mesh(channel=1, time=world,
+                                device="cuda:0" if backend == "gloo" else None)
+        assert mesh.group.device == torch.device("cuda", torch.cuda.current_device())
         axis = mesh.group.axes["time"]
         gens = [torch.Generator(device="cuda").manual_seed(s) for s in (rank, rank - 1, 9)]
 
@@ -1283,7 +1289,7 @@ def _group_rank(rank, rdv, results):
                                         capture_center_freq=7_050_000.0, iq_gain_balance=1.0))
         args = (p.nco_inc, p.w_sideband, p.w_audio, p.agc_release, p.agc_target,
                 p.agc_max_gain, p.output_gain)
-        iq = (torch.randn(2 * 8192, generator=torch.Generator().manual_seed(4),
+        iq = (torch.randn(world * 8192, generator=torch.Generator().manual_seed(4),
                           dtype=torch.complex64) * 0.1).cuda()
         chains = {h: make_time_sharded_ssb_chain(mesh, halo=h)(iq, *args)
                   for h in ("kernel", "ppermute")}
@@ -1307,16 +1313,17 @@ def _group_rank(rank, rdv, results):
         results.put((rank, None, traceback.format_exc()))
 
 
-def test_kernel_halo_across_processes(cuda_device, tmp_path):
+def _run_group(world, backend, rdv):
+    """Every rank's results (rank -> dict); each process joined or killed."""
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
-    procs = [ctx.Process(target=_group_rank, args=(r, tmp_path / "rdv", results))
-             for r in range(2)]
+    procs = [ctx.Process(target=_group_rank, args=(r, world, backend, rdv, results))
+             for r in range(world)]
     for p in procs:
         p.start()
     got = {}
     try:
-        for _ in range(2):
+        for _ in range(world):
             rank, res, err = results.get(timeout=GROUP_JOIN_S)
             assert err is None, f"rank {rank} failed:\n{err}"
             got[rank] = res
@@ -1328,7 +1335,56 @@ def test_kernel_halo_across_processes(cuda_device, tmp_path):
             if p.is_alive():
                 p.kill()
     assert not alive, f"processes {alive} did not exit"
+    return got
+
+
+def _check_group(got, world):
     assert all(r["alone"] and r["plain"] and r["chain"] for r in got.values()), got
-    assert [got[r]["launched"] for r in range(2)] == [100, 0]
-    assert "cannot open its neighbours' slots" in got[0]["refused"]
-    assert "could not open" in got[1]["refused"]
+    assert [got[r]["launched"] for r in range(world)] == [100] * (world - 1) + [0]
+    assert all("cannot open its neighbours' slots" in got[r]["refused"]
+               for r in range(world - 1))
+    assert "could not open" in got[world - 1]["refused"]
+
+
+def test_kernel_halo_across_processes(cuda_device, tmp_path):
+    _check_group(_run_group(2, "gloo", tmp_path / "rdv"), 2)
+
+
+def test_kernel_halo_across_processes_nccl_one_rank_a_card(tmp_path):
+    """K9 across processes as a multi-card deployment runs it: NCCL, rank r
+    on cuda:r, up to four cards; the slots mapped across NVLink."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA cards (NCCL, one rank a card)")
+    world = min(4, torch.cuda.device_count())
+    _check_group(_run_group(world, "nccl", tmp_path / "rdv"), world)
+
+
+def test_cli_dnr2_launches_lms_once_a_segment(cuda_device, tmp_path):
+    """The CLI's Receiver with DNR2 on the card: K3 once for demod's one
+    segment and once a block for stream; the WAVs within one q15 count of
+    the CPU's."""
+    import wave
+
+    from radiodsp_sdr_rx_tpu_torch.cli import main
+    from radiodsp_sdr_rx_tpu_torch.utils import io as io_utils
+    from radiodsp_sdr_rx_tpu_torch.utils import siggen
+
+    n, fs = 4 * 16384, 44117.64706
+    iq = (siggen.ssb_from_audio(siggen.voice_like(n, fs, seed=2), 10_000.0, fs, "usb", amp=0.3)
+          + siggen.noise(n, 0.02, 2)).astype(np.complex64)
+    cap = str(tmp_path / "cap.wav")
+    io_utils.write_wav(cap, np.stack([iq.real, iq.imag], 1), fs)
+
+    def counts(path):
+        with wave.open(path, "rb") as w:
+            return np.frombuffer(w.readframes(w.getnframes()), "<i2").astype(np.int32)
+
+    for sub, launches in (("demod", 1), ("stream", n // 16384)):
+        argv = [sub, cap, "--vfo", "7060000", "--center", "7050000", "--nr", "dnr2"]
+        lms_bank.LAUNCHES = 0
+        assert main(argv + ["--out", str(tmp_path / "card.wav")]) == 0
+        assert lms_bank.LAUNCHES == launches, sub
+        assert main(argv + ["--out", str(tmp_path / "cpu.wav")], device="cpu") == 0
+        assert lms_bank.LAUNCHES == launches, sub
+        got, want = counts(str(tmp_path / "card.wav")), counts(str(tmp_path / "cpu.wav"))
+        assert got.shape == want.shape and np.abs(got - want).max() <= 1, sub

@@ -62,7 +62,13 @@ def test_port_has_modules():
             "radiodsp_sdr_rx_tpu_torch/utils/checkpoint.py",
             "radiodsp_sdr_rx_tpu_torch/utils/profiling.py",
             "radiodsp_sdr_rx_tpu_torch/utils/audio_sink.py",
-            "radiodsp_sdr_rx_tpu_torch/utils/native_io.py"} <= names
+            "radiodsp_sdr_rx_tpu_torch/utils/native_io.py",
+            "radiodsp_sdr_rx_tpu_torch/models/streaming.py",
+            "radiodsp_sdr_rx_tpu_torch/models/vfo.py",
+            "radiodsp_sdr_rx_tpu_torch/models/controls.py",
+            "radiodsp_sdr_rx_tpu_torch/models/appliance.py",
+            "radiodsp_sdr_rx_tpu_torch/cli.py",
+            "radiodsp_sdr_rx_tpu_torch/__main__.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(ROOT).as_posix())
