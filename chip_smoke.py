@@ -68,11 +68,19 @@ banks against the port's reference chain, and times them:
     plain versions on the CPU copy of SAM_LONG_ROWS channels spread over the
     bank (sam_wide: its first and last blocks, 16 channels; SAM + spectral
     frame by frame); each route against
-    ``ReceiverBank(mode=SAM)`` on a prefix; K7 against K6 at 1,024 channels
+    ``ReceiverBank(mode=SAM)`` over two whole threaded segments at full
+    width, its exact PLL on sam_exact; K7 against K6 at 1,024 channels
     over two full segments; the PLL step's pieces (csrc/sam.cu's probe: the
     explicit divide bit for bit against IEEE division, the atan2 within
     ATAN2_ULPS ulps of the plain one); cycles per PLL step beside the walk's
     own pace (sam_pll's);
+  - sam_exact, the kernel of the exact SAM PLL under
+    ``planar.demod_sam_planar`` (``ReceiverBank(mode=SAM)``, the
+    ``Receiver``, the sharded chains; the JAX package's lax.scan), bit for
+    bit against its plain loop on the card: one channel over a whole
+    16,384-sample CLI block and config6's band-passed input, 128 channels x
+    SAM_PREFIX as two threaded segments; timed at both shapes beside the
+    chain bound of its libm step;
   - K8, ``sweep_mix_filter_demod`` (mix + band-pass + SSB demod from a
     stream start), at tools/bench_sweep.py's shapes (128 channels x 2^19):
     kernel sweep_mix_demod (mix_demod's kernel without the tail), 1
@@ -96,8 +104,9 @@ banks against the port's reference chain, and times them:
     ``make_full_sharded_chain`` on channel=2 x time=4: the fifteen mode x NR
     x blanker combos of ``__graft_entry__.dryrun_multichip`` (8 channels x
     2 x 8,192, a locked-carrier scene) against the unsharded chain and split
-    against unbroken, and USB + DNR (K3, one launch a segment) and USB +
-    spectral at 128 channels x 2^19; ``ShardedFusedBank`` of the SSB bank,
+    against unbroken, and USB + DNR (K3, one launch a segment), USB +
+    spectral and SAM (sam_exact, one launch a segment) at 128 channels x
+    2^19; ``ShardedFusedBank`` of the SSB bank,
     1,024 channels x 2^17 on channel=8, bit for bit with the one bank;
     ``ReceiverBank(backend="vmap")`` with DNR2 at 129 channels (fault F1);
     and K9 across processes (``ring_shift_group``: ``GroupRing``, each rank
@@ -139,8 +148,11 @@ banks against the port's reference chain, and times them:
     the CPU's away from thresholds, ``scan --channels 64`` on planted
     carriers, ``tui --frames 40`` headless, the ``Appliance`` driven by
     scripted events (tune, steps, the mode cycle with SAM on two blocks, the
-    NR cycle, the AGC cycle, PBT) card and CPU in step, ``info``, and the
-    ``Receiver``'s SAM (a per-sample loop) timed a 16,384-sample block.
+    NR cycle, the AGC cycle, PBT) card and CPU in step, ``info``, ``demod
+    --mode sam`` on APP_SAM_CAPTURE samples of the scene with a carrier
+    (sam_exact once) within one q15 count of the CPU's WAV, and the
+    ``Receiver``'s SAM (sam_exact) timed on APP_SAM_BLOCKS 16,384-sample
+    blocks, its real-time factor checked above 1.
 
 ``--only app`` runs the app's phase alone after the builds, ``--only nccl``
 phase 7g's NCCL group alone (two cards or more); each prints its launches
@@ -191,6 +203,9 @@ SEG_NR = 1 << 17     # the NR routes beside configs 3, 7 and 8 (a cut, PERF.md s
 SAM_PREFIX = 2048    # samples of the per-sample plain PLL held to the kernels
 SAM_LONG = 1 << 17   # the long run of the PLL kernels, two threaded segments
 SAM_LONG_ROWS = 8    # its channels, spread over the bank, their plain loop on the CPU
+# sam_exact (ops/planar.demod_sam_planar's kernel) is held to its plain loop on
+# the card bit for bit: the kernel repeats the loop's operations, one libdevice
+# under both
 ATAN2_ULPS = 4       # device atan2 vs plain: the kernel's FMAs against separate products
 N_AM = 64            # bench_full.py config1_am_64ch
 N_SPEC = 64          # bench_full.py config4_spec_nr_64ch
@@ -232,6 +247,13 @@ SPEC_FLOPS_PER_SAMPLE = (2 * (512 * 128 + 256 * 256) + SPEC_STAGE_FLOPS_PER_ROW)
 # the PLL step: the two products, the atan2 (a divide counted as one), the
 # loop update, the base oscillator's two Horner chains, the rotation
 PLL_FLOPS_PER_SAMPLE = 72
+# sam_exact's step, the floating-point instructions of its fast path in the
+# SASS (cuobjdump of sam.cu's build; PERF.md section 6), compares not
+# counted: the argument reduction and the cos and sin polynomials with their
+# quadrant selects (26), the four products and two sums, atan2f with its
+# divide and two reciprocals (24), the loop update and clamp (7), fmodf's
+# |x| and the remainder's fix-up (2)
+EXACT_FLOPS_PER_SAMPLE = 65
 # the PLL step's dependent path from err[n] to err[n+1], read from the SASS
 # of csrc/sam_pll.cuh (cuobjdump of sam.cu's build; PERF.md section 6),
 # instructions by latency kind of LATENCY_KINDS: the clip bounds, the two
@@ -240,13 +262,24 @@ PLL_FLOPS_PER_SAMPLE = 72
 # correction, the Estrin polynomial. Printed beside the cycles per step as
 # the chain bound; not part of the kernels line.
 PLL_PATH = {"FFMA": 12, "FMNMX": 4, "MUFU.RCP + FFMA": 1}
-# cycles per link of dependent chains of the PLL step's instruction kinds,
+# sam_exact's dependent path from phase[n] to phase[n+1] in the same SASS, in
+# issue order (one warp issues in order, so the sine's polynomial waits behind
+# the cosine's): the reduction (an FMUL, F2I and I2F, three FFMAs), the cosine's
+# and the sine's polynomials (four FFMA-class links and two predicated ones
+# each), the products, atan2f (its compare, the two reciprocals with their
+# Newton steps, the polynomial, the octant's three predicated fix-ups), the
+# loop update with the clamp and fmodf's fast path. Its ten branches and five
+# convergence barriers (BSSY/BSYNC) are not priced: the bound is a floor.
+EXACT_PATH = {"FFMA": 30, "FMNMX": 2, "FSETP + predicated FADD": 10, "MUFU.RCP + FFMA": 2,
+              "F2I + I2F": 1}
+# cycles per link of dependent chains of the PLL steps' instruction kinds,
 # one thread timing each chain of LATENCY_LINKS links with clock64: 0 FFMA,
 # 1 FMNMX, 2 a compare and a select (FSETP, FSEL), 3 a compare and a
-# predicated FADD on the fresh predicate, 4 MUFU.RCP and an FFMA. Only this
-# script prices the path, so the source is built here, beside the package's.
+# predicated FADD on the fresh predicate, 4 MUFU.RCP and an FFMA, 5 a
+# conversion to an integer and back (F2I, I2F). Only this script prices the
+# paths, so the source is built here, beside the package's.
 LATENCY_KINDS = ("FFMA", "FMNMX", "FSETP + FSEL", "FSETP + predicated FADD",
-                 "MUFU.RCP + FFMA")
+                 "MUFU.RCP + FFMA", "F2I + I2F")
 LATENCY_LINKS = 256
 LATENCY_SRC = r"""
 #include <cuda_runtime.h>
@@ -279,6 +312,11 @@ __global__ void pll_latency_kernel(long long* cycles, float* sink, float a, floa
     asm volatile("{.reg .f32 r; rcp.approx.ftz.f32 r, %%0; fma.rn.f32 %%0, r, %%1, %%2;}"
                  : "+f"(x) : "f"(b), "f"(a));
   cycles[4] = clock64() - t;
+  t = clock64();
+#pragma unroll
+  for (int i = 0; i < LINKS; ++i)
+    asm volatile("{.reg .s32 k; cvt.rzi.s32.f32 k, %%0; cvt.rn.f32.s32 %%0, k;}" : "+f"(x));
+  cycles[5] = clock64() - t;
   *sink = x;
 }
 extern "C" int pll_latency(long long* cycles, float* sink) {
@@ -314,7 +352,8 @@ APP_SCAN = 1 << 20        # the scan's scene of planted carriers
 APP_SCAN_PLANTED = (3, 9, 17, 24, 40, 47, 55, 61)   # channels of 64 with a carrier
 APP_TUI_FRAMES = 40
 APP_TIMED_STEPS = 20      # appliance steps timed with the scope
-APP_SAM_BLOCKS = 2        # the Receiver's SAM (a per-sample loop) timed on this many blocks
+APP_SAM_BLOCKS = 8        # the Receiver's SAM timed on this many blocks (real-time factor > 1)
+APP_SAM_CAPTURE = 1 << 17  # demod --mode sam's capture (the plain PLL is the CPU's reference)
 STREAM_TOL = 2e-3         # stream vs demod: the q15 ring (tests/test_streaming.py:39)
 APP_AUDIO_SCOPE_TOL = 1e-3  # the appliance's audio scope card vs CPU, of its peak: its
 #                            input within TOL_LMS (2e-4) on a 0.5 full scale
@@ -414,6 +453,7 @@ def ptxas_summary(log: str):
             kname = next(k for fn, k in (("mix_demod_kernelILb0", "sweep_mix_demod"),
                                          ("mix_demod_kernel", "mix_demod"), ("pbt_kernel", "pbt"),
                                          ("lms_kernel", "lms_nr"),
+                                         ("sam_pll_kernelILb1E", "sam_exact"),
                                          ("sam_pll_kernel", "sam_pll"),
                                          ("sam_probe_kernel", "sam_probe"),
                                          ("ring_shift_kernel", "ring_shift"))
@@ -868,17 +908,20 @@ def sharded_paths(gen, reset_counts, counts, only, launches, err, timing) -> Non
         say(f"check full sharded chain {mode}/{tag}, 8 ch x 2 x {n_dry} on channel=2 x time=4 "
             f"(cuda:0 x 8): max |sharded - unsharded| = {d:.3e}, max |split - unbroken| = "
             f"{seam:.3e} (tolerance {TOL_PARITY:g}); launches {launched}")
-        k3 = 2 if nr in ("lms", "notch") else 0   # one a segment: every line's sub-banks at once
-        check(launched == only(lms_nr=k3), f"{mode}/{tag}: launches {launched}")
+        # one K3 and one sam_exact a segment: every shard's streams stacked on one card
+        k3 = 2 if nr in ("lms", "notch") else 0
+        pll = 2 if mode == "sam" else 0
+        check(launched == only(lms_nr=k3, sam_exact=pll), f"{mode}/{tag}: launches {launched}")
+        launches["sam_exact"] += pll
         check(d <= TOL_PARITY and seam <= TOL_PARITY and bool(torch.isfinite(a1).all()),
               f"the full sharded chain {mode}/{tag} is off: {d:.3e}, seam {seam:.3e}")
         worst = max(worst, d, seam)
     say(f"full sharded chain: {len(combos)} combos in {time.perf_counter() - t:.2f} s, worst "
         f"diff {worst:.3e}")
-    for nr in ("lms", "spectral"):
+    for mode, nr in (("usb", "lms"), ("usb", "spectral"), ("sam", "off")):
         c, n = N_CHANNELS, SEG_LEN
         a1, want, spec_in, _, launched, chain, (iq, incs, st0) = run_full(
-            "usb", nr, False, c, n, False)
+            mode, nr, False, c, n, False)
         if nr == "spectral":
             # frames with a bin within rounding of the floor may flip (spectral_diff)
             w_fwd = torch.from_numpy(spectral_matmul_ops(256)[0]).cuda()
@@ -892,15 +935,16 @@ def sharded_paths(gen, reset_counts, counts, only, launches, err, timing) -> Non
         else:
             d = float((a1 - want).abs().max())
             ok, detail = d <= TOL_PARITY, f"{d:.3e}"
-        say(f"check full sharded chain usb/{nr}, {c} ch x 2 x {n} on channel=2 x time=4: max "
-            f"|sharded - unsharded| {detail} (tolerance {TOL_PARITY:g}); launches {launched}")
-        check(launched == only(lms_nr=2 if nr == "lms" else 0),
-              f"usb/{nr} full width: launches {launched}")
-        check(ok and bool(torch.isfinite(a1).all()), f"usb/{nr} full width is off: {detail}")
-        if nr == "lms":
-            launches["lms_nr"] += launched["lms_nr"]
+        say(f"check full sharded chain {mode}/{nr}, {c} ch x 2 x {n} on channel=2 x time=4: "
+            f"max |sharded - unsharded| {detail} (tolerance {TOL_PARITY:g}); launches {launched}")
+        check(launched == only(lms_nr=2 if nr == "lms" else 0,
+                               sam_exact=2 if mode == "sam" else 0),
+              f"{mode}/{nr} full width: launches {launched}")
+        check(ok and bool(torch.isfinite(a1).all()), f"{mode}/{nr} full width is off: {detail}")
+        for k in ("lms_nr", "sam_exact"):
+            launches[k] += launched[k]
         x = iq[:, :n]
-        path_ms[f"full sharded chain usb/{nr} ({c} ch x {n}, channel=2 x time=4)"] = time_ms(
+        path_ms[f"full sharded chain {mode}/{nr} ({c} ch x {n}, channel=2 x time=4)"] = time_ms(
             lambda: chain(x, incs, st0, *args2), 2)
         del a1, want, spec_in, iq, x
     # 7d. ShardedFusedBank of FusedSSBBank, 1,024 ch x 2^17 on channel=8, two segments
@@ -1470,14 +1514,16 @@ def scope_and_host_paths(dev, reset_counts, counts, only, blocks: int = CLI_BLOC
 
 def app_paths(dev, reset_counts, counts, only, launches, n_cap: int = APP_CAPTURE,
               n_lms: int = APP_LMS_CAPTURE, n_scan: int = APP_SCAN,
-              tui_frames: int = APP_TUI_FRAMES, sam_block: int = CLI_BLOCK) -> None:
+              tui_frames: int = APP_TUI_FRAMES, sam_block: int = CLI_BLOCK,
+              n_sam: int = APP_SAM_CAPTURE) -> None:
     """9. The app on ``dev`` (the card): the CLI's subcommands through
     ``cli.main`` as a user calls it (no device: the card), each held to
     ``main(argv, device="cpu")`` on the same files; the StreamingReceiver fed
     by a producer thread; the Appliance driven by scripted events, card and
-    CPU in step; ``info``; the Receiver's SAM timed. K3's launches on the
-    app's paths add to ``launches``. ``dev`` may be the CPU and the sizes
-    smaller, to rehearse the phase without a card."""
+    CPU in step; ``info``; the Receiver's SAM timed, its real-time factor
+    above 1 on the card. K3's and sam_exact's launches on the app's paths add
+    to ``launches``. ``dev`` may be the CPU and the sizes smaller, to rehearse
+    the phase without a card."""
     import io as io_mod
     import wave
 
@@ -1514,7 +1560,9 @@ def app_paths(dev, reset_counts, counts, only, launches, n_cap: int = APP_CAPTUR
         sync()
         got = counts()
         check(got == only(**want), f"{what}: launches {got}, expected {want or 'none'}")
-        launches["lms_nr"] += got.get("lms_nr", 0)
+        for k in ("lms_nr", "sam_exact"):
+            if got.get(k):
+                launches[k] += got[k]
         return out
 
     def wav_counts(path):
@@ -1570,18 +1618,34 @@ def app_paths(dev, reset_counts, counts, only, launches, n_cap: int = APP_CAPTUR
         io_utils.write_wav(lms_wav, np.stack([iq.real[:n_lms], iq.imag[:n_lms]], 1), FS)
         rx_args = ["--mode", "usb", "--vfo", f"{truth['station_freq']:.0f}", "--center",
                    f"{truth['center']:.0f}", "--agc", "medium"]
+
+        def with_carrier(n):
+            """The scene's first n samples with a carrier 17 Hz above the tuned
+            frequency, on which SAM's PLL locks (it is chaotic on a
+            suppressed-carrier voice)."""
+            t_c = np.arange(n) / FS
+            return (iq[:n] + 0.15 * np.exp(2j * np.pi * (truth["station_freq"] + 17.0
+                                                         - truth["center"]) * t_c)
+                    ).astype(np.complex64)
+
+        sam_wav = f"{tmp}/qrm_sam.wav"
+        iq_sam = with_carrier(n_sam)
+        io_utils.write_wav(sam_wav, np.stack([iq_sam.real, iq_sam.imag], 1), FS)
         say(f"phase 9 capture: {n_cap} samples of the QRM scene ({n_cap / FS:.1f} s at "
             f"{FS:g} Hz) as a stereo WAV and raw cs16, and its first {n_lms} as a WAV, in "
             f"{time.perf_counter() - t:.1f} s")
 
-        # demod: USB, then DNR2 and NOTCH (K3, one launch: one segment)
+        # demod: USB, then DNR2 and NOTCH (K3, one launch: one segment), and SAM
+        # on the scene with a carrier (sam_exact, one launch)
         demod_wav = {}
         for label, path, extra, want in (("USB", wav, [], {}), ("USB raw cs16", raw, ["--raw"], {}),
                                          ("USB + DNR2", lms_wav, ["--nr", "dnr2"],
                                           {"lms_nr": 1}),
                                          ("USB + NOTCH", lms_wav, ["--nr", "notch"],
-                                          {"lms_nr": 1})):
-            n = n_lms if path == lms_wav else n_cap
+                                          {"lms_nr": 1}),
+                                         ("SAM (a carrier)", sam_wav, ["--mode", "sam"],
+                                          {"sam_exact": 1})):
+            n = {lms_wav: n_lms, sam_wav: n_sam}.get(path, n_cap)
             argv = ["demod", path] + rx_args + extra
             out_d, out_h = f"{tmp}/demod_card.wav", f"{tmp}/demod_cpu.wav"
             text, secs = counted(f"demod {label}", lambda: run(argv + ["--out", out_d], user),
@@ -1758,13 +1822,9 @@ def app_paths(dev, reset_counts, counts, only, launches, n_cap: int = APP_CAPTUR
             + [[("a",)], []]                                          # the panadapter
             + [to_l4 + [("pbt", "lo"), ("encoder", +2)], [("pbt", "hi"), ("encoder", -4)], []]
             + [[("menu",), ("encoder", -3), ("menu",), ("encoder", +2)], []])
-        # the scene with a carrier 17 Hz above the tuned frequency, on which SAM's
-        # PLL locks (it is chaotic on a suppressed-carrier voice)
+        # the scene with a carrier (SAM's PLL locks on it)
         n_app = len(script) * APPLIANCE_BLOCK
-        t_app = np.arange(n_app) / FS
-        iq_app = (iq[:n_app] + 0.15 * np.exp(2j * np.pi * (truth["station_freq"] + 17.0
-                                                            - truth["center"]) * t_app)
-                  ).astype(np.complex64)
+        iq_app = with_carrier(n_app)
         blocks = [iq_app[k * APPLIANCE_BLOCK:(k + 1) * APPLIANCE_BLOCK]
                   for k in range(len(script))]
         app_d = Appliance(cfg, block=APPLIANCE_BLOCK, device=user)
@@ -1803,7 +1863,7 @@ def app_paths(dev, reset_counts, counts, only, launches, n_cap: int = APP_CAPTUR
 
         t = time.perf_counter()
         counted("the Appliance's scripted session", drive,
-                **({"lms_nr": 5} if on_card else {}))
+                **({"lms_nr": 5, "sam_exact": 2} if on_card else {}))
         session_s = time.perf_counter() - t
         check(lms_blocks == 5 and sam_blocks == 2, f"the script ran {lms_blocks} LMS and "
               f"{sam_blocks} SAM blocks: {modes}")
@@ -1851,7 +1911,7 @@ def app_paths(dev, reset_counts, counts, only, launches, n_cap: int = APP_CAPTUR
               and all(nm in text for nm in names), f"info: {text!r}")
         say("check info: " + text.strip().replace("\n", "; "))
 
-        # the Receiver's SAM: a per-sample PLL loop of small launches on the card
+        # the Receiver's SAM: sam_exact, one launch a block, on the card
         rx_s = Receiver(cfg.with_(mode=DemodMode.SAM), device=user)
         st = rx_s.init_state()
         sam_s = []
@@ -1865,10 +1925,14 @@ def app_paths(dev, reset_counts, counts, only, launches, n_cap: int = APP_CAPTUR
                 sam_s.append(time.perf_counter() - t)
                 check(bool(torch.isfinite(o["audio_l"]).all()), "SAM audio is not finite")
 
-        counted("the Receiver's SAM", sam_blocks_run)
-        say(f"timing Receiver SAM (ops/planar.demod_sam_planar, a Python loop over samples): "
-            + ", ".join(f"{v * 1e3:.1f}" for v in sam_s) + f" ms per {sam_block}-sample block "
-            f"(real-time factor " + ", ".join(f"{rtf(sam_block, v):.3f}" for v in sam_s) + ")")
+        counted("the Receiver's SAM", sam_blocks_run,
+                **({"sam_exact": APP_SAM_BLOCKS} if on_card else {}))
+        say(f"timing Receiver SAM (ops/planar.demod_sam_planar, sam_exact on the card), "
+            f"{APP_SAM_BLOCKS} threaded blocks: " + ", ".join(f"{v * 1e3:.3f}" for v in sam_s)
+            + f" ms per {sam_block}-sample block (real-time factor "
+            + ", ".join(f"{rtf(sam_block, v):.1f}" for v in sam_s) + ")")
+        check(not on_card or min(rtf(sam_block, v) for v in sam_s) > 1.0,
+              "the Receiver's SAM falls behind real time on the card")
     finally:
         tmp_dir.cleanup()
     say(f"phase 9 (the app) took {time.perf_counter() - t_phase:.1f} s")
@@ -1919,6 +1983,7 @@ def main() -> None:
         lms_bank.LAUNCHES = 0
         sweep_spec.LAUNCHES = 0
         sam.LAUNCHES = sweep.LAUNCHES_SAM = sweep.LAUNCHES_SAM_NB = 0
+        planar.LAUNCHES = 0
         sam_wide.LAUNCHES = sam_wide.LAUNCHES_NB = 0
         lanes.LAUNCHES.update(dict.fromkeys(lanes.LAUNCHES, 0))
         sweep.LAUNCHES_SWEEP_MIX = 0
@@ -1930,6 +1995,7 @@ def main() -> None:
                 "sweep_chain_am": sweep.LAUNCHES_AM, "sweep_chain_am_nb": sweep.LAUNCHES_AM_NB,
                 "lms_nr": lms_bank.LAUNCHES, "sweep_chain_ssb_mono": sweep.LAUNCHES_MONO,
                 "sweep_spec_chain": sweep_spec.LAUNCHES, "sam_pll": sam.LAUNCHES,
+                "sam_exact": planar.LAUNCHES,
                 "sweep_chain_sam": sweep.LAUNCHES_SAM, "sweep_chain_sam_nb": sweep.LAUNCHES_SAM_NB,
                 "sam_wide": sam_wide.LAUNCHES, "sam_wide_nb": sam_wide.LAUNCHES_NB,
                 **lanes.LAUNCHES, "sweep_mix_demod": sweep.LAUNCHES_SWEEP_MIX,
@@ -2633,6 +2699,48 @@ def main() -> None:
     sam_ends["config6 fold=False"] = (bank6s, xr6, xi6, s6s_end)
     del pll_calls, zr, zi, got, ref, out_1
 
+    # sam_exact, the exact PLL under planar.demod_sam_planar (ReceiverBank(SAM),
+    # the Receiver, the sharded chains), against its plain loop on the card,
+    # bit for bit, every carry: one channel over a whole CLI block of a locked
+    # carrier, and config6's recorded segment-1 input (band-passed, 128 ch) on
+    # its first SAM_PREFIX samples as two threaded segments; the plain loop timed
+    exact_plain_ms = {}
+    xr_cli, xi_cli, _ = locked_scene(1, CLI_BLOCK, gen, [0.0])
+    st_cli = planar.SAMStatePlanar(torch.full((1,), 2.0, device="cuda"),
+                                   torch.zeros(1, device="cuda"), torch.zeros((1, 2), device="cuda"))
+
+    def exact_vs_plain(xr, xi, st_k, st_p, bw=100.0, fs=FS):
+        """(kernel's state, plain's state, bit for bit, max diff with the phase
+        wrap-aware, the plain loop's ms) of one demod_sam_planar call each."""
+        (a_p, s_p), ms = timed(lambda: planar.demod_sam_planar_plain(xr, xi, st_p, bw, fs))
+        a_k, s_k = planar.demod_sam_planar(xr, xi, st_k, bw, fs)
+        torch.cuda.synchronize()
+        same = torch.equal(a_k, a_p) and all(torch.equal(u, v) for u, v in zip(s_k, s_p))
+        d = max(max_diff((a_k, s_k.freq, s_k.dc), (a_p, s_p.freq, s_p.dc)),
+                phase_diff(s_k.phase, s_p.phase))
+        return s_k, s_p, same, d, ms
+
+    before = planar.LAUNCHES
+    _, _, same_cli, d_cli, exact_plain_ms["cli"] = exact_vs_plain(xr_cli, xi_cli, st_cli, st_cli)
+    zr6, zi6, ph6, fr6, bw6, fs6, _ = pll_args
+    st_k = st_p = planar.SAMStatePlanar(ph6, fr6, torch.zeros((c6, 2), device="cuda"))
+    same_pre, d_pre, exact_plain_ms["prefix"] = True, 0.0, 0.0
+    for h in range(2):
+        xs = (zr6[:, h * half:(h + 1) * half].contiguous(), zi6[:, h * half:(h + 1) * half].contiguous())
+        st_k, st_p, same_h, d_h, ms = exact_vs_plain(*xs, st_k, st_p, bw6, fs6)
+        same_pre, d_pre = same_pre and same_h, max(d_pre, d_h)
+        exact_plain_ms["prefix"] += ms
+    say(f"check sam_exact vs the plain loop (planar.demod_sam_planar_plain) on the card: 1 ch x "
+        f"{CLI_BLOCK} (a CLI block, a locked carrier), the plain loop in "
+        f"{exact_plain_ms['cli'] / 1e3:.2f} s: bit for bit {same_cli} (max diff {d_cli:.3e}); "
+        f"config6's band-passed input, {c6} ch x {SAM_PREFIX} as 2 threaded segments: bit for "
+        f"bit {same_pre} (max diff over audio, freq, dc and the phase wrap-aware {d_pre:.3e}); "
+        f"launches {planar.LAUNCHES - before} for 3 calls")
+    check(same_cli and same_pre and planar.LAUNCHES - before == 3,
+          f"sam_exact departs from its plain loop: {d_cli:.3e}, {d_pre:.3e}")
+    err["sam_exact"] = max(d_cli, d_pre)
+    del xs, st_k, st_p
+
     def sam_kernel_checks(kname, bank, xr, xi, state0, label, seg_len):
         """Drive the folded route (launch counts: 1 of kname per segment and no
         other), then hold its kernel to the plain chain on the prefix: two
@@ -2795,15 +2903,17 @@ def main() -> None:
           f"> {TOL_PARITY:g}")
     del o_w, o_n, s_w, s_n, bank10k6
 
-    # each SAM route against ReceiverBank(SAM), the exact PLL (plain PyTorch,
-    # one step per sample), on the prefix as two threaded segments
+    # each SAM route against ReceiverBank(SAM), the exact PLL (sam_exact, one
+    # launch a segment, the other stages plain PyTorch), over two whole
+    # threaded segments; ReceiverBank timed at config6 and config10
+    rb_sam_ms = {}
     for label, key in (("FusedSAMBank(fold=False) config6", "config6 fold=False"),
                        ("FusedSAMBank config6 (K6)", "sweep_chain_sam"),
                        ("FusedSAMBank config6 + blanker (K6)", "sweep_chain_sam_nb"),
                        ("FusedSAMBank config10 (K7)", "sam_wide"),
                        ("FusedSAMBank config10 + blanker (K7)", "sam_wide_nb")):
         b, x_r, x_i, _ = sam_ends[key]
-        c = x_r.shape[0]
+        c, n = x_r.shape
         rb = ReceiverBank(b.config, freqs10[:c])
         st_f, st_r = b.init_state(), rb.init_state()
         if b.config.noise_blanker:
@@ -2811,20 +2921,28 @@ def main() -> None:
             st_f = st_f._replace(nb_avg=torch.full((c,), warm, device="cuda"))
             st_r = st_r._replace(nb_avg=torch.full((c,), warm, device="cuda"))
         worst = worst_ph = 0.0
-        for h in range(2):
-            xs = (x_r[:, h * half:(h + 1) * half].contiguous(),
-                  x_i[:, h * half:(h + 1) * half].contiguous())
-            out_f, st_f = b.process_planar(*xs, st_f)
-            out_r, st_r = rb.process_planar(*xs, st_r)
+        for _ in range(2):
+            out_f, st_f = b.process_planar(x_r, x_i, st_f)
+            torch.cuda.synchronize()
+            reset_counts()
+            out_r, st_r = rb.process_planar(x_r, x_i, st_r)
+            torch.cuda.synchronize()
+            launched = counts()
+            check(launched == only(sam_exact=1), f"ReceiverBank(SAM) {key}: launches {launched}, "
+                  "expected one sam_exact and no other")
+            launches["sam_exact"] += 1
             worst = max(worst, max_diff((out_f["audio_l"], out_f["audio_r"]),
                                         (out_r["audio_l"], out_r["audio_r"])))
             worst_ph = max(worst_ph, phase_diff(st_f.sam_phase[:c], st_r.sam.phase))
-        say(f"parity {label} vs ReceiverBank(SAM), {c} ch x {SAM_PREFIX} as 2 threaded "
-            f"segments: max abs diff over L, R = {worst:.3e}, PLL phase {worst_ph:.3e} "
-            f"(bound {TOL_PARITY:g})")
+        say(f"parity {label} vs ReceiverBank(SAM) (sam_exact, one launch a segment), {c} ch x 2 "
+            f"x {n} (whole threaded segments): max abs diff over L, R = {worst:.3e}, PLL phase "
+            f"{worst_ph:.3e} (bound {TOL_PARITY:g})")
         check(max(worst, worst_ph) <= TOL_PARITY, f"{label}: {max(worst, worst_ph):.3e} > "
               f"{TOL_PARITY:g}")
-    del out_f, out_r
+        if key in ("sweep_chain_sam", "sam_wide"):
+            rb_sam_ms[f"ReceiverBank(SAM) {'config6' if c == N_SAM else 'config10'} ({c} ch x "
+                      f"{n})"] = time_ms(lambda: rb.process_planar(x_r, x_i, st_r), 3)
+    del out_f, out_r, rb, st_f, st_r
 
     # 4i. the folded NR banks on the lanes kernel's NR instantiations (K6):
     # bench_full.py config3 (CW_NARROW + notch), config7 (USB + DNR2) and
@@ -3350,7 +3468,7 @@ def main() -> None:
     ops_am = prod_am + AM_FLOPS_PER_SAMPLE * samples_am
     bytes_am = (4 * samples_am * 4 + 4 * (512 * 256 + 256 * 256)
                 + N_AM * (2 * 8 + 4 * 128 * 4 + 2 * 4 + 2 * 2 * 4))
-    path_ms = {}
+    path_ms = dict(rb_sam_ms)
     am_forms = {}   # kernel -> {(channels, form): [ms, ...]}, the forms timed in turns
     for kname in ("sweep_chain_am", "sweep_chain_am_nb"):
         b, x_r, x_i, st = ends[kname]
@@ -3454,6 +3572,19 @@ def main() -> None:
         plain_ms=sam_plain_prefix_ms["sam_pll"] * (SEG_LEN / SAM_PREFIX),
         plain_from=SAM_PREFIX, bound_ms=b_ms, bound_by=b_by, simt_bound_ms=s_ms, library_ms=None,
         flops=PLL_FLOPS_PER_SAMPLE * samples6, samples=samples6, steps=SEG_LEN)
+    # sam_exact at ReceiverBank(SAM) config6's shape, on the same recorded input,
+    # and at the Receiver's, a CLI block; plain_ms scales the plain loop's time
+    # on the prefix to the segment, cli_plain_ms is the whole block's
+    b_ms, b_by, s_ms = bound(EXACT_FLOPS_PER_SAMPLE * samples6, 12 * samples6 + c6 * 4 * 4)
+    timing["sam_exact"] = dict(
+        ms=time_ms(lambda: planar.sam_exact(zr6, zi6, ph6, fr6, bw6, fs6), 3),
+        plain_ms=exact_plain_ms["prefix"] * (SEG_LEN / SAM_PREFIX), plain_from=SAM_PREFIX,
+        bound_ms=b_ms, bound_by=b_by, simt_bound_ms=s_ms, library_ms=None,
+        flops=EXACT_FLOPS_PER_SAMPLE * samples6, samples=samples6, steps=SEG_LEN,
+        cli_ms=time_ms(lambda: planar.sam_exact(xr_cli, xi_cli, st_cli.phase, st_cli.freq,
+                                                100.0, FS), REPS),
+        cli_plain_ms=exact_plain_ms["cli"])
+    del zr6, zi6, xr_cli, xi_cli
     sam_stage_ms = {"front end (mix, band-pass)": time_ms(lambda: b6s.pll_args(x_r, x_i, st),
                                                           REPS)}
     vr = sam.sam_pll_run(*pll_args)[0]
@@ -3655,6 +3786,18 @@ def main() -> None:
         + "; ptxas: " + "; ".join(
             f"{k} {ptxas.get(k + (' (G=8)' if k.startswith('sam_wide') else ''), 'not in the build log')}"
             for k in pll_kernels))
+    tm = timing["sam_exact"]
+    exact_cycles = sum(n_ins * lat[kind] for kind, n_ins in EXACT_PATH.items())
+    tm["chain_bound_ms"] = SEG_LEN * exact_cycles / (sm_max * 1e3)
+    tm["cli_chain_bound_ms"] = CLI_BLOCK * exact_cycles / (sm_max * 1e3)
+    say(f"exact PLL step (csrc/sam.cu sam_exact, libm's cosf, sinf, atan2f, fmodf): the step's "
+        f"dependent path {EXACT_PATH} = {exact_cycles:.1f} cycles (branches and convergence "
+        f"barriers not priced), the chain bound n x {exact_cycles:.1f} / {sm_max:.0f} MHz: "
+        f"{tm['chain_bound_ms']:.3f} ms at {c6} x {SEG_LEN}, {tm['cli_chain_bound_ms']:.3f} ms at "
+        f"1 x {CLI_BLOCK}; measured {tm['ms']:.3f} ms ({tm['ms'] * 1e-3 / SEG_LEN * sm_max * 1e6:.1f}"
+        f" cycles a step) and {tm['cli_ms']:.3f} ms "
+        f"({tm['cli_ms'] * 1e-3 / CLI_BLOCK * sm_max * 1e6:.1f}); the plain loop on the card "
+        f"{tm['cli_plain_ms']:.1f} ms a CLI block; ptxas {ptxas.get('sam_exact', 'not in the build log')}")
     block_s = CLI_BLOCK / FS
     say(f"timing Receiver (1 channel, {CLI_BLOCKS} threaded CLI blocks of {CLI_BLOCK} samples, "
         f"automatic I2S repair on): "
@@ -3695,6 +3838,7 @@ def main() -> None:
                "sweep_chain_ssb_mono": ("sweep_chain.cu", "ops/pallas_sweep.py:261"),
                "sweep_spec_chain": ("sweep_spec.cu", "ops/pallas_sweep_spec.py:46"),
                "sam_pll": ("sam.cu", "ops/pallas_sam.py:226"),
+               "sam_exact": ("sam.cu", "ops/planar.py:154"),   # the XLA scan, no pallas_call
                "sweep_chain_sam": ("sweep_chain.cu", "ops/pallas_chain_lanes.py:98"),
                "sweep_chain_sam_nb": ("sweep_chain.cu", "ops/pallas_chain_lanes.py:98"),
                "sam_wide": ("sam_wide.cu", "ops/pallas_sam_wide.py:49"),
@@ -3717,7 +3861,10 @@ def main() -> None:
         **({"tf32_pass_tflops": timing[kname]["tf32_pass_tflops"]}
            if "tf32_pass_tflops" in timing[kname] else {}),
         **({k: timing[kname][k] for k in ("nccl_ms", "nccl_plain_ms", "nccl_ranks")}
-           if kname == "ring_shift_group" else {})}
+           if kname == "ring_shift_group" else {}),
+        **({k: timing[kname][k] for k in ("cli_ms", "cli_plain_ms", "chain_bound_ms",
+                                          "cli_chain_bound_ms")}
+           if kname == "sam_exact" else {})}
         for kname, (src, tpu) in sources.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)

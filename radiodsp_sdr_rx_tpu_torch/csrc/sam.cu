@@ -1,4 +1,6 @@
-// sam.cu: the SAM carrier PLL over a segment, K5 of the staged FusedSAMBank.
+// sam.cu: the SAM carrier PLL over a segment: K5 of the staged FusedSAMBank,
+// and sam_exact, the exact PLL of demod_sam_planar (the reference chain, the
+// Receiver, the sharded chains).
 //
 // Replaces _sam_kernel (radiodsp_sdr_rx_tpu/ops/pallas_sam.py:226; wrapper
 // sam_pll_run_pallas :258). Per channel and sample, sam_pll.cuh's step: the
@@ -31,6 +33,22 @@
 // H100.) Rows are padded to 129 floats, so the 32 threads reading one column
 // hit 32 banks. Channels past the end compute on zeros and store nothing.
 //
+// sam_exact is the same launch walking another step: demod_sam_planar's
+// exact recurrence (radiodsp_sdr_rx_tpu/ops/planar.py:154-186, a jax.lax.scan
+// there and no Pallas kernel), cos and sin of the carried phase, vr = zr*cr +
+// zi*ci, err = atan2(zi*cr - zr*ci, vr), freq = clamp(freq + ki*err,
+// +-max_freq), phase = remainder(phase + freq + kp*err, 2*pi); no folded
+// step and no re-seed. Its operations are those of the plain loop
+// (ops/planar.demod_sam_planar_plain) as PyTorch runs them on the card, one
+// elementwise kernel an operation: the IEEE libm cosf, sinf and atan2f (this
+// build has no --use_fast_math), each product and sum rounded on its own
+// (__fmul_rn, __fadd_rn: no contraction into an FMA), the clamp with the NaN
+// passed through, the remainder as fmodf and then + 2*pi where its sign
+// differs from the divisor's. So it gives the loop's bits. Its chain a step
+// is the whole libm path, from the phase through sincos, the atan2 with its
+// divide, the loop update and fmodf, several times K5's; one lane walks one
+// channel, so a segment costs n such steps whatever the channel count.
+//
 // sam_probe applies the device divide and atan2 to arrays, for the tests.
 
 #include <cuda_runtime.h>
@@ -45,6 +63,38 @@ constexpr int kLdT = kTile + 1;  // padded row stride
 constexpr int kTileFloats = kCh * kLdT;
 constexpr int kBlockThreads = 32 + kTile;   // the PLL warp, then the copy warps
 
+// demod_sam_planar's step on the carried phase and freq (the other fields
+// of Pll unused): returns vr, the in-phase product before the DC blocker
+__device__ __forceinline__ float exact_step(Pll& pll, float zr, float zi, const PllGains& g) {
+  const float cr = cosf(pll.phase), ci = sinf(pll.phase);
+  const float vr = __fadd_rn(__fmul_rn(zr, cr), __fmul_rn(zi, ci));
+  const float vi = __fsub_rn(__fmul_rn(zi, cr), __fmul_rn(zr, ci));
+  const float err = atan2f(vi, vr);
+  float f = __fadd_rn(pll.freq, __fmul_rn(g.ki, err));
+  if (!isnan(f)) f = fminf(fmaxf(f, -g.max_freq), g.max_freq);   // torch.clamp
+  float m = fmodf(__fadd_rn(__fadd_rn(pll.phase, f), __fmul_rn(g.kp, err)), kTwoPi);
+  if (m < 0.f) m = __fadd_rn(m, kTwoPi);   // torch.remainder: the divisor is > 0
+  pll.phase = m;
+  pll.freq = f;
+  return vr;
+}
+
+// the exact step over `len` samples of a row, each loaded a step ahead;
+// zr[len] and zi[len] must be readable (the row's padding)
+__device__ __forceinline__ void exact_row(Pll& pll, const PllGains& g, int len, const float* zr,
+                                          const float* zi, float* vr) {
+  float r = zr[0], i = zi[0];
+  for (int k = 0; k < len; ++k) {
+    const float r_next = zr[k + 1], i_next = zi[k + 1];
+    vr[k] = exact_step(pll, r, i, g);
+    r = r_next;
+    i = i_next;
+  }
+}
+
+// kExact = false: K5 (sam_pll.cuh's step, re-seeded every `period`);
+// true: sam_exact (exact_step; `period` unused)
+template <bool kExact>
 __global__ void __launch_bounds__(kBlockThreads) sam_pll_kernel(
     const float* __restrict__ zr, const float* __restrict__ zi,
     const float* __restrict__ phase0, const float* __restrict__ freq0,
@@ -98,7 +148,10 @@ __global__ void __launch_bounds__(kBlockThreads) sam_pll_kernel(
       const float* a = zin + (t & 1) * 2 * kTileFloats + lane * kLdT;
       const float* b = a + kTileFloats;
       float* v = vbuf + (t & 1) * kTileFloats + lane * kLdT;
-      walk_row(pll, gains, reseed, next, t * kTile, min(kTile, n - t * kTile), a, b, v);
+      if constexpr (kExact)
+        exact_row(pll, gains, min(kTile, n - t * kTile), a, b, v);
+      else
+        walk_row(pll, gains, reseed, next, t * kTile, min(kTile, n - t * kTile), a, b, v);
     } else {
       if (t + 1 < tiles) load(t + 1);
       if (t > 0) store(t - 1);
@@ -114,6 +167,27 @@ __global__ void __launch_bounds__(kBlockThreads) sam_pll_kernel(
 
 }  // namespace
 
+namespace {
+
+template <bool kExact>
+int launch_pll(const float* zr, const float* zi, const float* phase0, const float* freq0,
+               float* vr_out, float* phase_out, float* freq_out, int channels, int n,
+               int period, float kp, float ki, float max_freq, int device, void* stream) {
+  const int smem = 6 * kTileFloats * (int)sizeof(float);
+  cudaError_t err = cudaSetDevice(device);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(sam_pll_kernel<kExact>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  sam_pll_kernel<kExact><<<(channels + kCh - 1) / kCh, kBlockThreads, smem,
+                           (cudaStream_t)stream>>>(zr, zi, phase0, freq0, vr_out, phase_out,
+                                                   freq_out, channels, n, period, kp, ki,
+                                                   max_freq);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
 // K5 on `stream` of CUDA device `device`: zr, zi, vr_out (C, n); phase0,
 // freq0, phase_out, freq_out (C,); the oscillator re-seeds every `period`
 // samples. Returns the cudaError_t of the launch (0 on success).
@@ -121,16 +195,18 @@ extern "C" int sam_pll(const float* zr, const float* zi, const float* phase0,
                        const float* freq0, float* vr_out, float* phase_out,
                        float* freq_out, int channels, int n, int period, float kp,
                        float ki, float max_freq, int device, void* stream) {
-  const int smem = 6 * kTileFloats * (int)sizeof(float);
-  cudaError_t err = cudaSetDevice(device);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(sam_pll_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
-  if (err != cudaSuccess) return (int)err;
-  sam_pll_kernel<<<(channels + kCh - 1) / kCh, kBlockThreads, smem, (cudaStream_t)stream>>>(
-      zr, zi, phase0, freq0, vr_out, phase_out, freq_out, channels, n, period, kp, ki,
-      max_freq);
-  return (int)cudaGetLastError();
+  return launch_pll<false>(zr, zi, phase0, freq0, vr_out, phase_out, freq_out, channels, n,
+                           period, kp, ki, max_freq, device, stream);
+}
+
+// sam_exact on `stream` of CUDA device `device`, the same arguments but the
+// period: any n >= 1. Returns the cudaError_t of the launch.
+extern "C" int sam_exact(const float* zr, const float* zi, const float* phase0,
+                         const float* freq0, float* vr_out, float* phase_out,
+                         float* freq_out, int channels, int n, float kp, float ki,
+                         float max_freq, int device, void* stream) {
+  return launch_pll<true>(zr, zi, phase0, freq0, vr_out, phase_out, freq_out, channels, n, n,
+                          kp, ki, max_freq, device, stream);
 }
 
 namespace {

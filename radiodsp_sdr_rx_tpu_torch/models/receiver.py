@@ -6,13 +6,13 @@ fields keep the JAX names.
 
 ``rx_chain_batched`` (:310-460) is the reference chain on (C, n) planes,
 plain PyTorch as the JAX chain is XLA, except the adaptive LMS stages, which
-run the K3 kernel on the card (``ops/lms_bank.py``). It covers every
-configuration the JAX chain takes: the SSB modes, AM and SAM (the exact PLL
-of ``planar.demod_sam_planar``, no kernel, as in JAX), NR off / notch / lms
-(DNR1-4) / spectral (SPEC1-4), the noise blanker, the conv-first variants
-(the audio band-pass, or the inline spectral denoise, on the mixed IQ before
-the demod, and no PBT), ``quantize_output``, ``mute`` and any
-``fft_length``. ``ReceiverBank`` runs it for many channels.
+run the K3 kernel on the card (``ops/lms_bank.py``), and SAM's exact PLL
+(``planar.demod_sam_planar``), which runs its kernel ``sam_exact`` there. It
+covers every configuration the JAX chain takes: the SSB modes, AM and SAM,
+NR off / notch / lms (DNR1-4) / spectral (SPEC1-4), the noise blanker, the
+conv-first variants (the audio band-pass, or the inline spectral denoise, on
+the mixed IQ before the demod, and no PBT), ``quantize_output``, ``mute``
+and any ``fft_length``. ``ReceiverBank`` runs it for many channels.
 
 ``rx_chain`` (:141-307) is the per-channel chain of the JAX package, (n,)
 planes and a state without the channel axis; it runs ``rx_chain_batched`` on

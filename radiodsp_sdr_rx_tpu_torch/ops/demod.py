@@ -5,8 +5,9 @@ as the JAX ones do: SSB is the real part of the sideband-filtered baseband
 (x2, the phasing method), AM the envelope through the DC blocker, SAM the
 carrier PLL's in-phase product through the DC blocker. The PLL is
 ``ops/planar.demod_sam_planar`` on the stream's two planes, the same
-per-sample recurrence as the JAX scan. Plain PyTorch, as the JAX functions
-are XLA.
+per-sample recurrence as the JAX scan: on the card its kernel
+``sam_exact``, on the CPU its plain loop. The rest is plain PyTorch, as the
+JAX functions are XLA.
 """
 
 from __future__ import annotations
@@ -43,10 +44,17 @@ def demod_sam(z: torch.Tensor, state: SAMState, bw_hz: float = 100.0,
               sample_rate: float = 44117.64706):
     """Synchronous AM of z (..., n) complex64: the second-order carrier PLL
     (natural frequency ``bw_hz``, damping 0.707), its in-phase product
-    through the DC blocker. Returns (audio, state')."""
-    audio, st = planar.demod_sam_planar(z.real.contiguous(), z.imag.contiguous(),
-                                        planar.SAMStatePlanar(*state), bw_hz, sample_rate)
-    return audio, SAMState(*st)
+    through the DC blocker. The carries have z's leading shape, () for one
+    (n,) stream; ``planar.demod_sam_planar`` runs them as (C,) rows. Returns
+    (audio, state')."""
+    lead, n = z.shape[:-1], z.shape[-1]
+    rows = planar.SAMStatePlanar(state.phase.reshape(-1), state.freq.reshape(-1),
+                                 state.dc.reshape(-1, 2))
+    audio, st = planar.demod_sam_planar(z.real.reshape(-1, n).contiguous(),
+                                        z.imag.reshape(-1, n).contiguous(), rows, bw_hz,
+                                        sample_rate)
+    return audio.reshape(z.shape), SAMState(st.phase.reshape(lead), st.freq.reshape(lead),
+                                            st.dc.reshape(*lead, 2))
 
 
 def hilbert_bandpass_mask(n: int) -> torch.Tensor:

@@ -11,12 +11,18 @@ mix is ``ops/chain_common.py``'s, the one the fused kernels' plain versions
 use. The filters frame by their operator's shape, so any ``fft_length``
 (block = fft_length / 2 samples; n a multiple of it) runs, as in JAX.
 ``demod_sam_planar`` is the exact SAM PLL (cos, sin, atan2 and the
-phase wrapped by ``torch.remainder``, as ``jnp.mod``), one vectorised step per
-sample over the channels, then the DC blocker.
+phase wrapped by ``torch.remainder``, as ``jnp.mod``), then the DC blocker,
+the JAX package's ``lax.scan`` (:154-186). Its PLL, ``sam_exact``, launches ``csrc/sam.cu``'s
+kernel of that name for CUDA tensors, which walks the recurrence with the
+plain loop's operations and gives its bits, or raises; CPU tensors run
+``sam_exact_plain``, one vectorised step per sample over the channels
+(host-bound on the card: about ten launches a sample). ``LAUNCHES`` counts
+``sam_exact``'s launches.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import NamedTuple
 
@@ -24,7 +30,8 @@ import numpy as np
 import torch
 
 from radiodsp_sdr_rx_tpu_torch.ops import nco, sam
-from radiodsp_sdr_rx_tpu_torch.ops.chain_common import matmul_fp32, mix
+from radiodsp_sdr_rx_tpu_torch.ops.chain_common import (
+    check_launch, check_tensors, matmul_fp32, mix)
 from radiodsp_sdr_rx_tpu_torch.ops.fastconv import frame_overlap_save
 from radiodsp_sdr_rx_tpu_torch.ops.iir import dc_blocker, first_order_iir
 from radiodsp_sdr_rx_tpu_torch.ops.spectral_sub import (
@@ -36,6 +43,9 @@ from radiodsp_sdr_rx_tpu_torch.ops.spectral_sub import (
     VAD_START_BIN,
     floor_track,
 )
+from radiodsp_sdr_rx_tpu_torch.utils import build
+
+LAUNCHES = 0   # sam_exact
 
 
 def nco_mix_planar(xr, xi, phase0, phase_inc):
@@ -109,14 +119,22 @@ def sam_init_planar(channels: int = 1, device="cpu") -> SAMStatePlanar:
                           dc=torch.zeros(channels, 2, device=device))
 
 
-def demod_sam_planar(zr, zi, state: SAMStatePlanar, bw_hz: float = 100.0,
-                     sample_rate: float = 44117.64706):
-    """Synchronous AM of (C, n) band-passed IQ: the second-order carrier PLL
-    (``ops/planar.py:154-184`` of the JAX package), its in-phase product
-    through the DC blocker. Returns (audio, state')."""
+def _check_sam(zr, zi, phase, freq, dc=None) -> None:
+    if zr.dim() != 2 or zr.shape[1] == 0:
+        raise ValueError(f"zr must be (C, n) with n > 0, got {tuple(zr.shape)}")
+    c, n = zr.shape
+    check_tensors({"zr": (zr, (c, n), torch.float32), "zi": (zi, (c, n), torch.float32),
+                   "phase": (phase, (c,), torch.float32), "freq": (freq, (c,), torch.float32),
+                   **({} if dc is None else {"dc": (dc, (c, 2), torch.float32)})}, zr.device)
+
+
+def sam_exact_plain(zr, zi, phase, freq, bw_hz: float = 100.0,
+                    sample_rate: float = 44117.64706):
+    """Plain PyTorch version of ``sam_exact``: one vectorised step per sample,
+    the operations the kernel repeats."""
+    _check_sam(zr, zi, phase, freq)
     kp, ki, max_freq = sam.pll_gains(bw_hz, sample_rate)
     two_pi = 2.0 * np.pi
-    phase, freq = state.phase, state.freq
     vr = torch.empty_like(zr)
     for t in range(zr.shape[-1]):
         cr, ci = torch.cos(phase), torch.sin(phase)
@@ -124,8 +142,71 @@ def demod_sam_planar(zr, zi, state: SAMStatePlanar, bw_hz: float = 100.0,
         err = torch.atan2(zi[..., t] * cr - zr[..., t] * ci, vr[..., t])
         freq = (freq + ki * err).clamp(-max_freq, max_freq)
         phase = torch.remainder(phase + freq + kp * err, two_pi)
+    return vr, phase, freq
+
+
+_PTR, _I32, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+def sam_exact(zr, zi, phase, freq, bw_hz: float = 100.0, sample_rate: float = 44117.64706):
+    """The exact PLL over a segment, before the DC blocker:
+
+      zr, zi:      (C, n) f32 band-passed IQ, any n >= 1
+      phase, freq: (C,) f32 carries
+
+    Returns (vr (C, n), phase', freq'). CPU tensors run the plain version;
+    CUDA tensors launch ``csrc/sam.cu``'s ``sam_exact``, or raise.
+    """
+    global LAUNCHES
+    if zr.device.type == "cpu":
+        return sam_exact_plain(zr, zi, phase, freq, bw_hz, sample_rate)
+    if zr.device.type != "cuda":
+        raise ValueError(f"the exact SAM PLL runs on cuda or cpu, not {zr.device}")
+    _check_sam(zr, zi, phase, freq)
+    c, n = zr.shape
+    check_launch("sam_exact", (zr, zi))
+    if not (phase.is_contiguous() and freq.is_contiguous()):
+        raise ValueError("sam_exact takes contiguous phase and freq carries")
+    outs = (torch.empty_like(zr), torch.empty_like(phase), torch.empty_like(freq))
+    fn = build.load_library("sam").sam_exact
+    fn.argtypes = [_PTR] * 7 + [_I32] * 2 + [_F32] * 3 + [_I32, _PTR]
+    fn.restype = ctypes.c_int
+    err = fn(*(t.data_ptr() for t in (zr, zi, phase, freq) + outs), c, n,
+             *sam.pll_gains(bw_hz, sample_rate), zr.device.index or 0,
+             torch.cuda.current_stream(zr.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"sam_exact launch failed: cudaError {err}")
+    LAUNCHES += 1
+    return outs
+
+
+def _demod_sam(pll, zr, zi, state: SAMStatePlanar, bw_hz, sample_rate):
+    _check_sam(zr, zi, *state)
+    vr, phase, freq = pll(zr, zi, state.phase, state.freq, bw_hz, sample_rate)
     audio, dc = dc_blocker(vr, state.dc)
     return audio, SAMStatePlanar(phase=phase, freq=freq, dc=dc)
+
+
+def demod_sam_planar_plain(zr, zi, state: SAMStatePlanar, bw_hz: float = 100.0,
+                           sample_rate: float = 44117.64706):
+    """Plain PyTorch version of ``demod_sam_planar``."""
+    return _demod_sam(sam_exact_plain, zr, zi, state, bw_hz, sample_rate)
+
+
+def demod_sam_planar(zr, zi, state: SAMStatePlanar, bw_hz: float = 100.0,
+                     sample_rate: float = 44117.64706):
+    """Synchronous AM of band-passed IQ, the second-order carrier PLL
+    (``ops/planar.py:154-186`` of the JAX package), its in-phase product
+    through the DC blocker:
+
+      zr, zi: (C, n) f32, any n >= 1
+      state:  phase, freq (C,) f32; dc (C, 2) f32
+
+    Returns (audio (C, n), state'). The PLL is ``sam_exact``: CPU tensors
+    run its plain version; CUDA tensors launch its kernel, or raise. The DC
+    blocker is ``ops/iir.dc_blocker``.
+    """
+    return _demod_sam(sam_exact, zr, zi, state, bw_hz, sample_rate)
 
 
 def iq_gain_balance_planar(xr, xi, gain):

@@ -474,7 +474,8 @@ def make_full_sharded_chain(mesh: Mesh, *, mode: str = "usb", nr: str = "off",
 
       - the linear stages (blanker, NCO, overlap-save filters, AGC envelope,
         DC blocker) time-sharded with ppermute halos and exact fix-ups;
-      - the adaptive stages (the SAM PLL, ``planar.demod_sam_planar``; the
+      - the adaptive stages (the SAM PLL, ``planar.demod_sam_planar``,
+        ``sam_exact`` on the card; the
         LMS notch before the AGC or denoise after PBT, ``lms.lms_nr_run``,
         K3 on the card) after an all_to_all that gives each shard whole
         streams of C_loc / time channels, then the inverse all_to_all;

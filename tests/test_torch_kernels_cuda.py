@@ -29,7 +29,9 @@ last chunk is partial, SAM + spectral frame by frame); the PLL's pieces through
 csrc/sam.cu's probe: the explicit divide bit for bit against IEEE division
 where the quotient is at least 2^-126 (tiny numerators included), within
 2^-149 below, the atan2 within
-ATAN2_ULPS of the plain one. The
+ATAN2_ULPS of the plain one. ``sam_exact``, the exact PLL under
+``planar.demod_sam_planar``, equals that function's plain loop on the card
+bit for bit (1 and 33 channels, 1,000 and 16,384 samples). The
 NR instantiations of the lanes kernel (ops/lanes.py: LMS denoise and notch,
 spectral NR, after each demod, with and without the blanker) run on the
 same locked scenes, at 2e-4 with an LMS stage and 1e-4 with the spectral
@@ -70,7 +72,7 @@ from radiodsp_sdr_rx_tpu_torch.models.fused import (
     FusedAMBank, FusedNRBank, FusedSAMBank, FusedSSBBank)
 from radiodsp_sdr_rx_tpu_torch.models.receiver import Receiver, ReceiverBank
 from radiodsp_sdr_rx_tpu_torch.ops import (
-    agc, lanes, lms, lms_bank, sam, sam_wide, staged, sweep, sweep_spec)
+    agc, lanes, lms, lms_bank, planar, sam, sam_wide, staged, sweep, sweep_spec)
 
 pytestmark = pytest.mark.cuda
 ATOL = 1e-4
@@ -565,6 +567,33 @@ def test_sam_pll_kernel_matches_plain_over_two_segments(cuda_device, channels, n
         _close((got[0], got[2]), (ref[0], ref[2]))
         _phase_close(got[1], ref[1])
         ph, fr = got[1], got[2]
+
+
+@pytest.mark.parametrize("channels", [1, 33])
+@pytest.mark.parametrize("n", [1000, 16384])
+def test_sam_exact_equals_the_plain_loop(cuda_device, channels, n):
+    """sam_exact (planar.demod_sam_planar on the card) against
+    demod_sam_planar_plain, the same loop of PyTorch operations on the card,
+    over two threaded halves of n (a ragged last tile at 1,000, a partial
+    block of 32 channels at 33): the audio and every carry bit for bit, one
+    launch a call."""
+    gen = torch.Generator(device=cuda_device).manual_seed(channels + n)
+    zr, zi = _locked(channels, n, gen, cuda_device, baseband=True)
+    st = planar.SAMStatePlanar(torch.rand(channels, generator=gen, device=cuda_device) * 6.28,
+                               torch.zeros(channels, device=cuda_device),
+                               torch.zeros((channels, 2), device=cuda_device))
+    half = n // 2
+    for seg in range(2):
+        xs = (zr[:, seg * half:(seg + 1) * half].contiguous(),
+              zi[:, seg * half:(seg + 1) * half].contiguous())
+        want, w_st = planar.demod_sam_planar_plain(*xs, st, sample_rate=FS)
+        before = planar.LAUNCHES
+        got, st = planar.demod_sam_planar(*xs, st, sample_rate=FS)
+        torch.cuda.synchronize()
+        assert planar.LAUNCHES == before + 1
+        assert bool(torch.isfinite(got).all())
+        assert torch.equal(got, want)
+        assert all(torch.equal(a, b) for a, b in zip(st, w_st))
 
 
 def test_probe_divide_equals_ieee_division(cuda_device):
