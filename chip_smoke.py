@@ -1455,10 +1455,6 @@ def scope_and_host_paths(dev, reset_counts, counts, only, blocks: int = CLI_BLOC
             f"{trace_file.stat().st_size} bytes, {len(kernels)} distinct CUDA kernels named, "
             f"e.g. {kernels[:2]}")
         check(not on_card or kernels, "the trace names no CUDA kernel")
-    report = profiling.stage_report(device=dev)
-    say("timing profiling.stage_report (16 ch x 2^16, the chain's plain stages): "
-        + ", ".join(f"{k} {v['ms_per_call']:.3f} ms ({v['msamples_per_s']:.1f} Msamples/s)"
-                    for k, v in report.items()))
 
     ring = native_io.IQRing(1 << 16)
     total = blocks * CLI_BLOCK

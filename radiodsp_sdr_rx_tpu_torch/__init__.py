@@ -57,7 +57,7 @@ Layers, from the entry point down:
   utils/profiling.py  the host runtime: WAV and raw IQ files, the native IQ
                    ring (csrc/rdsp_io.cpp, built with g++), the audio sink,
                    checkpoints that either package loads, torch.profiler
-                   traces and stage timing
+                   traces and the port's spans
   csrc/*.cu        the kernels (shared device code in csrc/chain_common.cuh
                    and, for the SAM PLL, csrc/sam_pll.cuh)
   models/config.py, models/receiver.py, ops/{fir_design,operators,agc,nco}.py

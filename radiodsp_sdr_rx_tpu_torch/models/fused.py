@@ -63,6 +63,7 @@ from radiodsp_sdr_rx_tpu_torch.ops.sweep import (
 )
 from radiodsp_sdr_rx_tpu_torch.ops.sweep_spec import sweep_spec_chain
 from radiodsp_sdr_rx_tpu_torch.utils.convert import params_from_numpy, resolve_device, split_iq
+from radiodsp_sdr_rx_tpu_torch.utils.profiling import span
 
 _BLOCK = 128
 _LANES = 128   # the JAX SAM PLL's lane width (pallas_sam.LANES)
@@ -93,9 +94,21 @@ def _phase_incs(config: ReceiverConfig, freqs_hz, device) -> torch.Tensor:
                            device=device)
 
 
+def _host_bytes(x, out: torch.Tensor) -> int:
+    """The bytes of ``out`` that crossed from the host to make it from ``x``."""
+    on_host = not torch.is_tensor(x) or x.device.type == "cpu"
+    return out.numel() * out.element_size() if on_host and out.device.type != "cpu" else 0
+
+
 def _planar(xr, xi, device):
-    return (torch.as_tensor(xr, dtype=torch.float32, device=device).contiguous(),
-            torch.as_tensor(xi, dtype=torch.float32, device=device).contiguous())
+    """The planes as contiguous f32 tensors on ``device``: the upload, which
+    waits for its copy from the host."""
+    with span("rdsp.upload") as s:
+        out = (torch.as_tensor(xr, dtype=torch.float32, device=device).contiguous(),
+               torch.as_tensor(xi, dtype=torch.float32, device=device).contiguous())
+        if s is not None:
+            s.attrs["bytes"] = _host_bytes(xr, out[0]) + _host_bytes(xi, out[1])
+    return out
 
 
 class FusedSSBBank:
@@ -173,29 +186,33 @@ class FusedSSBBank:
     def process_planar(self, xr, xi, state: FusedBankState):
         """One segment of planar f32 IQ, (C, n) each with n a multiple of 128.
         Returns ({"audio_l", "audio_r"}, next state)."""
-        xr, xi = _planar(xr, xi, self.device)
-        phase = nco.advance_phase(state.nco_phase, xr.shape[-1], self.incs)
-        if self.backend == "staged":
-            audio = staged.fused_mix_filter_demod(*self.mix_demod_args(xr, xi, state))
-            audio_g, env = agc_ops.agc_run(audio, self.agc_params, state.agc_env)
-            del audio
-            l, r = staged.pbt_filter(*self.pbt_args(audio_g, state))
-            new_state = state._replace(
-                nco_phase=phase,
-                sb_tail=torch.cat([xr[:, -_BLOCK:] * float(self.gain_i),
-                                   xi[:, -_BLOCK:] * float(self.gain_q)], dim=-1),
-                audio_tail=audio_g[:, -_BLOCK:].contiguous(),
-                agc_env=env)
+        with span("rdsp.entry", bank=type(self).__name__):
+            xr, xi = _planar(xr, xi, self.device)
+            if self.backend == "staged":
+                with span("rdsp.chain"):
+                    audio = staged.fused_mix_filter_demod(*self.mix_demod_args(xr, xi, state))
+                    audio_g, env = agc_ops.agc_run(audio, self.agc_params, state.agc_env)
+                    del audio
+                    l, r = staged.pbt_filter(*self.pbt_args(audio_g, state))
+                with span("rdsp.state"):
+                    new_state = state._replace(
+                        nco_phase=nco.advance_phase(state.nco_phase, xr.shape[-1], self.incs),
+                        sb_tail=torch.cat([xr[:, -_BLOCK:] * float(self.gain_i),
+                                           xi[:, -_BLOCK:] * float(self.gain_q)], dim=-1),
+                        audio_tail=audio_g[:, -_BLOCK:].contiguous(),
+                        agc_env=env)
+                return {"audio_l": l, "audio_r": r}, new_state
+            args = self.chain_args(xr, xi, state)
+            with span("rdsp.chain"):
+                l, r, atail, env, *nb_carry = sweep_full_chain(*args, image=self.image)
+            with span("rdsp.state"):
+                new_state = state._replace(
+                    nco_phase=nco.advance_phase(state.nco_phase, xr.shape[-1], self.incs),
+                    sb_tail=torch.cat([xr[:, -_BLOCK:], xi[:, -_BLOCK:]], dim=-1),
+                    audio_tail=atail, agc_env=env)
+                if nb_carry:
+                    new_state = new_state._replace(nb_avg=nb_carry[0], nb_mask=nb_carry[1])
             return {"audio_l": l, "audio_r": r}, new_state
-        l, r, atail, env, *nb_carry = sweep_full_chain(*self.chain_args(xr, xi, state),
-                                                       image=self.image)
-        new_state = state._replace(
-            nco_phase=phase,
-            sb_tail=torch.cat([xr[:, -_BLOCK:], xi[:, -_BLOCK:]], dim=-1),
-            audio_tail=atail, agc_env=env)
-        if nb_carry:
-            new_state = new_state._replace(nb_avg=nb_carry[0], nb_mask=nb_carry[1])
-        return {"audio_l": l, "audio_r": r}, new_state
 
     def process(self, iq, state: FusedBankState):
         """Complex IQ at the host boundary: (C, n), or (n,) for every channel."""
@@ -263,15 +280,19 @@ class FusedAMBank:
     def process_planar(self, xr, xi, state: FusedAMBankState):
         """One segment of planar f32 IQ, (C, n) each with n a multiple of 128.
         Returns ({"audio_l", "audio_r"}, next state)."""
-        xr, xi = _planar(xr, xi, self.device)
-        l, r, atail, env, dc, *nb_carry = sweep_am_chain(*self.chain_args(xr, xi, state))
-        new_state = state._replace(
-            nco_phase=nco.advance_phase(state.nco_phase, xr.shape[-1], self.incs),
-            sb_tail=torch.cat([xr[:, -_BLOCK:], xi[:, -_BLOCK:]], dim=-1),
-            audio_tail=atail, agc_env=env, am_dc=dc)
-        if nb_carry:
-            new_state = new_state._replace(nb_avg=nb_carry[0], nb_mask=nb_carry[1])
-        return {"audio_l": l, "audio_r": r}, new_state
+        with span("rdsp.entry", bank=type(self).__name__):
+            xr, xi = _planar(xr, xi, self.device)
+            args = self.chain_args(xr, xi, state)
+            with span("rdsp.chain"):
+                l, r, atail, env, dc, *nb_carry = sweep_am_chain(*args)
+            with span("rdsp.state"):
+                new_state = state._replace(
+                    nco_phase=nco.advance_phase(state.nco_phase, xr.shape[-1], self.incs),
+                    sb_tail=torch.cat([xr[:, -_BLOCK:], xi[:, -_BLOCK:]], dim=-1),
+                    audio_tail=atail, agc_env=env, am_dc=dc)
+                if nb_carry:
+                    new_state = new_state._replace(nb_avg=nb_carry[0], nb_mask=nb_carry[1])
+            return {"audio_l": l, "audio_r": r}, new_state
 
     def process(self, iq, state: FusedAMBankState):
         """Complex IQ at the host boundary: (C, n), or (n,) for every channel."""
@@ -438,26 +459,34 @@ class FusedSAMBank:
     def process_planar(self, xr, xi, state: FusedSAMBankState):
         """One segment of planar f32 IQ, (C, n) each with n a multiple of 128.
         Returns ({"audio_l", "audio_r"}, next state)."""
-        xr, xi = _planar(xr, xi, self.device)
-        phase = nco.advance_phase(state.nco_phase, xr.shape[-1], self.incs)
-        if not self.fold:
-            pll_args, sb_tail = self.pll_args(xr, xi, state)
-            vr, ph, fr = sam.sam_pll_run(*pll_args)
-            audio, dc = dc_blocker(vr, state.sam_dc)
-            audio, env = agc_ops.agc_run(audio, self.agc_params, state.agc_env)
-            l, r = staged.pbt_filter(audio, self.params.w_pbt, state.audio_tail,
-                                     self.params.output_gain)
-            return {"audio_l": l, "audio_r": r}, state._replace(
-                nco_phase=phase, sb_tail=sb_tail, audio_tail=audio[:, -_BLOCK:].contiguous(),
-                agc_env=env, sam_dc=dc, **self._padded((ph, fr), state))
-        run = sam_wide.sweep_sam_wide if self.route == "wide" else sweep_sam_chain
-        l, r, atail, env, dc, pll, *nb_carry = run(*self.chain_args(xr, xi, state))
-        new_state = state._replace(
-            nco_phase=phase, sb_tail=torch.cat([xr[:, -_BLOCK:], xi[:, -_BLOCK:]], dim=-1),
-            audio_tail=atail, agc_env=env, sam_dc=dc, **self._padded(pll, state))
-        if nb_carry:
-            new_state = new_state._replace(nb_avg=nb_carry[0], nb_mask=nb_carry[1])
-        return {"audio_l": l, "audio_r": r}, new_state
+        with span("rdsp.entry", bank=type(self).__name__):
+            xr, xi = _planar(xr, xi, self.device)
+            if not self.fold:
+                with span("rdsp.chain"):
+                    pll_args, sb_tail = self.pll_args(xr, xi, state)
+                    vr, ph, fr = sam.sam_pll_run(*pll_args)
+                    audio, dc = dc_blocker(vr, state.sam_dc)
+                    audio, env = agc_ops.agc_run(audio, self.agc_params, state.agc_env)
+                    l, r = staged.pbt_filter(audio, self.params.w_pbt, state.audio_tail,
+                                             self.params.output_gain)
+                with span("rdsp.state"):
+                    new_state = state._replace(
+                        nco_phase=nco.advance_phase(state.nco_phase, xr.shape[-1], self.incs),
+                        sb_tail=sb_tail, audio_tail=audio[:, -_BLOCK:].contiguous(),
+                        agc_env=env, sam_dc=dc, **self._padded((ph, fr), state))
+                return {"audio_l": l, "audio_r": r}, new_state
+            run = sam_wide.sweep_sam_wide if self.route == "wide" else sweep_sam_chain
+            args = self.chain_args(xr, xi, state)
+            with span("rdsp.chain"):
+                l, r, atail, env, dc, pll, *nb_carry = run(*args)
+            with span("rdsp.state"):
+                new_state = state._replace(
+                    nco_phase=nco.advance_phase(state.nco_phase, xr.shape[-1], self.incs),
+                    sb_tail=torch.cat([xr[:, -_BLOCK:], xi[:, -_BLOCK:]], dim=-1),
+                    audio_tail=atail, agc_env=env, sam_dc=dc, **self._padded(pll, state))
+                if nb_carry:
+                    new_state = new_state._replace(nb_avg=nb_carry[0], nb_mask=nb_carry[1])
+            return {"audio_l": l, "audio_r": r}, new_state
 
     def process(self, iq, state: FusedSAMBankState):
         """Complex IQ at the host boundary: (C, n), or (n,) for every channel."""
@@ -683,8 +712,10 @@ class FusedNRBank:
                 bool(cfg.noise_blanker), float(cfg.nb_threshold_db), float(cfg.nb_tau_samples),
                 state.nb_avg, state.nb_mask, state.dc if dsb else None, sam_a, lms_a, spec_a)
 
-    def _lanes(self, xr, xi, state: FusedNRBankState):
-        out = lanes.sweep_lanes_chain(*self.lanes_args(xr, xi, state))
+    def _lanes_state(self, out: lanes.LanesOut, state: FusedNRBankState):
+        """The outputs and the state's updates from a lanes chain's ``out``:
+        the carries padded to the bank's lanes as the JAX wrapper returns
+        them."""
 
         def padded(new, like):
             """new (C, ...) in the first rows of zeros shaped as ``like``
@@ -717,20 +748,36 @@ class FusedNRBank:
     def process_planar(self, xr, xi, state: FusedNRBankState):
         """One segment of planar f32 IQ, (C, n) each with n a multiple of 128.
         Returns ({"audio_l", "audio_r"}, next state)."""
-        xr, xi = _planar(xr, xi, self.device)
-        phase = nco.advance_phase(state.nco_phase, xr.shape[-1], self.incs)
-        if self.route == "staged":
-            out, upd = self._staged(xr, xi, state)
-            return out, state._replace(nco_phase=phase, **upd)
-        raw_tail = torch.cat([xr[:, -_BLOCK:], xi[:, -_BLOCK:]], dim=-1)
-        if self.route == "lanes":
-            out, upd = self._lanes(xr, xi, state)
-            return out, state._replace(nco_phase=phase, sb_tail=raw_tail, **upd)
-        l, r, atail, env, nfloor, spec_l, spec_r = sweep_spec_chain(
-            *self.spec_args(xr, xi, state))
-        return {"audio_l": l, "audio_r": r}, state._replace(
-            nco_phase=phase, sb_tail=raw_tail, audio_tail=atail, agc_env=env, nfloor=nfloor,
-            spec_tail_l=spec_l, spec_tail_r=spec_r)
+        with span("rdsp.entry", bank=type(self).__name__):
+            xr, xi = _planar(xr, xi, self.device)
+            n = xr.shape[-1]
+            if self.route == "staged":
+                with span("rdsp.chain"):
+                    out, upd = self._staged(xr, xi, state)
+                with span("rdsp.state"):
+                    new_state = state._replace(
+                        nco_phase=nco.advance_phase(state.nco_phase, n, self.incs), **upd)
+                return out, new_state
+            if self.route == "lanes":
+                args = self.lanes_args(xr, xi, state)
+                with span("rdsp.chain"):
+                    res = lanes.sweep_lanes_chain(*args)
+                with span("rdsp.state"):
+                    out, upd = self._lanes_state(res, state)
+                    new_state = state._replace(
+                        nco_phase=nco.advance_phase(state.nco_phase, n, self.incs),
+                        sb_tail=torch.cat([xr[:, -_BLOCK:], xi[:, -_BLOCK:]], dim=-1), **upd)
+                return out, new_state
+            args = self.spec_args(xr, xi, state)
+            with span("rdsp.chain"):
+                l, r, atail, env, nfloor, spec_l, spec_r = sweep_spec_chain(*args)
+            with span("rdsp.state"):
+                new_state = state._replace(
+                    nco_phase=nco.advance_phase(state.nco_phase, n, self.incs),
+                    sb_tail=torch.cat([xr[:, -_BLOCK:], xi[:, -_BLOCK:]], dim=-1),
+                    audio_tail=atail, agc_env=env, nfloor=nfloor, spec_tail_l=spec_l,
+                    spec_tail_r=spec_r)
+            return {"audio_l": l, "audio_r": r}, new_state
 
     def process(self, iq, state: FusedNRBankState):
         """Complex IQ at the host boundary: (C, n), or (n,) for every channel."""

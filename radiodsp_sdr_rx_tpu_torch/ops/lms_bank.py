@@ -28,6 +28,7 @@ import torch
 from radiodsp_sdr_rx_tpu_torch.ops.chain_common import check_launch, check_tensors
 from radiodsp_sdr_rx_tpu_torch.ops.lms import _EPS, LMS_DELAY, LMS_TAPS
 from radiodsp_sdr_rx_tpu_torch.utils import build
+from radiodsp_sdr_rx_tpu_torch.utils.profiling import span
 
 LAUNCHES = 0   # lms_nr
 MODES = ("denoise", "notch")
@@ -164,9 +165,10 @@ def lms_nr_run_bank(x, weights, window, delay, first, mu, mode="denoise"):
     fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_float,
                                                                 ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    err = fn(*(t.data_ptr() for t in (x, weights, window, delay, flag, out, w2, win2)),
-             c, n, x.device.index or 0, float(np.float32(mu)), int(mode == "notch"),
-             torch.cuda.current_stream(x.device).cuda_stream)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with span("rdsp.launch", kernel="lms_nr"):
+        err = fn(*(t.data_ptr() for t in (x, weights, window, delay, flag, out, w2, win2)),
+                 c, n, x.device.index or 0, float(np.float32(mu)), int(mode == "notch"), stream)
     if err:
         raise RuntimeError(f"lms_nr launch failed: cudaError {err}")
     LAUNCHES += 1

@@ -44,6 +44,7 @@ from radiodsp_sdr_rx_tpu_torch.ops.spectral_sub import (
     floor_track,
 )
 from radiodsp_sdr_rx_tpu_torch.utils import build
+from radiodsp_sdr_rx_tpu_torch.utils.profiling import span
 
 LAUNCHES = 0   # sam_exact
 
@@ -171,9 +172,10 @@ def sam_exact(zr, zi, phase, freq, bw_hz: float = 100.0, sample_rate: float = 44
     fn = build.load_library("sam").sam_exact
     fn.argtypes = [_PTR] * 7 + [_I32] * 2 + [_F32] * 3 + [_I32, _PTR]
     fn.restype = ctypes.c_int
-    err = fn(*(t.data_ptr() for t in (zr, zi, phase, freq) + outs), c, n,
-             *sam.pll_gains(bw_hz, sample_rate), zr.device.index or 0,
-             torch.cuda.current_stream(zr.device).cuda_stream)
+    stream = torch.cuda.current_stream(zr.device).cuda_stream
+    with span("rdsp.launch", kernel="sam_exact"):
+        err = fn(*(t.data_ptr() for t in (zr, zi, phase, freq) + outs), c, n,
+                 *sam.pll_gains(bw_hz, sample_rate), zr.device.index or 0, stream)
     if err:
         raise RuntimeError(f"sam_exact launch failed: cudaError {err}")
     LAUNCHES += 1

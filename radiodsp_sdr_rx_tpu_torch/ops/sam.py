@@ -42,6 +42,7 @@ import torch
 
 from radiodsp_sdr_rx_tpu_torch.ops.chain_common import check_launch, check_tensors
 from radiodsp_sdr_rx_tpu_torch.utils import build
+from radiodsp_sdr_rx_tpu_torch.utils.profiling import span
 
 LAUNCHES = 0   # sam_pll
 SAMPLE_RATE = 44117.64706
@@ -264,9 +265,10 @@ def sam_pll_run(zr, zi, phase0, freq0, bw_hz=100.0, sample_rate=SAMPLE_RATE, chu
     fn = build.load_library("sam").sam_pll
     fn.argtypes = [_PTR] * 7 + [_I32] * 3 + [_F32] * 3 + [_I32, _PTR]
     fn.restype = ctypes.c_int
-    err = fn(*(t.data_ptr() for t in (zr, zi, phase0, freq0) + outs), c, n, chunk,
-             *pll_gains(bw_hz, sample_rate), zr.device.index or 0,
-             torch.cuda.current_stream(zr.device).cuda_stream)
+    stream = torch.cuda.current_stream(zr.device).cuda_stream
+    with span("rdsp.launch", kernel="sam_pll"):
+        err = fn(*(t.data_ptr() for t in (zr, zi, phase0, freq0) + outs), c, n, chunk,
+                 *pll_gains(bw_hz, sample_rate), zr.device.index or 0, stream)
     if err:
         raise RuntimeError(f"sam_pll launch failed: cudaError {err}")
     LAUNCHES += 1

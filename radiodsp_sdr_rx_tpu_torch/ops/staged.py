@@ -48,6 +48,7 @@ from radiodsp_sdr_rx_tpu_torch.ops.chain_common import (
 )
 from radiodsp_sdr_rx_tpu_torch.ops import tf32x3
 from radiodsp_sdr_rx_tpu_torch.utils import build
+from radiodsp_sdr_rx_tpu_torch.utils.profiling import span
 
 LAUNCHES_MIX_DEMOD = 0
 LAUNCHES_PBT = 0
@@ -105,7 +106,9 @@ def launch(name: str, device: torch.device, *args) -> None:
     fn = getattr(build.load_library("staged"), name)
     fn.argtypes = _ARGTYPES[name]
     fn.restype = ctypes.c_int
-    err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    with span("rdsp.launch", kernel=name):
+        err = fn(*args, stream)
     if err:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
 

@@ -107,6 +107,7 @@ from radiodsp_sdr_rx_tpu_torch.ops.spectral_sub import (
     spectral_matmul_ops,
 )
 from radiodsp_sdr_rx_tpu_torch.utils import build
+from radiodsp_sdr_rx_tpu_torch.utils.profiling import span
 
 LAUNCHES = 0        # sweep_chain_ssb
 LAUNCHES_NB = 0     # sweep_chain_ssb_nb
@@ -647,28 +648,38 @@ def launch_chain(xr, xi, inc, phase0, w, w_pbt, tail_r, tail_i, audio_tail,
     nr = "spectral" if spec is not None else None if lms is None else lms.mode
     demod = "sam" if sam else "am" if dc0 is not None else "ssb"
     lib = "sam_wide" if groups is not None else LIBRARIES[nr]
+    nb_ = "_nb" if nb else ""
+    # the name the kernel's launch counter uses: here, lanes.LAUNCHES,
+    # sweep_spec.LAUNCHES or sam_wide's
+    name = (f"sam_wide{nb_}" if groups is not None
+            else f"sweep_chain_{demod}{nb_}{'' if emit_r else '_mono'}" if lib == "sweep_chain"
+            else "sweep_spec_chain" if (nr, demod, nb) == ("spectral", "ssb", False)
+            else f"lanes_{demod}_{nr}{nb_}")
     stream = torch.cuda.current_stream(xr.device).cuda_stream
     if fed_route:
         fn = build.load_library(lib).launch_ssb
         fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        err = fn(ctypes.addressof(args), image.band.data_ptr(), image.pbt.data_ptr(),
-                 int(bool(emit_r)), c, xr.device.index or 0, stream)
+        with span("rdsp.launch", kernel=name):
+            err = fn(ctypes.addressof(args), image.band.data_ptr(), image.pbt.data_ptr(),
+                     int(bool(emit_r)), c, xr.device.index or 0, stream)
     elif pair_route:
         split = am_cluster_size(c, am_active_clusters(xr.device, nb), _split)
         fn = build.load_library(lib).launch_am
         fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        err = fn(ctypes.addressof(args), int(bool(nb)), split, c, xr.device.index or 0, stream)
+        with span("rdsp.launch", kernel=name):
+            err = fn(ctypes.addressof(args), int(bool(nb)), split, c, xr.device.index or 0,
+                     stream)
     else:
         fn = build.load_library(lib).launch_chain
         fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        err = fn(ctypes.addressof(args), _DEMODS.index(demod) if groups is None else groups,
-                 int(bool(nb)), c, xr.device.index or 0, stream)
+        with span("rdsp.launch", kernel=name):
+            err = fn(ctypes.addressof(args), _DEMODS.index(demod) if groups is None else groups,
+                     int(bool(nb)), c, xr.device.index or 0, stream)
     if err:
         raise RuntimeError(f"{lib} launch failed: cudaError {err}")
-    name = f"sweep_chain_{demod}{'_nb' if nb else ''}{'' if emit_r else '_mono'}"
     if lib == "sweep_chain":
         globals()[_COUNTERS[name]] += 1
     tail = [outs.get(k) for k in ("dc_out", "pll_out", "lms_w_out", "lms_win_out",

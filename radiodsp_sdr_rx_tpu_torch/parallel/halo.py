@@ -44,6 +44,7 @@ import torch
 import torch.distributed as dist
 
 from radiodsp_sdr_rx_tpu_torch.utils import build
+from radiodsp_sdr_rx_tpu_torch.utils.profiling import span
 
 LAUNCHES = 0         # ring_shift, in one process
 LAUNCHES_GROUP = 0   # ring_shift_kernel through group_ring_send, across processes
@@ -181,9 +182,12 @@ def _launch(sources, like, one_device: bool):
         dev = b0.get_device()
         out = torch.empty((n,) + tuple(b0.shape), dtype=b0.dtype, device=b0.device)
         base, size = out.data_ptr(), floats * 4
-        _raise_on(_library()["ring_shift"](_table([s.data_ptr() for s in sources]),
-                                           _table([base + p * size for p in range(n)]), n,
-                                           floats, dev, _raw_stream(dev)), "ring_shift launch")
+        src_table, dst_table = (_table([s.data_ptr() for s in sources]),
+                                _table([base + p * size for p in range(n)]))
+        fn, stream = _library()["ring_shift"], _raw_stream(dev)
+        with span("rdsp.launch", kernel="ring_shift"):
+            err = fn(src_table, dst_table, n, floats, dev, stream)
+        _raise_on(err, "ring_shift launch")
         LAUNCHES += 1
         return list(out.unbind(0))
     outs = [torch.empty_like(b) for b in like]
@@ -198,10 +202,12 @@ def _launch(sources, like, one_device: bool):
         for peer in remote:   # the buffers were made on the peer's stream
             _enable_peer(dev, peer)
             stream.wait_stream(torch.cuda.current_stream(peer))
-        _raise_on(_library()["ring_shift"](_table([src.data_ptr() for src, _ in pairs]),
-                                           _table([dst.data_ptr() for _, dst in pairs]),
-                                           len(pairs), floats, dev, stream.cuda_stream),
-                  "ring_shift launch")
+        src_table, dst_table = (_table([src.data_ptr() for src, _ in pairs]),
+                                _table([dst.data_ptr() for _, dst in pairs]))
+        fn = _library()["ring_shift"]
+        with span("rdsp.launch", kernel="ring_shift"):
+            err = fn(src_table, dst_table, len(pairs), floats, dev, stream.cuda_stream)
+        _raise_on(err, "ring_shift launch")
         LAUNCHES += 1
         for peer in remote:
             torch.cuda.current_stream(peer).wait_stream(stream)
@@ -400,9 +406,10 @@ class GroupRing:
         if self.right is not None:   # freed by the right neighbour at its exchange k - slots + 2
             self._await(me + 2, k - slots + 3, "the right neighbour's slot")
         if self.right is not None or first is not None:
-            _raise_on(lib["group_ring_send"](self._ring, slot, tail.data_ptr(),
-                                             None if first is None else first.data_ptr(),
-                                             stream), "ring_shift launch across processes")
+            with span("rdsp.launch", kernel="ring_shift_group"):
+                err = lib["group_ring_send"](self._ring, slot, tail.data_ptr(),
+                                             None if first is None else first.data_ptr(), stream)
+            _raise_on(err, "ring_shift launch across processes")
             LAUNCHES_GROUP += 1
         if self.right is not None:
             flags[me + 1] = k + 1
